@@ -1,0 +1,80 @@
+"""Virtual adversarial training for the dual-decoder model (port of
+chap_tpu/losses/vat.py:25-103).
+
+Power iteration finds the divergence-maximising input direction, then the
+divergence of the adversarial pass against both decoders' clean soft targets
+is penalised inside the top-k disagreement mask. The power iteration takes
+``torch.autograd.grad`` with respect to ``d`` only, so it leaves no
+parameter gradient, like chap_tpu's stop-gradient on ``d``. The initial
+uniform draw of ``d`` can be passed in.
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional, Tuple
+
+import torch
+
+from chap_tpu_torch.losses.ce import kl_div_per_pixel
+from chap_tpu_torch.losses.dice import soft_dice_loss_masked
+
+ApplyFn = Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
+
+
+def l2_normalize_batch(d: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """Normalize each batch element's perturbation to unit L2 norm."""
+    norm = torch.linalg.vector_norm(d.reshape(d.shape[0], -1), dim=1)
+    return d / (norm.reshape((-1,) + (1,) * (d.dim() - 1)) + eps)
+
+
+def _divergence(logits1: torch.Tensor, logits2: torch.Tensor,
+                soft1: torch.Tensor, soft2: torch.Tensor,
+                mask: torch.Tensor, losstype: str) -> torch.Tensor:
+    """Masked divergence of perturbed predictions vs. the clean soft targets
+    (logits / soft: [B, C, H, W]; mask: [B, H, W])."""
+    if losstype == "kl":
+        kl1 = kl_div_per_pixel(torch.log_softmax(logits1, dim=1), soft1)
+        kl2 = kl_div_per_pixel(torch.log_softmax(logits2, dim=1), soft2)
+        m = mask.to(kl1.dtype)
+        denom = m.sum() + 1e-16
+        return ((kl1 * m).sum() + (kl2 * m).sum()) / denom
+    if losstype == "dice":
+        return (soft_dice_loss_masked(torch.softmax(logits1, dim=1), soft1, mask)
+                + soft_dice_loss_masked(torch.softmax(logits2, dim=1), soft2, mask))
+    raise ValueError(f"unknown adv_losstype {losstype!r}")
+
+
+def vat_direction(apply_fn: ApplyFn, x: torch.Tensor, soft1: torch.Tensor,
+                  soft2: torch.Tensor, mask: torch.Tensor,
+                  d0: Optional[torch.Tensor] = None,
+                  xi: float = 10.0, num_iters: int = 1,
+                  losstype: str = "kl") -> torch.Tensor:
+    """Power iteration only: the unit adversarial direction d (detached).
+    d0: the initial uniform [0, 1) draw, shaped like x (drawn from the
+    global generator when None)."""
+    soft1, soft2 = soft1.detach(), soft2.detach()
+    if d0 is None:
+        d0 = torch.rand_like(x)
+    d = l2_normalize_batch(d0.to(x.dtype) - 0.5)
+    for _ in range(num_iters):
+        d_req = d.detach().requires_grad_(True)
+        l1, l2 = apply_fn(x + xi * d_req)
+        dist = _divergence(l1, l2, soft1, soft2, mask, losstype)
+        (grad_d,) = torch.autograd.grad(dist, [d_req])
+        d = l2_normalize_batch(grad_d)
+    return d.detach()
+
+
+def vat_loss_2d(apply_fn: ApplyFn, x: torch.Tensor, soft1: torch.Tensor,
+                soft2: torch.Tensor, mask: torch.Tensor,
+                d0: Optional[torch.Tensor] = None,
+                xi: float = 10.0, epi: float = 6.0, num_iters: int = 1,
+                losstype: str = "kl") -> torch.Tensor:
+    """VAT loss against a dual-headed model.
+
+    apply_fn: x -> (logits1, logits2) with the parameters bound; parameter
+    gradients flow through the final adversarial pass only. x: [B, Cin, H, W];
+    soft1 / soft2: [B, C, H, W] clean soft predictions; mask: [B, H, W]."""
+    d = vat_direction(apply_fn, x, soft1, soft2, mask, d0, xi=xi,
+                      num_iters=num_iters, losstype=losstype)
+    l1, l2 = apply_fn(x + epi * d)
+    return _divergence(l1, l2, soft1.detach(), soft2.detach(), mask, losstype)

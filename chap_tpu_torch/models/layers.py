@@ -1,0 +1,134 @@
+"""Building blocks of the 2D UNet family (port of chap_tpu/models/layers.py).
+
+NCHW, with the original torch module names (``conv_conv.0`` ...), so a
+reference ``state_dict`` loads by name and chap_tpu's converter rules apply.
+
+BatchNorm follows chap_tpu's Flax semantics, not torch's: in train mode it
+normalises with the biased batch statistics and does NOT touch its running
+buffers. It reports the batch mean and biased variance in a ``stats`` dict
+instead, and the train step folds them into the running stats with Flax's
+momentum (running = 0.9 * running + 0.1 * batch). That keeps the step the
+owner of the running stats, as chap_tpu's TrainState is, and makes passes
+whose updates are discarded (VAT) and re-run forwards (checkpointing) safe.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+BN_MOMENTUM = 0.9     # Flax convention: weight of the old running value
+BN_EPS = 1e-5
+
+Stats = Dict[str, Tuple[torch.Tensor, torch.Tensor]]
+
+
+def upsample2x_bilinear(x: torch.Tensor) -> torch.Tensor:
+    """torch nn.Upsample(scale_factor=2, mode='bilinear', align_corners=True)."""
+    return F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=True)
+
+
+def dropout_from_uniform(x: torch.Tensor, p: float,
+                         u: Optional[torch.Tensor]) -> torch.Tensor:
+    """Flax nn.Dropout with its draw passed in: keep where u < 1-p (JAX's
+    bernoulli(key, 1-p) is uniform(key) < 1-p), kept values scaled by
+    1/(1-p). ``u=None`` draws from the global generator."""
+    if u is None:
+        u = torch.rand_like(x)
+    keep = 1.0 - p
+    return torch.where(u < keep, x / keep, torch.zeros((), dtype=x.dtype,
+                                                       device=x.device))
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm with Flax train-mode semantics (see the module docstring).
+
+    ``stats_key`` is the module's qualified name in its model; the owning
+    model sets it (DualDecoder.__init__)."""
+
+    stats_key: str = ""
+
+    def __init__(self, num_features: int):
+        super().__init__(num_features, eps=BN_EPS, momentum=1.0 - BN_MOMENTUM)
+
+    def forward(self, x: torch.Tensor, stats: Optional[Stats] = None
+                ) -> torch.Tensor:
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.eps)
+        if stats is not None:
+            with torch.no_grad():
+                var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+            stats[self.stats_key] = (mean, var)
+        # running buffers are not passed: nothing is updated in place
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                            self.eps)
+
+
+class ConvBlock(nn.Module):
+    """conv3x3-BN-LeakyReLU-dropout-conv3x3-BN-LeakyReLU (unet.py:44-60).
+    ``conv_conv`` keeps the reference's Sequential indices for the names;
+    forward walks it by hand to pass the dropout draw and the stats dict."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 dropout_p: float = 0.0):
+        super().__init__()
+        self.dropout_p = float(dropout_p)
+        self.conv_conv = nn.Sequential(
+            nn.Conv2d(in_channels, out_channels, 3, padding=1),
+            BatchNorm2d(out_channels),
+            nn.LeakyReLU(0.01),
+            nn.Dropout(self.dropout_p),
+            nn.Conv2d(out_channels, out_channels, 3, padding=1),
+            BatchNorm2d(out_channels),
+            nn.LeakyReLU(0.01),
+        )
+
+    def forward(self, x: torch.Tensor, drop_u: Optional[torch.Tensor] = None,
+                stats: Optional[Stats] = None) -> torch.Tensor:
+        c = self.conv_conv
+        x = F.leaky_relu(c[1](c[0](x), stats), 0.01)
+        if self.training and self.dropout_p > 0:
+            x = dropout_from_uniform(x, self.dropout_p, drop_u)
+        return F.leaky_relu(c[5](c[4](x), stats), 0.01)
+
+
+class DownBlock(nn.Module):
+    """maxpool2x2 then ConvBlock (unet.py:63-75)."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 dropout_p: float = 0.0):
+        super().__init__()
+        self.maxpool_conv = nn.Sequential(
+            nn.MaxPool2d(2), ConvBlock(in_channels, out_channels, dropout_p))
+
+    def forward(self, x: torch.Tensor, drop_u: Optional[torch.Tensor] = None,
+                stats: Optional[Stats] = None) -> torch.Tensor:
+        return self.maxpool_conv[1](self.maxpool_conv[0](x), drop_u, stats)
+
+
+class UpBlock(nn.Module):
+    """1x1 conv + bilinear up (or ConvTranspose2d k2 s2 for the mcnet
+    decoder2) + skip concat + ConvBlock (unet.py:78-99). ``plus`` fuses the
+    skip by addition instead (UpBlock_plus, unet.py:101-123)."""
+
+    def __init__(self, in_channels1: int, in_channels2: int, out_channels: int,
+                 dropout_p: float = 0.0, bilinear: bool = True,
+                 plus: bool = False):
+        super().__init__()
+        self.bilinear = bilinear
+        self.plus = plus
+        if bilinear:
+            self.conv1x1 = nn.Conv2d(in_channels1, in_channels2, 1)
+        else:
+            self.up = nn.ConvTranspose2d(in_channels1, in_channels2, 2, stride=2)
+        self.conv = ConvBlock(in_channels2 * (1 if plus else 2), out_channels,
+                              dropout_p)
+
+    def forward(self, x1: torch.Tensor, x2: torch.Tensor,
+                stats: Optional[Stats] = None) -> torch.Tensor:
+        x1 = upsample2x_bilinear(self.conv1x1(x1)) if self.bilinear else self.up(x1)
+        x = x2 + x1 if self.plus else torch.cat([x2, x1], dim=1)
+        return self.conv(x, None, stats)

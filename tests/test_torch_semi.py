@@ -1,0 +1,142 @@
+"""The port's semi-supervised primitives and K2's plain version, held
+against chap_tpu on the same numpy-seeded inputs (CPU). K2's CUDA kernel
+runs only on the card; chip_smoke.py holds it against this plain version
+there, exactly, in the same three regimes."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from chap_tpu.semi.bcp import generate_mask_nd as jax_generate_mask_nd
+from chap_tpu.semi.bcp import mix_images as jax_mix_images
+from chap_tpu.semi.gradsim import ENCODER_LEVEL_PATHS as JAX_LEVEL_PATHS
+from chap_tpu.semi.gradsim import update_grad_sim as jax_update_grad_sim
+from chap_tpu.semi.nms import largest_cc_batch as jax_largest_cc_batch
+from chap_tpu.semi.patchmask import create_mask_v1 as jax_create_mask_v1
+from chap_tpu_torch.data.datasets import phantom_batch
+from chap_tpu_torch.semi import nms
+from chap_tpu_torch.semi.bcp import generate_mask_nd, mix_images, patch_size_nd
+from chap_tpu_torch.semi.gradsim import init_sim_scores, update_grad_sim
+from chap_tpu_torch.semi.patchmask import create_mask_v1
+
+torch.set_num_threads(1)
+
+
+@pytest.mark.parametrize("hw,topk", [((32, 32), 0.1), ((30, 34), 0.25),
+                                     ((16, 16), 0.5)])
+def test_create_mask_v1_matches_chap_tpu(hw, topk):
+    rs = np.random.RandomState(0)
+    p1 = rs.randint(0, 3, (3, *hw))
+    p2 = rs.randint(0, 3, (3, *hw))
+    # quarter steps: every patch mean is exact in float32, so ties are real
+    know = (rs.randint(0, 4, (3, *hw)) / 4.0).astype(np.float32)
+    want = jax_create_mask_v1(jnp.asarray(p1), jnp.asarray(p2), jnp.asarray(know),
+                              scale_factor=4, topk=topk)
+    got = create_mask_v1(torch.from_numpy(p1), torch.from_numpy(p2),
+                         torch.from_numpy(know), scale_factor=4, topk=topk)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_generate_mask_nd_with_chap_tpu_starts(seed):
+    spatial = (32, 40)
+    key = jax.random.PRNGKey(seed)
+    want = jax_generate_mask_nd(key, spatial)
+    # the box starts chap_tpu drew from this key
+    starts = [int(jax.random.randint(k, (), 0, s - p))
+              for k, s, p in zip(jax.random.split(key, 2), spatial,
+                                 patch_size_nd(spatial))]
+    got = generate_mask_nd(spatial, starts)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    rs = np.random.RandomState(seed)
+    a, b = rs.rand(2, 1, *spatial).astype(np.float32), rs.rand(2, 1, *spatial).astype(np.float32)
+    np.testing.assert_array_equal(
+        mix_images(torch.from_numpy(a), torch.from_numpy(b), got).numpy(),
+        np.transpose(np.asarray(jax_mix_images(
+            jnp.asarray(a.transpose(0, 2, 3, 1)), jnp.asarray(b.transpose(0, 2, 3, 1)),
+            want)), (0, 3, 1, 2)))
+
+
+def test_update_grad_sim_matches_chap_tpu():
+    rs = np.random.RandomState(3)
+    chns = (4, 8, 16, 16, 32)
+    ins = (1, 4, 8, 16, 16)
+    torch_l = [rs.randn(o, i, 3, 3).astype(np.float32) for o, i in zip(chns, ins)]
+    torch_u = [rs.randn(o, i, 3, 3).astype(np.float32) for o, i in zip(chns, ins)]
+    old = [rs.rand(c).astype(np.float32) for c in chns]
+
+    def tree(ws):   # Flax layout (kh, kw, I, O) at chap_tpu's level paths
+        out = {}
+        for path, w in zip(JAX_LEVEL_PATHS, ws):
+            node = out
+            for part in path:
+                node = node.setdefault(part, {})
+            node["kernel"] = jnp.asarray(np.transpose(w, (2, 3, 1, 0)))
+        return out
+
+    want = jax_update_grad_sim(tuple(jnp.asarray(o) for o in old), tree(torch_l),
+                               tree(torch_u), decay=0.81)
+    got = update_grad_sim([torch.from_numpy(o) for o in old],
+                          [torch.from_numpy(w) for w in torch_l],
+                          [torch.from_numpy(w) for w in torch_u], decay=0.81)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5, atol=1e-6)
+    assert [int(s.numel()) for s in init_sim_scores(chns)] == list(chns)
+
+
+def _regime(name, rs, b=4, hw=48, num_classes=4):
+    """The three regimes of chap_tpu's NMS profile (nms.py:132-142)."""
+    if name == "clean":
+        return phantom_batch(rs, b, hw, num_classes)[1]
+    if name == "speckled":
+        lab = phantom_batch(rs, b, hw, num_classes)[1]
+        noise = rs.rand(b, hw, hw) < 0.08
+        lab[noise] = rs.randint(0, num_classes, int(noise.sum()))
+        return lab
+    # iid 30% fill per foreground class: percolating 8-connected clusters
+    u = rs.rand(b, hw, hw)
+    return np.select([u < 0.3, u < 0.6, u < 0.9], [1, 2, 3], 0).astype(np.int32)
+
+
+@pytest.mark.parametrize("regime", ["speckled", "clean", "percolating"])
+def test_k2_plain_matches_chap_tpu_exactly(regime):
+    seg = _regime(regime, np.random.RandomState(11))
+    want = np.asarray(jax_largest_cc_batch(jnp.asarray(seg), 4))
+    got = nms.largest_cc_batch(torch.from_numpy(seg), 4)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert nms.ccl_kernel.launches == 0     # the CPU never reaches K2
+
+
+def test_largest_cc_mask_matches_chap_tpu():
+    from chap_tpu.semi.nms import largest_cc_mask as jax_largest_cc_mask
+    masks = _regime("percolating", np.random.RandomState(13)) == 2
+    masks[0] = False                 # a mask with no foreground keeps nothing
+    want = np.asarray(jax_largest_cc_mask(jnp.asarray(masks)))
+    got = nms.largest_cc_mask(torch.from_numpy(masks))
+    assert got.dtype == torch.bool and not got[0].any()
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_k2_ties_go_to_the_smallest_label():
+    """Two equal components: the one with the smaller max-index label wins,
+    where scipy's host path would pick by its own scan order."""
+    seg = np.zeros((1, 8, 8), np.int32)
+    seg[0, 0:2, 0:2] = 1      # label 9 (max linear index 1*8+1)
+    seg[0, 5:7, 5:7] = 1      # label 54
+    got = nms.largest_cc_batch(torch.from_numpy(seg), 2).numpy()
+    want = np.asarray(jax_largest_cc_batch(jnp.asarray(seg), 2))
+    np.testing.assert_array_equal(got, want)
+    assert got[0, 0, 0] == 1 and got[0, 5, 5] == 0
+
+
+def test_k2_plain_agrees_with_host_oracle_on_clean_masks():
+    seg = _regime("clean", np.random.RandomState(12))
+    got = nms.largest_cc_batch(torch.from_numpy(seg), 4).numpy()
+    np.testing.assert_array_equal(got, nms._largest_cc_host(seg, 4))
+
+
+def test_k2_wrapper_refuses_cpu_tensors():
+    with pytest.raises(ValueError):
+        nms.ccl_kernel(torch.zeros(1, 4, 4, dtype=torch.int32), 4)
