@@ -1,9 +1,10 @@
 """BCP mixed-supervision loss (port of chap_tpu/losses/mix.py).
 
 A mixed input is supervised by its "image" label inside mask==1 and its
-"patch" label inside mask==0. Both regions go through K1
-(ops/fused_losses.py): two calls per mix_loss, on ``mask`` and on
-``1 - mask``; a CPU tensor takes K1's plain version.
+"patch" label inside mask==0. Both regions go through one call of K1
+(ops/fused_losses.py, R = 2): one read of the logits gives both regions'
+losses, and one backward launch both regions' gradient; a CPU tensor takes
+K1's plain version.
 """
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ from typing import Tuple
 
 import torch
 
-from chap_tpu_torch.ops.fused_losses import fused_masked_dice_ce
+from chap_tpu_torch.ops.fused_losses import region_dice_ce
 
 
 def mix_loss(logits: torch.Tensor, img_l: torch.Tensor, patch_l: torch.Tensor,
@@ -27,9 +28,7 @@ def mix_loss(logits: torch.Tensor, img_l: torch.Tensor, patch_l: torch.Tensor,
         raise ValueError(f"logits have {logits.shape[1]} classes, expected "
                          f"{num_classes}")
     image_weight, patch_weight = (u_weight, l_weight) if unlab else (l_weight, u_weight)
-    mask = mask.float()
-    d1, c1 = fused_masked_dice_ce(logits, img_l, mask)
-    d2, c2 = fused_masked_dice_ce(logits, patch_l, 1.0 - mask)
+    d1, c1, d2, c2 = region_dice_ce(logits, img_l, mask.float(), patch_l)
     loss_dice1, loss_ce1 = d1 * image_weight, image_weight * c1
     loss_dice2, loss_ce2 = d2 * patch_weight, patch_weight * c2
     loss_image = (loss_dice1 + loss_ce1) / 2.0

@@ -1,46 +1,64 @@
-"""K1: fused masked dice + cross-entropy statistics, as Triton kernels.
+"""K1: fused masked dice + cross-entropy over one or two regions, in Triton.
 
 Replaces chap_tpu/ops/fused_losses.py::masked_seg_stats -> _stats_kernel
 (the Pallas kernel, :36-72 and :99-133) and the XLA custom-VJP backward
-``_bwd`` (:159-179).
+``_bwd`` (:159-179), together with the two calls of it that
+chap_tpu/losses/mix.py makes on ``mask`` and ``1 - mask`` over the same
+logits.
 
-What it computes, for logits [B, C, H, W], integer labels [B, H, W] and a
-{0,1} mask [B, H, W], with p = softmax over C and t = one_hot(label):
-    I_c = sum m p_c t_c,  Z_c = sum m p_c^2,  Y_c = sum m t_c,
-    CE  = sum m (-log p_label),  and the mask sum = sum_c Y_c
-(only masked pixels whose label is in [0, C) count, as in chap_tpu), then
-dice = mean_c 1 - (2 I_c + s) / (Z_c + Y_c + s) and ce = CE / (sum Y + eps).
+What it computes, for logits [B, C, H, W], p = softmax over C and R in
+{1, 2} regions, region r with integer labels l_r [B, H, W] and weight w_r
+(w_1 = mask, w_2 = 1 - mask), t_r = one_hot(l_r):
+    I_rc = sum w_r p_c t_rc,  Z_rc = sum w_r p_c^2,  Y_rc = sum w_r t_rc,
+    CE_rc = sum w_r t_rc (-log p_c),
+    dice_r = mean_c 1 - (2 I_rc + s) / (Z_rc + Y_rc + s),
+    ce_r = sum_c CE_rc / (sum_c Y_rc + eps)
+(a pixel counts only where its label is in [0, C), as in chap_tpu).
 
-What bounds it on the H100: bytes. One call at the main path's shape
-[6, 4, 256, 256] reads 6.3 MB of fp32 logits, 1.6 MB of int32 labels and
-1.6 MB of fp32 mask and does ~60 flops a pixel: 9.4 MB / 3.35 TB/s = 2.8 us,
-against well under a microsecond of arithmetic. So the design reads each
-input once and keeps every intermediate in registers:
-  * the forward reads NCHW logits in place, class stride H*W, as [C_PAD,
-    BLOCK] tiles (the Pallas kernel's class-major [C, N] layout is what NCHW
-    already is, so there is no transpose copy); each program reduces a
-    strided range of pixels into fp32 partials [P, 4, C_PAD]; a second
-    one-program pass sums the partials in a fixed order, so two calls give
-    bit-identical results (no atomics);
-  * the backward is one elementwise pass: p is recomputed, the dice and CE
-    chain rule of chap_tpu's _bwd is applied, and the C-wide inner sum is
-    done per pixel in registers. The per-class coefficients stay on the
-    device, so neither direction synchronises with the host.
+What bounds it on the H100: bytes, and on the main path the host. At
+mix_loss's shape [6, 4, 256, 256] a forward reads 6.3 MB of fp32 logits,
+two 1.6 MB int32 label maps and a 1.6 MB fp32 mask (11.0 MB, 3.3 us at
+3.35 TB/s); the backward reads the same and writes 6.3 MB of gradient
+(17.3 MB, 5.2 us). Both are tens of flops a pixel, far below the rate the
+card computes at. What the design does about it:
+  * one read of the logits serves both regions: mix_loss calls K1 once
+    (R = 2, ``1 - mask`` formed in registers), not once per region;
+  * forward, two launches: ``stats_partials`` (two programs per SM) reduces
+    a strided range of pixels per program into fp32 partials
+    [P, R, 4, C_PAD]; ``stats_finalize`` (one program, one pass over the
+    partials) sums them in a fixed order and composes dice_r and ce_r on
+    the device, so two calls are bit-identical (no atomics) and no tiny
+    PyTorch kernels follow;
+  * backward, one launch for any R: ``stats_grad`` recomputes p once,
+    forms every region's per-class coefficients from the saved statistics
+    and the incoming grads (pointers, never read on the host), and writes
+    one gradient, the sum over the regions. A region whose grads are None
+    reads a device zero and contributes nothing. It is the gradient of the
+    forward also where a label lies outside [0, C), where chap_tpu's
+    ``_bwd`` is not (it keeps m p / (sum Y + eps) for such a pixel).
+Measured by chip_smoke.py on an H100 80GB HBM3 at 700 W at that shape with
+R = 2: 11.5 us of kernel time forward (two kernels) and 4.5-5.2 us
+backward, at its bytes bound; the host's 37-120 us per call to launch them
+now costs more than the card's work does.
 
-Beside the kernels: ``masked_seg_stats_plain``, the plain PyTorch version,
-used for CPU tensors only and by chip_smoke.py as the kernels' reference. A
-CUDA tensor launches the kernels or raises. ``stats_kernel.launches`` and
-``stats_grad_kernel.launches`` count launches.
+Beside the kernels, the plain PyTorch versions used for CPU tensors and by
+chip_smoke.py as the kernels' reference: ``region_stats_plain`` and
+``compose_plain`` (forward, differentiable by autograd) and
+``stats_grad_plain`` (the backward's analytic gradient). A CUDA tensor
+launches the kernels or raises. ``stats_kernel.launches`` and
+``stats_grad_kernel.launches`` count launches of the forward and the
+backward.
 """
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
-BLOCK = 512          # pixels per tile
-MAX_PROGRAMS = 1024  # forward programs; more pixels loop inside a program
+BLOCK = 512            # pixels per tile, forward and backward
+PROGRAMS_PER_SM = 2    # forward programs; more pixels loop inside a program
+FIN_ROWS = 128         # partial rows the finalising program sums per step
 
 Stats = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
               torch.Tensor]
@@ -50,24 +68,92 @@ def _next_pow2(n: int) -> int:
     return 1 << max(0, (int(n) - 1).bit_length())
 
 
-def masked_seg_stats_plain(logits: torch.Tensor, labels: torch.Tensor,
-                           mask: torch.Tensor) -> Stats:
-    """Plain PyTorch version of K1's forward: (I[C], Z[C], Y[C], ce_sum,
-    mask_sum) for logits [B, C, H, W] (chap_tpu's _masked_seg_stats_xla)."""
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def _regions(mask: torch.Tensor, labels: torch.Tensor,
+             labels2: Optional[torch.Tensor]):
+    m = mask.float()
+    if labels2 is None:
+        return [(labels, m)]
+    return [(labels, m), (labels2, 1.0 - m)]
+
+
+def region_stats_plain(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: torch.Tensor,
+                       labels2: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of K1's statistics: [R, 4, C] rows (I, Z, Y, CE) per
+    class for region 1 (labels, mask) and, with ``labels2``, region 2
+    (labels2, 1 - mask). Logits [B, C, H, W]; differentiable."""
     c = logits.shape[1]
     x = logits.float()
     p = torch.softmax(x, dim=1)
     logp = torch.log_softmax(x, dim=1)
     cls = torch.arange(c, device=logits.device).view(1, c, 1, 1)
-    t = (labels.unsqueeze(1) == cls).float()
-    m = mask.float().unsqueeze(1)
     dims = (0, 2, 3)
-    inter = (p * t * m).sum(dims)
-    z = (p * p * m).sum(dims)
-    y = (t * m).sum(dims)
-    ce_sum = (-logp * t * m).sum()
-    return inter, z, y, ce_sum, y.sum()
+    rows = []
+    for lab, w in _regions(mask, labels, labels2):
+        t = (lab.unsqueeze(1) == cls).float()
+        wt = w.unsqueeze(1) * t
+        rows.append(torch.stack([(p * wt).sum(dims),
+                                 (p * p * w.unsqueeze(1)).sum(dims),
+                                 wt.sum(dims),
+                                 (-logp * wt).sum(dims)]))
+    return torch.stack(rows)
 
+
+def compose_plain(stats: torch.Tensor, smooth_dice: float,
+                  eps_ce: float) -> torch.Tensor:
+    """[R, 4, C] statistics -> [R, 2] (dice, ce) per region."""
+    inter, z, y, ce_c = stats.unbind(1)
+    dice = torch.mean(1.0 - (2.0 * inter + smooth_dice)
+                      / (z + y + smooth_dice), dim=1)
+    ce = ce_c.sum(1) / (y.sum(1) + eps_ce)
+    return torch.stack([dice, ce], dim=1)
+
+
+def masked_seg_stats_plain(logits: torch.Tensor, labels: torch.Tensor,
+                           mask: torch.Tensor) -> Stats:
+    """(I[C], Z[C], Y[C], ce_sum, mask_sum) for logits [B, C, H, W]
+    (chap_tpu's _masked_seg_stats_xla)."""
+    inter, z, y, ce_c = region_stats_plain(logits, labels, mask)[0]
+    return inter, z, y, ce_c.sum(), y.sum()
+
+
+def stats_grad_plain(logits: torch.Tensor, labels: torch.Tensor,
+                     mask: torch.Tensor, stats: torch.Tensor,
+                     grads: torch.Tensor, smooth_dice: float, eps_ce: float,
+                     labels2: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of K1's backward, the arithmetic ``stats_grad`` does on
+    the device: d/dlogits of sum_r g_dice_r dice_r + g_ce_r ce_r from the
+    saved statistics [R, 4, >= C] and the incoming grads [R, 2]. Unlike
+    chap_tpu's ``_bwd``, a pixel whose label lies outside [0, C) gets no CE
+    gradient: it has no CE term in the forward."""
+    c = logits.shape[1]
+    p = torch.softmax(logits.float(), dim=1)
+    cls = torch.arange(c, device=logits.device).view(1, c, 1, 1)
+    dl_dp = torch.zeros_like(p)
+    d_ce = torch.zeros_like(p)
+    for r, (lab, w) in enumerate(_regions(mask, labels, labels2)):
+        inter, z, y = (v[:c].view(1, c, 1, 1) for v in stats[r, :3].float())
+        g_dice, g_ce = grads[r].float()
+        denom = z + y + smooth_dice
+        a = g_dice * (-2.0 / denom / c)                          # dL/dI_c
+        b = g_dice * 2.0 * (2.0 * inter + smooth_dice) / denom ** 2 / c
+        k = g_ce / (y.sum() + eps_ce)
+        t = (lab.unsqueeze(1) == cls).float()
+        w = w.unsqueeze(1)
+        dl_dp = dl_dp + w * (a * t + b * p)
+        valid = ((lab >= 0) & (lab < c)).float().unsqueeze(1)
+        d_ce = d_ce + k * w * valid * (p - t)
+    inner = (dl_dp * p).sum(1, keepdim=True)
+    return (p * (dl_dp - inner) + d_ce).to(logits.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Triton kernels
+# ---------------------------------------------------------------------------
 
 @functools.lru_cache(maxsize=None)
 def _kernels():
@@ -97,70 +183,144 @@ def _kernels():
         return p, logp, off, ld
 
     @triton.jit
-    def stats_partials(logits_ptr, labels_ptr, mask_ptr, part_ptr, n_pix, hw,
-                       C: tl.constexpr, C_PAD: tl.constexpr,
-                       BLOCK: tl.constexpr):
+    def _load_labels(lab_ptr, offs, ok, C: tl.constexpr):
+        """Labels, with those outside [0, C) (and the tile's tail) as -1:
+        they match no class, also not a padded one in [C, C_PAD)."""
+        lab = tl.load(lab_ptr + offs, mask=ok, other=-1)
+        return tl.where(lab < C, lab, -1)
+
+    @triton.jit
+    def stats_partials(logits_ptr, lab1_ptr, lab2_ptr, mask_ptr, part_ptr,
+                       n_pix, hw, C: tl.constexpr, C_PAD: tl.constexpr,
+                       R: tl.constexpr, BLOCK: tl.constexpr):
         pid = tl.program_id(0)
         nprog = tl.num_programs(0)
         cls = tl.arange(0, C_PAD)
-        acc_i = tl.zeros([C_PAD, BLOCK], dtype=tl.float32)
-        acc_z = tl.zeros([C_PAD, BLOCK], dtype=tl.float32)
-        acc_y = tl.zeros([C_PAD, BLOCK], dtype=tl.float32)
-        acc_ce = tl.zeros([C_PAD, BLOCK], dtype=tl.float32)
+        i1 = tl.zeros([C_PAD, BLOCK], dtype=tl.float32)
+        z1 = tl.zeros([C_PAD, BLOCK], dtype=tl.float32)
+        y1 = tl.zeros([C_PAD, BLOCK], dtype=tl.float32)
+        ce1 = tl.zeros([C_PAD, BLOCK], dtype=tl.float32)
+        i2 = tl.zeros([C_PAD, BLOCK], dtype=tl.float32)
+        z2 = tl.zeros([C_PAD, BLOCK], dtype=tl.float32)
+        y2 = tl.zeros([C_PAD, BLOCK], dtype=tl.float32)
+        ce2 = tl.zeros([C_PAD, BLOCK], dtype=tl.float32)
         for start in range(pid * BLOCK, n_pix, nprog * BLOCK):
             offs = start + tl.arange(0, BLOCK)
             ok = offs < n_pix
             p, logp, _, _ = _load_probs(logits_ptr, offs, ok, hw, C, C_PAD)
-            lab = tl.load(labels_ptr + offs, mask=ok, other=-1)
+            pp = p * p
             m = tl.load(mask_ptr + offs, mask=ok, other=0.0)
+            lab = _load_labels(lab1_ptr, offs, ok, C)
             t = cls[:, None] == lab[None, :]
-            tm = tl.where(t, m[None, :], 0.0)
-            acc_i += p * tm
-            acc_z += p * p * m[None, :]
-            acc_y += tm
-            acc_ce += tl.where(t, -logp * m[None, :], 0.0)
-        out = part_ptr + pid * (4 * C_PAD) + cls
-        tl.store(out, tl.sum(acc_i, axis=1))
-        tl.store(out + C_PAD, tl.sum(acc_z, axis=1))
-        tl.store(out + 2 * C_PAD, tl.sum(acc_y, axis=1))
-        tl.store(out + 3 * C_PAD, tl.sum(acc_ce, axis=1))
+            wt = tl.where(t, m[None, :], 0.0)
+            i1 += p * wt
+            z1 += pp * m[None, :]
+            y1 += wt
+            ce1 += tl.where(t, -logp * m[None, :], 0.0)
+            if R == 2:
+                w2 = tl.where(ok, 1.0 - m, 0.0)
+                lab = _load_labels(lab2_ptr, offs, ok, C)
+                t = cls[:, None] == lab[None, :]
+                wt = tl.where(t, w2[None, :], 0.0)
+                i2 += p * wt
+                z2 += pp * w2[None, :]
+                y2 += wt
+                ce2 += tl.where(t, -logp * w2[None, :], 0.0)
+        out = part_ptr + pid * (R * 4 * C_PAD) + cls
+        tl.store(out, tl.sum(i1, axis=1))
+        tl.store(out + C_PAD, tl.sum(z1, axis=1))
+        tl.store(out + 2 * C_PAD, tl.sum(y1, axis=1))
+        tl.store(out + 3 * C_PAD, tl.sum(ce1, axis=1))
+        if R == 2:
+            tl.store(out + 4 * C_PAD, tl.sum(i2, axis=1))
+            tl.store(out + 5 * C_PAD, tl.sum(z2, axis=1))
+            tl.store(out + 6 * C_PAD, tl.sum(y2, axis=1))
+            tl.store(out + 7 * C_PAD, tl.sum(ce2, axis=1))
 
     @triton.jit
-    def stats_finalize(part_ptr, out_ptr, n_part, W: tl.constexpr,
-                       P_PAD: tl.constexpr):
-        rows = tl.arange(0, P_PAD)
-        cols = tl.arange(0, W)
-        v = tl.load(part_ptr + rows[:, None] * W + cols[None, :],
-                    mask=rows[:, None] < n_part, other=0.0)
-        tl.store(out_ptr + cols, tl.sum(v, axis=0))
+    def stats_finalize(part_ptr, out_ptr, n_part, smooth, eps,
+                       C: tl.constexpr, C_PAD: tl.constexpr, R: tl.constexpr,
+                       ROWS: tl.constexpr):
+        rows = tl.arange(0, ROWS)
+        kk = tl.arange(0, 4 * R)              # (I, Z, Y, CE) of each region
+        cls = tl.arange(0, C_PAD)
+        col = kk[:, None] * C_PAD + cls[None, :]
+        acc = tl.zeros([ROWS, 4 * R, C_PAD], dtype=tl.float32)
+        for start in range(0, n_part, ROWS):
+            r = start + rows
+            acc += tl.load(part_ptr + r[:, None, None] * (4 * R * C_PAD)
+                           + col[None, :, :],
+                           mask=(r < n_part)[:, None, None], other=0.0)
+        tot = tl.sum(acc, axis=0)             # rows summed in a fixed order
+        tl.store(out_ptr + col, tot)
+        cls_ok = cls < C
+        for q in tl.static_range(R):
+            inter = tl.sum(tl.where(kk[:, None] == 4 * q, tot, 0.0), axis=0)
+            z = tl.sum(tl.where(kk[:, None] == 4 * q + 1, tot, 0.0), axis=0)
+            y = tl.sum(tl.where(kk[:, None] == 4 * q + 2, tot, 0.0), axis=0)
+            ce = tl.sum(tl.where(kk[:, None] == 4 * q + 3, tot, 0.0), axis=0)
+            frac = (2.0 * inter + smooth) / (z + y + smooth)
+            dice = tl.sum(tl.where(cls_ok, 1.0 - frac, 0.0), axis=0) / C
+            ce_loss = tl.sum(ce, axis=0) / (tl.sum(y, axis=0) + eps)
+            tl.store(out_ptr + R * 4 * C_PAD + 2 * q, dice)
+            tl.store(out_ptr + R * 4 * C_PAD + 2 * q + 1, ce_loss)
 
     @triton.jit
-    def stats_grad(logits_ptr, labels_ptr, mask_ptr, coef_ptr, grad_ptr,
-                   n_pix, hw, C: tl.constexpr, C_PAD: tl.constexpr,
-                   BLOCK: tl.constexpr):
+    def _region_coef(stats_ptr, g_dice_ptr, g_ce_ptr, smooth, eps,
+                     C: tl.constexpr, C_PAD: tl.constexpr):
+        """Per-class dL/dI (a), the dL/dp coefficient of p (b) and the CE
+        scale (k) of one region, from its statistics and incoming grads."""
+        cls = tl.arange(0, C_PAD)
+        cls_ok = cls < C
+        inter = tl.load(stats_ptr + cls)
+        y = tl.load(stats_ptr + 2 * C_PAD + cls)
+        denom = tl.load(stats_ptr + C_PAD + cls) + y + smooth
+        g_dice = tl.load(g_dice_ptr)
+        a = tl.where(cls_ok, g_dice * (-2.0 / denom / C), 0.0)
+        b = tl.where(cls_ok, g_dice * 2.0 * (2.0 * inter + smooth)
+                     / (denom * denom) / C, 0.0)
+        k = tl.load(g_ce_ptr) / (tl.sum(y, axis=0) + eps)
+        return a, b, k
+
+    @triton.jit
+    def stats_grad(logits_ptr, lab1_ptr, lab2_ptr, mask_ptr, stats_ptr,
+                   gd1_ptr, gc1_ptr, gd2_ptr, gc2_ptr, grad_ptr, n_pix, hw,
+                   smooth, eps, C: tl.constexpr, C_PAD: tl.constexpr,
+                   R: tl.constexpr, BLOCK: tl.constexpr):
         pid = tl.program_id(0)
         cls = tl.arange(0, C_PAD)
         offs = pid * BLOCK + tl.arange(0, BLOCK)
         ok = offs < n_pix
         p, _, off, ld = _load_probs(logits_ptr, offs, ok, hw, C, C_PAD)
-        lab = tl.load(labels_ptr + offs, mask=ok, other=-1)
         m = tl.load(mask_ptr + offs, mask=ok, other=0.0)[None, :]
+        a, b, k = _region_coef(stats_ptr, gd1_ptr, gc1_ptr, smooth, eps,
+                               C, C_PAD)
+        lab = _load_labels(lab1_ptr, offs, ok, C)
         t = tl.where(cls[:, None] == lab[None, :], 1.0, 0.0)
-        dl_di = tl.load(coef_ptr + cls)[:, None]
-        dl_dz = tl.load(coef_ptr + C_PAD + cls)[:, None]
-        g_dice = tl.load(coef_ptr + 2 * C_PAD)
-        g_ce = tl.load(coef_ptr + 2 * C_PAD + 1)   # g_ce / (mask_sum + eps)
-        dl_dp = m * (dl_di * t + dl_dz * 2.0 * p)
+        dl_dp = m * (a[:, None] * t + b[:, None] * p)
+        # a pixel whose label is outside [0, C) adds nothing to CE
+        d_ce = tl.where(lab[None, :] >= 0, k * m, 0.0) * (p - t)
+        if R == 2:
+            w2 = tl.where(ok, 1.0 - m, 0.0)
+            a, b, k = _region_coef(stats_ptr + 4 * C_PAD, gd2_ptr, gc2_ptr,
+                                   smooth, eps, C, C_PAD)
+            lab = _load_labels(lab2_ptr, offs, ok, C)
+            t = tl.where(cls[:, None] == lab[None, :], 1.0, 0.0)
+            dl_dp += w2 * (a[:, None] * t + b[:, None] * p)
+            d_ce += tl.where(lab[None, :] >= 0, k * w2, 0.0) * (p - t)
         inner = tl.sum(dl_dp * p, axis=0)
-        d_dice = p * (dl_dp - inner[None, :])
-        d_ce = m * (p - t)
-        g = g_dice * d_dice + g_ce * d_ce
+        g = p * (dl_dp - inner[None, :]) + d_ce
         tl.store(grad_ptr + off, g.to(grad_ptr.dtype.element_ty), mask=ld)
 
     return stats_partials, stats_finalize, stats_grad
 
 
-def _prepare(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor):
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _prepare(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor,
+             labels2: Optional[torch.Tensor] = None):
     """Check what the kernels take: NCHW float logits on the card, labels and
     mask [B, H, W]. Labels become int32 and the mask fp32 (no-ops when they
     already are)."""
@@ -171,54 +331,95 @@ def _prepare(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor):
         raise ValueError(f"logits must be float [B, C, H, W], got "
                          f"{tuple(logits.shape)} {logits.dtype}")
     b, _, h, w = logits.shape
-    if tuple(labels.shape) != (b, h, w) or tuple(mask.shape) != (b, h, w):
-        raise ValueError(f"labels {tuple(labels.shape)} / mask "
-                         f"{tuple(mask.shape)} must be {(b, h, w)}")
-    if labels.dtype.is_floating_point:
-        raise ValueError("labels must be an integer map")
-    return (logits.contiguous(), labels.to(torch.int32).contiguous(),
-            mask.to(torch.float32).contiguous())
+    maps = [labels, mask] + ([] if labels2 is None else [labels2])
+    if any(tuple(t.shape) != (b, h, w) for t in maps):
+        raise ValueError(f"labels / mask {[tuple(t.shape) for t in maps]} "
+                         f"must be {(b, h, w)}")
+    if any(t.device != logits.device for t in maps):
+        raise ValueError("labels and mask must be on the logits' device")
+    if labels.dtype.is_floating_point or (
+            labels2 is not None and labels2.dtype.is_floating_point):
+        raise ValueError("labels must be integer maps")
+
+    def lab(t):
+        return None if t is None else t.to(torch.int32).contiguous()
+
+    return (logits.contiguous(), lab(labels),
+            mask.to(torch.float32).contiguous(), lab(labels2))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def stats_kernel(logits: torch.Tensor, labels: torch.Tensor,
-                 mask: torch.Tensor) -> torch.Tensor:
-    """K1 forward on the card: [4, C] fp32 rows (I, Z, Y, CE per class)."""
-    logits, labels, mask = _prepare(logits, labels, mask)
+                 mask: torch.Tensor, labels2: Optional[torch.Tensor] = None,
+                 smooth_dice: float = 1e-10, eps_ce: float = 1e-16
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1 forward on the card, two launches: ([R, 2] (dice, ce) per region,
+    [R, 4, C_PAD] fp32 statistics (I, Z, Y, CE) per class). One region with
+    ``labels2=None``; else region 2 is (labels2, 1 - mask)."""
+    logits, labels, mask, labels2 = _prepare(logits, labels, mask, labels2)
     partials_k, finalize_k, _ = _kernels()
     b, c, h, w = logits.shape
     n_pix = b * h * w
     c_pad = _next_pow2(c)
-    n_part = max(1, min(-(-n_pix // BLOCK), MAX_PROGRAMS))
-    part = torch.empty((n_part, 4 * c_pad), device=logits.device,
+    r = 1 if labels2 is None else 2
+    n_part = max(1, min(-(-n_pix // BLOCK),
+                        PROGRAMS_PER_SM * _sm_count(logits.device)))
+    part = torch.empty((n_part, r * 4 * c_pad), device=logits.device,
                        dtype=torch.float32)
-    out = torch.empty((4 * c_pad,), device=logits.device, dtype=torch.float32)
-    partials_k[(n_part,)](logits, labels, mask, part, n_pix, h * w,
-                          C=c, C_PAD=c_pad, BLOCK=BLOCK, num_warps=4)
-    finalize_k[(1,)](part, out, n_part, W=4 * c_pad,
-                     P_PAD=_next_pow2(n_part), num_warps=4)
+    out = torch.empty((r * 4 * c_pad + 2 * r,), device=logits.device,
+                      dtype=torch.float32)
+    lab2 = labels if labels2 is None else labels2
+    partials_k[(n_part,)](logits, labels, lab2, mask, part, n_pix, h * w,
+                          C=c, C_PAD=c_pad, R=r, BLOCK=BLOCK, num_warps=4)
+    finalize_k[(1,)](part, out, n_part, float(smooth_dice), float(eps_ce),
+                     C=c, C_PAD=c_pad, R=r, ROWS=FIN_ROWS, num_warps=4)
     stats_kernel.launches += 1
-    return out.view(4, c_pad)[:, :c]
+    n_stats = r * 4 * c_pad
+    return out[n_stats:].view(r, 2), out[:n_stats].view(r, 4, c_pad)
 
 
 stats_kernel.launches = 0
 
 
+@functools.lru_cache(maxsize=None)
+def _zero(device: torch.device) -> torch.Tensor:
+    """A device zero that stands for an incoming grad autograd left None."""
+    return torch.zeros((), device=device, dtype=torch.float32)
+
+
 def stats_grad_kernel(logits: torch.Tensor, labels: torch.Tensor,
-                      mask: torch.Tensor, coef: torch.Tensor) -> torch.Tensor:
-    """K1 backward on the card: d loss / d logits, same shape and dtype as
-    logits. coef: fp32 [2 C_PAD + 2] = (dL/dI_c, dL/dZ_c, g_dice,
-    g_ce / (mask_sum + eps)), on the device."""
-    logits, labels, mask = _prepare(logits, labels, mask)
+                      mask: torch.Tensor, stats: torch.Tensor,
+                      grads: Sequence[Optional[torch.Tensor]],
+                      labels2: Optional[torch.Tensor] = None,
+                      smooth_dice: float = 1e-10, eps_ce: float = 1e-16
+                      ) -> torch.Tensor:
+    """K1 backward on the card, one launch: d/dlogits of
+    sum_r g_dice_r dice_r + g_ce_r ce_r, same shape and dtype as logits.
+    stats: the forward's [R, 4, C_PAD]; grads: 2R scalar tensors on the
+    device, (g_dice_1, g_ce_1[, g_dice_2, g_ce_2]), None for zero."""
+    logits, labels, mask, labels2 = _prepare(logits, labels, mask, labels2)
     _, _, grad_k = _kernels()
     b, c, h, w = logits.shape
     n_pix = b * h * w
     c_pad = _next_pow2(c)
-    if coef.shape != (2 * c_pad + 2,) or coef.dtype != torch.float32:
-        raise ValueError(f"coef must be fp32 [{2 * c_pad + 2}]")
+    r = 1 if labels2 is None else 2
+    if (tuple(stats.shape) != (r, 4, c_pad) or stats.dtype != torch.float32
+            or not stats.is_contiguous() or len(grads) != 2 * r):
+        raise ValueError(f"stats must be contiguous fp32 {(r, 4, c_pad)} and "
+                         f"grads {2 * r} scalars")
+    zero = _zero(logits.device)
+    g = [zero if x is None else x.to(torch.float32) for x in grads]
+    g += [zero] * (4 - len(g))
     grad = torch.empty_like(logits)
-    grad_k[(-(-n_pix // BLOCK),)](logits, labels, mask, coef.contiguous(),
-                                  grad, n_pix, h * w, C=c, C_PAD=c_pad,
-                                  BLOCK=BLOCK, num_warps=4)
+    lab2 = labels if labels2 is None else labels2
+    grad_k[(-(-n_pix // BLOCK),)](
+        logits, labels, lab2, mask, stats, *g, grad, n_pix, h * w,
+        float(smooth_dice), float(eps_ce), C=c, C_PAD=c_pad, R=r,
+        BLOCK=BLOCK, num_warps=4)
     stats_grad_kernel.launches += 1
     return grad
 
@@ -226,38 +427,25 @@ def stats_grad_kernel(logits: torch.Tensor, labels: torch.Tensor,
 stats_grad_kernel.launches = 0
 
 
-def _compose(inter, z, y, ce_sum, m_sum, smooth_dice: float, eps_ce: float):
-    dice = torch.mean(1.0 - (2.0 * inter + smooth_dice) / (z + y + smooth_dice))
-    ce = ce_sum / (m_sum + eps_ce)
-    return dice, ce
-
-
-class _FusedDiceCE(torch.autograd.Function):
-    """K1 forward and backward on the card (chap_tpu's custom_vjp pair)."""
+class _RegionDiceCE(torch.autograd.Function):
+    """K1 forward and backward on the card (chap_tpu's custom_vjp pair, over
+    one or two regions): returns (dice_1, ce_1[, dice_2, ce_2])."""
 
     @staticmethod
-    def forward(ctx, logits, labels, mask, smooth_dice, eps_ce):
-        stats = stats_kernel(logits, labels, mask)
-        inter, z, y, ce_c = stats
-        m_sum = y.sum()
-        ctx.save_for_backward(logits, labels, mask, inter, z, y, m_sum)
+    def forward(ctx, logits, labels, mask, labels2, smooth_dice, eps_ce):
+        losses, stats = stats_kernel(logits, labels, mask, labels2,
+                                     smooth_dice, eps_ce)
+        ctx.set_materialize_grads(False)   # a None grad is a device zero
+        ctx.save_for_backward(logits, labels, mask, labels2, stats)
         ctx.smooth_dice, ctx.eps_ce = smooth_dice, eps_ce
-        return _compose(inter, z, y, ce_c.sum(), m_sum, smooth_dice, eps_ce)
+        return tuple(losses.view(-1).unbind())
 
     @staticmethod
-    def backward(ctx, g_dice, g_ce):
-        logits, labels, mask, inter, z, y, m_sum = ctx.saved_tensors
-        c = inter.shape[0]
-        c_pad = _next_pow2(c)
-        s = ctx.smooth_dice
-        denom = z + y + s
-        coef = torch.zeros(2 * c_pad + 2, device=logits.device,
-                           dtype=torch.float32)
-        coef[:c] = -2.0 / denom / c
-        coef[c_pad:c_pad + c] = (2.0 * inter + s) / denom ** 2 / c
-        coef[2 * c_pad] = g_dice
-        coef[2 * c_pad + 1] = g_ce / (m_sum + ctx.eps_ce)
-        return stats_grad_kernel(logits, labels, mask, coef), None, None, None, None
+    def backward(ctx, *grads):
+        logits, labels, mask, labels2, stats = ctx.saved_tensors
+        grad = stats_grad_kernel(logits, labels, mask, stats, grads, labels2,
+                                 ctx.smooth_dice, ctx.eps_ce)
+        return grad, None, None, None, None, None
 
 
 def masked_seg_stats(logits: torch.Tensor, labels: torch.Tensor,
@@ -266,21 +454,31 @@ def masked_seg_stats(logits: torch.Tensor, labels: torch.Tensor,
     kernel for a CUDA tensor, the plain version for a CPU tensor."""
     if logits.device.type == "cpu":
         return masked_seg_stats_plain(logits, labels, mask)
-    inter, z, y, ce_c = stats_kernel(logits, labels, mask)
+    c = logits.shape[1]
+    inter, z, y, ce_c = stats_kernel(logits, labels, mask)[1][0, :, :c]
     return inter, z, y, ce_c.sum(), y.sum()
+
+
+def region_dice_ce(logits: torch.Tensor, labels: torch.Tensor,
+                   mask: torch.Tensor, labels2: Optional[torch.Tensor] = None,
+                   smooth_dice: float = 1e-10, eps_ce: float = 1e-16
+                   ) -> Tuple[torch.Tensor, ...]:
+    """(dice_1, ce_1[, dice_2, ce_2]), differentiable in ``logits``: region
+    1 is (labels, mask), region 2 (labels2, 1 - mask). CUDA: K1's Triton
+    forward and backward, one call for both regions. CPU: the plain version
+    under autograd (the same function, so the same gradient)."""
+    if logits.device.type == "cpu":
+        stats = region_stats_plain(logits, labels, mask, labels2)
+        losses = compose_plain(stats, smooth_dice, eps_ce)
+        return tuple(losses.view(-1).unbind())
+    return _RegionDiceCE.apply(logits, labels, mask, labels2,
+                               float(smooth_dice), float(eps_ce))
 
 
 def fused_masked_dice_ce(logits: torch.Tensor, labels: torch.Tensor,
                          mask: torch.Tensor, smooth_dice: float = 1e-10,
                          eps_ce: float = 1e-16
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(masked_dice_loss, masked_ce_loss), differentiable in ``logits``.
-    CUDA: K1's Triton forward and backward. CPU: the plain version under
-    autograd (the same function, so the same gradient)."""
-    if logits.device.type == "cpu":
-        return _compose(*masked_seg_stats_plain(logits, labels, mask),
-                        smooth_dice, eps_ce)
-    labels = labels.to(torch.int32).contiguous()
-    mask = mask.to(torch.float32).contiguous()
-    return _FusedDiceCE.apply(logits.contiguous(), labels, mask,
-                              float(smooth_dice), float(eps_ce))
+    """(masked_dice_loss, masked_ce_loss) over one region, differentiable in
+    ``logits`` (chap_tpu's fused_masked_dice_ce)."""
+    return region_dice_ce(logits, labels, mask, None, smooth_dice, eps_ce)

@@ -7,15 +7,17 @@ largest linear index and ties in size go to the smallest label, exactly as
 chap_tpu's device path does (the scipy host path breaks ties its own way).
 
 On a CUDA tensor this runs kernel K2, union-find labelling written in CUDA
-C++ (csrc/ccl.cu, which says what bounds it and how its design meets that),
-with no host synchronisation. On a CPU tensor it runs K2's plain version:
-chap_tpu's algorithm in PyTorch (3x3 max-pool propagation inside the mask,
-with pointer jumps, until fixpoint; then the modal label with the same tie
-rule). ``ccl_kernel.launches`` counts K2 launches.
+C++ (csrc/ccl.cu, which says what bounds it and how its design meets that):
+one labelling per map with same-class adjacency, tile-local union-find in
+shared memory, with no host synchronisation. On a CPU tensor it runs K2's
+plain version: chap_tpu's algorithm in PyTorch (3x3 max-pool propagation
+inside the mask, with pointer jumps, until fixpoint; then the modal label
+with the same tie rule). ``ccl_kernel.launches`` counts K2 launches.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -107,10 +109,11 @@ def largest_cc_batch_plain(segmentation: torch.Tensor, num_classes: int
 # K2 wrapper
 # ---------------------------------------------------------------------------
 
+@functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = cuda_build.load(_SOURCE)
     fn = lib.chap_largest_cc
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 
@@ -126,17 +129,20 @@ def ccl_kernel(segmentation: torch.Tensor, num_classes: int) -> torch.Tensor:
     if num_classes < 2:
         raise ValueError("num_classes must be >= 2")
     b, h, w = segmentation.shape
-    total = (num_classes - 1) * b * h * w
-    if total >= 1 << 31:
-        raise ValueError("K2 indexes pixels with int32")
+    if b * h * w >= 1 << 31 or b > 65535:
+        raise ValueError("K2 indexes pixels with int32 and maps with the "
+                         "grid's z dimension (at most 65535)")
     seg = segmentation.to(torch.int32).contiguous()
     out = torch.empty_like(seg)
-    parent = torch.empty(total, dtype=torch.int32, device=seg.device)
-    size = torch.empty(total, dtype=torch.int32, device=seg.device)
+    parent = torch.empty(b * h * w, dtype=torch.int32, device=seg.device)
+    size = torch.empty(b * h * w, dtype=torch.int32, device=seg.device)
+    slot = torch.empty(b * (num_classes - 1), dtype=torch.int64,
+                       device=seg.device)
     stream = torch.cuda.current_stream(seg.device).cuda_stream
     err = _library().chap_largest_cc(seg.data_ptr(), out.data_ptr(),
                                      parent.data_ptr(), size.data_ptr(),
-                                     b, h, w, num_classes, stream)
+                                     slot.data_ptr(), b, h, w, num_classes,
+                                     stream)
     if err != 0:
         raise RuntimeError(f"K2 launch failed: cudaError {err}")
     ccl_kernel.launches += 1

@@ -11,7 +11,8 @@ import chap_tpu.losses.vat as jax_vat
 from chap_tpu.losses.mix import mix_loss as jax_mix_loss
 from chap_tpu.losses.vat import vat_loss_2d as jax_vat_loss_2d
 from chap_tpu.models.unet2d import DualDecoder as JaxDualDecoder
-from chap_tpu.ops.fused_losses import (_masked_seg_stats_xla,
+from chap_tpu.ops.fused_losses import (_compose as jax_compose,
+                                       _masked_seg_stats_xla,
                                        fused_masked_dice_ce as jax_fused,
                                        masked_seg_stats as jax_masked_seg_stats)
 from chap_tpu_torch.convert.from_jax import state_dict_from_flax
@@ -188,3 +189,165 @@ def test_vat_loss_matches_chap_tpu(monkeypatch, losstype):
                       _nchw(np.asarray(soft1)), _nchw(np.asarray(soft2)), _t(mask),
                       d0=_nchw(u), losstype=losstype)
     _close(got.item(), want)
+
+
+# ---------------------------------------------------------------------------
+# K1 over two regions (mix_loss's single call)
+# ---------------------------------------------------------------------------
+
+def make_mix_inputs(seed, b, h, w, c=4, label_values=None):
+    """label_values > c draws labels outside [0, c) too."""
+    rs = np.random.RandomState(seed)
+    logits = (rs.randn(b, h, w, c) * 2).astype(np.float32)
+    img_l = rs.randint(0, label_values or c, (b, h, w)).astype(np.int32)
+    patch_l = rs.randint(0, label_values or c, (b, h, w)).astype(np.int32)
+    mask = (rs.rand(b, h, w) < 0.5).astype(np.float32)
+    return logits, img_l, patch_l, mask
+
+
+# (g_dice_1, g_ce_1, g_dice_2, g_ce_2); zeros as grads_l / grads_u give them
+MIX_WEIGHTS = [(1.0, 1.0, 1.0, 1.0), (0.0, 0.0, 0.5, 1.3), (0.7, 1.0, 0.0, 0.0)]
+
+
+@pytest.mark.parametrize("weights", MIX_WEIGHTS)
+@pytest.mark.parametrize("shape", [(1, 23, 29), (2, 32, 32)])
+def test_k1_two_regions_plain_matches_chap_tpu(shape, weights):
+    """region_dice_ce(R = 2) against two chap_tpu fused_masked_dice_ce calls
+    on mask and 1 - mask: the four losses and d/dlogits."""
+    logits, img_l, patch_l, mask = make_mix_inputs(20, *shape)
+    w = jnp.asarray(weights)
+
+    def f(lg):
+        d1, c1 = jax_fused(lg, jnp.asarray(img_l), jnp.asarray(mask))
+        d2, c2 = jax_fused(lg, jnp.asarray(patch_l), 1.0 - jnp.asarray(mask))
+        vals = jnp.stack([d1, c1, d2, c2])
+        return jnp.sum(w * vals), vals
+
+    (_, want_vals), want_grad = jax.value_and_grad(f, has_aux=True)(
+        jnp.asarray(logits))
+    x = _nchw(logits).requires_grad_(True)
+    vals = fused_losses.region_dice_ce(x, _t(img_l), _t(mask), _t(patch_l))
+    sum(wi * v for wi, v in zip(weights, vals)).backward()
+    _close([v.item() for v in vals], want_vals)
+    _close(x.grad.numpy(), np.transpose(np.asarray(want_grad), (0, 3, 1, 2)),
+           atol=1e-7)
+
+
+@pytest.mark.parametrize("unlab", [False, True])
+def test_mix_loss_ragged_loss_and_gradient_match_chap_tpu(unlab):
+    logits, img_l, patch_l, mask = make_mix_inputs(21, 1, 23, 29)
+    mask = mask.astype(np.int32)
+
+    def f(lg):
+        out = jax_mix_loss(lg, jnp.asarray(img_l), jnp.asarray(patch_l),
+                           jnp.asarray(mask), 4, unlab=unlab, fused=True)
+        return out[2], out
+
+    (_, want), want_grad = jax.value_and_grad(f, has_aux=True)(jnp.asarray(logits))
+    x = _nchw(logits).requires_grad_(True)
+    got = mix_loss(x, _t(img_l), _t(patch_l), _t(mask), 4, unlab=unlab)
+    got[2].backward()
+    for g, w in zip(got, want):
+        _close(g.item(), w)
+    _close(x.grad.numpy(), np.transpose(np.asarray(want_grad), (0, 3, 1, 2)),
+           atol=1e-7)
+
+
+def _padded(stats, c_pad):
+    """Statistics [R, 4, C] laid out as the kernel saves them, [R, 4, C_PAD]."""
+    out = torch.zeros(stats.shape[0], 4, c_pad)
+    out[:, :, :stats.shape[2]] = stats
+    return out
+
+
+@pytest.mark.parametrize("weights", MIX_WEIGHTS[:2] + [(0.7, 1.0)])
+@pytest.mark.parametrize("c,label_values", [(3, None), (4, None), (3, 5)])
+def test_k1_analytic_gradient_matches_autograd(c, label_values, weights):
+    """stats_grad_plain, the arithmetic K1's backward kernel does, against
+    torch autograd of the plain statistics, for R = 1 and R = 2, also with
+    labels outside [0, C) (3 and 4 for C = 3, one of them a padded class
+    index of the kernel)."""
+    logits, img_l, patch_l, mask = make_mix_inputs(22, 2, 17, 19, c,
+                                                   label_values)
+    r = len(weights) // 2
+    lab2 = _t(patch_l) if r == 2 else None
+    grads = torch.tensor(weights, dtype=torch.float32).view(r, 2)
+    x = _nchw(logits).requires_grad_(True)
+    stats = fused_losses.region_stats_plain(x, _t(img_l), _t(mask), lab2)
+    (grads * fused_losses.compose_plain(stats, 1e-10, 1e-16)).sum().backward()
+    got = fused_losses.stats_grad_plain(x.detach(), _t(img_l), _t(mask),
+                                        _padded(stats.detach(), 4), grads,
+                                        1e-10, 1e-16, lab2)
+    _close(got.numpy(), x.grad.numpy(), atol=1e-7)
+
+
+def test_k1_two_region_wrappers_refuse_cpu_tensors():
+    logits, img_l, patch_l, mask = make_mix_inputs(23, 1, 8, 8)
+    x, l1, l2, m = _nchw(logits), _t(img_l), _t(patch_l), _t(mask)
+    with pytest.raises(ValueError):
+        fused_losses.stats_kernel(x, l1, m, l2)
+    with pytest.raises(ValueError):
+        fused_losses.stats_grad_kernel(x, l1, m, torch.zeros(2, 4, 4),
+                                       [None] * 4, l2)
+    assert fused_losses.stats_kernel.launches == 0
+    assert fused_losses.stats_grad_kernel.launches == 0
+
+
+@pytest.mark.parametrize("used", [(0, 1, 2, 3), (2, 3), (0,), (1,)])
+def test_k1_autograd_function_wiring(monkeypatch, used):
+    """The card's autograd Function, with its two kernel wrappers replaced by
+    their plain versions so that it runs here: one backward for both
+    regions, None grads (an unused region) read as zero."""
+    logits, img_l, patch_l, mask = make_mix_inputs(24, 1, 12, 10)
+
+    def fake_stats(lg, lab, m, lab2=None, smooth=1e-10, eps=1e-16):
+        stats = fused_losses.region_stats_plain(lg, lab, m, lab2)
+        return fused_losses.compose_plain(stats, smooth, eps), _padded(stats, 4)
+
+    def fake_grad(lg, lab, m, stats, grads, lab2=None, smooth=1e-10, eps=1e-16):
+        g = torch.stack([torch.zeros(()) if v is None else v for v in grads])
+        return fused_losses.stats_grad_plain(lg, lab, m, stats, g.view(-1, 2),
+                                             smooth, eps, lab2)
+
+    monkeypatch.setattr(fused_losses, "stats_kernel", fake_stats)
+    monkeypatch.setattr(fused_losses, "stats_grad_kernel", fake_grad)
+    coef = (0.7, 1.1, 0.4, 1.3)
+    x = _nchw(logits).requires_grad_(True)
+    vals = fused_losses._RegionDiceCE.apply(x, _t(img_l), _t(mask), _t(patch_l),
+                                            1e-10, 1e-16)
+    sum(coef[i] * vals[i] for i in used).backward()
+    xp = _nchw(logits).requires_grad_(True)
+    want = fused_losses.region_dice_ce(xp, _t(img_l), _t(mask), _t(patch_l))
+    sum(coef[i] * want[i] for i in used).backward()
+    _close([v.item() for v in vals], [v.item() for v in want], rtol=1e-6)
+    _close(x.grad.numpy(), xp.grad.numpy(), atol=1e-7)
+
+
+@pytest.mark.parametrize("regions", [1, 2])
+def test_k1_gradient_with_labels_outside_classes(regions):
+    """With labels outside [0, C) the port's gradient is the gradient of
+    chap_tpu's forward (jax.grad of its XLA twin); chap_tpu's custom VJP
+    (_bwd) departs from it on exactly the masked pixels with such labels,
+    a fault of the reference the port does not copy."""
+    logits, img_l, patch_l, mask = make_mix_inputs(25, 2, 9, 11, 3, 5)
+    jl, jm = jnp.asarray(logits), jnp.asarray(mask)
+    regs = [(img_l, jm), (patch_l, 1.0 - jm)][:regions]
+
+    def autodiff(lg):
+        return sum(sum(jax_compose(_masked_seg_stats_xla(lg, jnp.asarray(lab), w),
+                                   1e-10, 1e-16)) for lab, w in regs)
+
+    def custom_vjp(lg):
+        return sum(sum(jax_fused(lg, jnp.asarray(lab), w)) for lab, w in regs)
+
+    want = np.transpose(np.asarray(jax.grad(autodiff)(jl)), (0, 3, 1, 2))
+    x = _nchw(logits).requires_grad_(True)
+    lab2 = _t(patch_l) if regions == 2 else None
+    sum(fused_losses.region_dice_ce(x, _t(img_l), _t(mask), lab2)).backward()
+    _close(x.grad.numpy(), want, atol=1e-7)
+    vjp = np.transpose(np.asarray(jax.grad(custom_vjp)(jl)), (0, 3, 1, 2))
+    differs = np.abs(vjp - want).max(1) > 1e-5
+    outside = np.zeros_like(differs)
+    for lab, w in regs:
+        outside |= (lab >= 3) & (np.asarray(w) > 0)
+    assert differs.any() and not (differs & ~outside).any()

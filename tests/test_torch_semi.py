@@ -140,3 +140,51 @@ def test_k2_plain_agrees_with_host_oracle_on_clean_masks():
 def test_k2_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError):
         nms.ccl_kernel(torch.zeros(1, 4, 4, dtype=torch.int32), 4)
+
+
+def _serpentine(h, w, stride=3):
+    """One component that snakes through every row band: rows 0, stride,
+    2 stride, ... are full and joined alternately at the right and left
+    ends, so at 96^2 it crosses every 32x32 tile of the kernel."""
+    m = np.zeros((h, w), np.int32)
+    rows = list(range(0, h, stride))
+    for i, y in enumerate(rows):
+        m[y] = 1
+        if i + 1 < len(rows):
+            x = w - 1 if i % 2 == 0 else 0
+            m[y:rows[i + 1] + 1, x] = 1
+    return m
+
+
+def _k2_case(name):
+    if name == "serpentine":
+        seg = np.zeros((2, 96, 96), np.int32)
+        seg[0] = _serpentine(96, 96) * 2
+        seg[1] = _serpentine(96, 96, 4) * 3
+        seg[1, 50:60, 10:20] = 1
+        return seg
+    if name == "ties_across_tiles":          # equal 3x3 squares in 4 tiles
+        seg = np.zeros((1, 96, 96), np.int32)
+        for y, x in [(5, 5), (40, 70), (70, 10), (30, 31)]:
+            seg[0, y:y + 3, x:x + 3] = 1
+        seg[0, 80:82, 80:82] = 2
+        seg[0, 10:12, 60:62] = 2
+        return seg
+    if name == "empty":
+        return np.zeros((2, 40, 40), np.int32)
+    return np.full((2, 40, 40), 2, np.int32)  # full foreground
+
+
+@pytest.mark.parametrize("name", ["serpentine", "ties_across_tiles", "empty",
+                                  "full"])
+def test_k2_plain_matches_chap_tpu_on_tile_cases(name):
+    """The cases that stress K2's tiles: one component through every tile,
+    equal-size ties in different tiles, an empty and a full map."""
+    seg = _k2_case(name)
+    want = np.asarray(jax_largest_cc_batch(jnp.asarray(seg), 4))
+    got = nms.largest_cc_batch(torch.from_numpy(seg), 4).numpy()
+    np.testing.assert_array_equal(got, want)
+    if name == "serpentine":
+        assert (got[0] == seg[0]).all()        # the snake is one component
+    if name == "ties_across_tiles":
+        assert got[0, 5, 5] == 1 and got[0, 40, 70] == 0 and got[0, 10, 60] == 2
