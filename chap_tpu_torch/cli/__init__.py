@@ -1,0 +1,1 @@
+"""Part of the chap_tpu_torch port; see the package docstring."""

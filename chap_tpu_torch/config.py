@@ -205,9 +205,11 @@ def update_values(src: dict, dst: Any) -> Any:
 
 def apply_overrides(cfg: Config, overrides: Optional[List[str]]) -> Config:
     """Apply `a.b=c` positional overrides (values YAML-parsed) in place."""
+    if not overrides:
+        return cfg
     import yaml
 
-    for item in overrides or []:
+    for item in overrides:
         key, _, raw = item.partition("=")
         parsed = yaml.safe_load(raw)
         node: Any = cfg
@@ -219,11 +221,12 @@ def apply_overrides(cfg: Config, overrides: Optional[List[str]]) -> Config:
 
 
 def load_config(yaml_path: Optional[str] = None, overrides: Optional[List[str]] = None) -> Config:
-    """Build a Config from defaults + optional YAML file + `a.b=c` CLI overrides."""
-    import yaml
-
+    """Build a Config from defaults + optional YAML file + `a.b=c` CLI overrides.
+    PyYAML is needed only for a file or an override."""
     cfg = Config()
     if yaml_path:
+        import yaml
+
         with open(yaml_path) as handle:
             loaded = yaml.safe_load(handle) or {}
         update_values(loaded, cfg)

@@ -13,11 +13,13 @@ def patch_size_nd(spatial: Sequence[int], patch_frac: float = 2.0 / 3.0):
 
 
 def draw_box_starts(spatial: Sequence[int], generator: Optional[torch.Generator],
-                    patch_frac: float = 2.0 / 3.0) -> List[torch.Tensor]:
+                    patch_frac: float = 2.0 / 3.0,
+                    device: Optional[torch.device] = None) -> List[torch.Tensor]:
     """One start per axis, uniform in [0, size - patch) like chap_tpu's
     jax.random.randint(key, (), 0, size - psize); 0-d tensors on the
-    generator's device (no host sync)."""
-    dev = generator.device if generator is not None else None
+    generator's device, or without one on ``device`` from its default
+    generator (no host sync)."""
+    dev = generator.device if generator is not None else device
     return [torch.randint(0, int(s) - p, (), generator=generator, device=dev)
             for s, p in zip(spatial, patch_size_nd(spatial, patch_frac))]
 

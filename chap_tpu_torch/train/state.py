@@ -16,12 +16,12 @@ increment, as optax evaluates its schedule.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Mapping, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 
-from chap_tpu_torch.models.layers import BatchNorm2d
+from chap_tpu_torch.models.layers import BN_MOMENTUM, BatchNorm2d
 from chap_tpu_torch.semi.gradsim import init_sim_scores
 
 
@@ -61,3 +61,20 @@ def bn_running_stats(model: nn.Module) -> Dict[str, Tuple[torch.Tensor, torch.Te
     return {m.stats_key: (m.running_mean, m.running_var)
             for m in model.modules() if isinstance(m, BatchNorm2d)}
 
+
+
+def fold_batch_stats(model: nn.Module,
+                     pass_stats: Sequence[Mapping[str, Tuple[torch.Tensor, torch.Tensor]]]
+                     ) -> None:
+    """Fold the batch statistics of train-mode passes, in order, into the
+    model's BN running stats with Flax's momentum (running = 0.9 * running
+    + 0.1 * batch per pass), in place."""
+    with torch.no_grad():
+        for key, (mean, var) in bn_running_stats(model).items():
+            new_mean, new_var = mean.clone(), var.clone()
+            for stats in pass_stats:
+                b_mean, b_var = stats[key]
+                new_mean = BN_MOMENTUM * new_mean + (1 - BN_MOMENTUM) * b_mean
+                new_var = BN_MOMENTUM * new_var + (1 - BN_MOMENTUM) * b_var
+            mean.copy_(new_mean)
+            var.copy_(new_var)

@@ -28,7 +28,7 @@ built:
 from __future__ import annotations
 
 import logging
-from typing import Dict, NamedTuple, Optional, Sequence, Tuple, Union
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -38,14 +38,13 @@ from chap_tpu_torch.device import resolve_device
 from chap_tpu_torch.losses.ce import cross_entropy, cross_entropy_per_pixel
 from chap_tpu_torch.losses.mix import mix_loss
 from chap_tpu_torch.losses.vat import vat_loss_2d
-from chap_tpu_torch.models.layers import BN_MOMENTUM
 from chap_tpu_torch.models.perturb import perturb_draw_shapes
 from chap_tpu_torch.semi.bcp import draw_box_starts, generate_mask_nd, mix_images
 from chap_tpu_torch.semi.gradsim import (ENCODER_LEVEL_PATHS, level_weights,
                                          update_grad_sim)
 from chap_tpu_torch.semi.nms import largest_cc_batch
 from chap_tpu_torch.semi.patchmask import create_mask_v1
-from chap_tpu_torch.train.state import TrainState, bn_running_stats, make_lr_schedule
+from chap_tpu_torch.train.state import TrainState, fold_batch_stats, make_lr_schedule
 from chap_tpu_torch.utils.ramps import sigmoid_rampup
 
 logger = logging.getLogger(__name__)
@@ -68,36 +67,58 @@ def _check_layout(cfg: Config) -> Tuple[int, int]:
     return labeled_bs, labeled_bs // 2
 
 
+def uniform_sampler(generator: Optional[torch.Generator] = None,
+                    device: Optional[Union[str, torch.device]] = None):
+    """(rand(shape), device): ``rand`` draws uniforms from ``generator`` on
+    its device and moves them to ``device`` (default: the generator's);
+    without a generator it draws on ``device`` itself, from that device's
+    default generator, so a step on the card draws nothing on the host."""
+    if device is not None:
+        device = torch.device(device)
+    elif generator is not None:
+        device = generator.device
+    else:
+        device = torch.device("cpu")
+    gen_dev = generator.device if generator is not None else device
+
+    def rand(shape):
+        return torch.rand(shape, generator=generator, device=gen_dev).to(device)
+    return rand, device
+
+
+def encoder_dropout_draws(cfg: Config, rows: int, h: int, w: int, rand
+                          ) -> List[Optional[torch.Tensor]]:
+    """One uniform per encoder level, shaped like that level's first conv
+    output [rows, C_i, H >> i, W >> i], or None where its dropout is 0."""
+    return [rand((rows, c, h >> i, w >> i)) if p > 0 else None
+            for i, (c, p) in enumerate(zip(cfg.model.feature_chns,
+                                           cfg.model.dropout))]
+
+
 def draw_step_uniforms(cfg: Config, image_shape: Sequence[int],
                        generator: Optional[torch.Generator] = None,
                        device: Optional[Union[str, torch.device]] = None
                        ) -> Dict[str, object]:
-    """Every random number one step consumes, drawn from ``generator`` on its
-    device and moved to ``device``:
+    """Every random number one step consumes, drawn as ``uniform_sampler``
+    says (from ``generator``, or from ``device``'s default generator):
 
       bcp_starts  box start per spatial axis (0-d int64)
-      drop        {pass: [uniform shaped like the encoder level's first conv
-                  output, or None where that level's dropout is 0]} for the
-                  passes teacher, student, fp (channel dropout) and vat
+      drop        {pass: encoder_dropout_draws} for the passes teacher,
+                  student, fp (channel dropout) and vat
       perturb     per-level channel-perturbation uniforms (models/perturb.py)
       vat_d       the initial VAT direction's uniform, shaped like the
                   unlabeled half of the image
     """
     b, cin, h, w = (int(s) for s in image_shape)
     labeled_bs, sub_bs = _check_layout(cfg)
-    gen_dev = generator.device if generator is not None else torch.device("cpu")
-    device = torch.device(device) if device is not None else gen_dev
-
-    def rand(shape):
-        return torch.rand(shape, generator=generator, device=gen_dev).to(device)
-
-    chns, rates = cfg.model.feature_chns, cfg.model.dropout
+    rand, device = uniform_sampler(generator, device)
+    chns = cfg.model.feature_chns
     rows = {"teacher": b - labeled_bs, "student": 2 * sub_bs,
             "fp": b - labeled_bs, "vat": b - labeled_bs}
     draws: Dict[str, object] = {
-        "bcp_starts": [s.to(device) for s in draw_box_starts((h, w), generator)],
-        "drop": {name: [rand((n, c, h >> i, w >> i)) if p > 0 else None
-                        for i, (c, p) in enumerate(zip(chns, rates))]
+        "bcp_starts": [s.to(device) for s in
+                       draw_box_starts((h, w), generator, device=device)],
+        "drop": {name: encoder_dropout_draws(cfg, n, h, w, rand)
                  for name, n in rows.items()},
     }
     if cfg.semi.dropout:
@@ -259,15 +280,7 @@ def build_chap_train_step(model: torch.nn.Module,
         optimizer.step()
 
         # ---- BN running stats: bs0 -> teacher -> student [-> fp] -------------
-        with torch.no_grad():
-            for key, (mean, var) in bn_running_stats(model).items():
-                new_mean, new_var = mean.clone(), var.clone()
-                for stats in pass_stats:
-                    b_mean, b_var = stats[key]
-                    new_mean = BN_MOMENTUM * new_mean + (1 - BN_MOMENTUM) * b_mean
-                    new_var = BN_MOMENTUM * new_var + (1 - BN_MOMENTUM) * b_var
-                mean.copy_(new_mean)
-                var.copy_(new_var)
+        fold_batch_stats(model, pass_stats)
 
         state.step += 1
         state.sim_scores = sim_scores

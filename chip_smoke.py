@@ -14,8 +14,9 @@ Phases (any failure raises and the script exits non-zero):
                [1, 4, 23, 29] and [2, 3, 23, 29] with labels outside
                [0, C) that match a padded class index: statistics, dice,
                ce and d/dlogits (also with one region's grads None) at
-               rtol 2e-3, two calls bit-identical; torch.profiler counts the device kernels of
-               one forward and one backward (at most 2 each); device ms per
+               rtol 2e-3, two calls bit-identical; torch.profiler counts
+               the device kernels of 3 forward calls (1 or 2 kernels each)
+               and of 3 backward calls (1 each); device ms per
                launch over 100 back-to-back calls, host us per call, and
                the median of single calls, each between two events
   4. K2        the CUDA largest-CC kernel exactly equal to its plain version
@@ -35,15 +36,42 @@ Phases (any failure raises and the script exits non-zero):
                just before the timed steps and read just after (4 K1
                forward, 12 K1 backward, 1 K2 per step); then torch.profiler
                over 2 steps: device ms per step by kernel class
-  7. report    the kernels line (JSON), the card line, and the last line
+  7. eval      evaluate_volumes on the card (TF32 off) and on the CPU from
+               the same weights, feature_chns (4, 8, 16, 16, 32) trained 30
+               supervised steps on the card, 2 synthetic volumes of 6 x 64^2:
+               >= 99.9% of predicted pixels agree, mean dice within 1e-3
+  8. trainer   chap_tpu_torch.cli.train_2d.main in process at
+               configs/acdc_chap.yml's values with --dataset synthetic
+               (1,312-slice device pool, labeled_num 7): 20 CHAP steps with
+               an eval every 10 on 2 val volumes of 10 x 256^2, --resume to
+               30 (the step counter continues, the best slot is kept), then
+               cli.test_2d on ``best``; 5 supervised steps and 10 CHAP steps
+               on the host loader path (data.device_input=false). Launch
+               counters are set to 0 just before each run and read just
+               after: 4 / 12 / 1 per CHAP step, 2 / 2 / 0 per supervised
+               step. Prints the ``trainer`` line (pool build s, steps/s
+               between evals per path beside phase 6's bare step, eval s,
+               checkpoint ms, val dice, peak memory)
+  9. report    the kernels line (JSON), the card line, and the last line
                {"ok": true, "device": {...}}
+
+Two diagnostics run only by hand, each from the repository root:
+
+    python3 -c "import chip_smoke as c; c.phase_slice()"
+    python3 -c "import chip_smoke as c; c.loop_breakdown('by_hand')"
+
+the first is phase 6 alone; the second prints a ``loop`` line, the ms per
+full-width step on phantom and on device-pool batches with a sync after
+every step and after 5, and the batch function's own device ms.
 """
 from __future__ import annotations
 
 import concurrent.futures
 import json
 import math
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -52,13 +80,19 @@ import time
 import numpy as np
 import torch
 
+from chap_tpu_torch.cli import test_2d as cli_test
+from chap_tpu_torch.cli import train_2d as cli_train
 from chap_tpu_torch.config import acdc_chap_config
-from chap_tpu_torch.data.datasets import phantom_batch
+from chap_tpu_torch.data.datasets import (SyntheticSliceDataset, SyntheticVolumeDataset,
+                                          patients_to_slices, phantom_batch)
+from chap_tpu_torch.data.device_data import build_device_batch_fn, build_device_pool
+from chap_tpu_torch.eval.eval2d import evaluate_volumes, make_predictor, predict_volume
 from chap_tpu_torch.models.factory import net_factory
 from chap_tpu_torch.ops import cuda_build, fused_losses
 from chap_tpu_torch.semi import nms
 from chap_tpu_torch.train.state import create_train_state, make_optimizer
 from chap_tpu_torch.train.step_chap import build_chap_train_step, draw_step_uniforms
+from chap_tpu_torch.train.step_supervised import build_supervised_train_step
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 FP32_FLOP_PER_S = 67e12        # outside the tensor cores
@@ -66,6 +100,15 @@ RTOL = 2e-3
 # per CHAP step: 4 mix_loss calls, each one K1 forward over both regions and
 # one K1 backward in each of grads_l, grads_u and total.backward(); one K2
 LAUNCHES_PER_STEP = {"K1_fwd": 4, "K1_bwd": 12, "K2_ccl": 1}
+# per supervised step: dice_ce_supervised on each decoder output, K1 with R = 1
+SUPERVISED_LAUNCHES_PER_STEP = {"K1_fwd": 2, "K1_bwd": 2, "K2_ccl": 0}
+# the trainer phase: configs/acdc_chap.yml through the CLI, synthetic data
+RUNS_DIR = os.path.join("build", "chip_smoke_runs")
+TRAINER_FLAGS = ["--cfg", "configs/acdc_chap.yml", "--dataset", "synthetic",
+                 "--adv_noise", "--dropout", "--labeled_num", "7",
+                 "--device", "cuda"]
+TRAINER_OVERRIDES = ["eval.eval_every=10", "data.synthetic_val_volumes=2",
+                     "run.log_every=10", f"run.snapshot_root={RUNS_DIR}"]
 METRICS = ("loss", "bcp_loss", "loss_l", "loss_u", "fp_loss", "vat_loss",
            "consistency_weight")
 
@@ -79,6 +122,12 @@ def launch_counts() -> dict:
     return {"K1_fwd": fused_losses.stats_kernel.launches,
             "K1_bwd": fused_losses.stats_grad_kernel.launches,
             "K2_ccl": nms.ccl_kernel.launches}
+
+
+def zero_launch_counts() -> None:
+    fused_losses.stats_kernel.launches = 0
+    fused_losses.stats_grad_kernel.launches = 0
+    nms.ccl_kernel.launches = 0
 
 
 def single_call_ms(fn, n: int = 20, warmup: int = 3) -> float:
@@ -141,6 +190,19 @@ def device_kernels(fn, n: int = 1) -> list:
         torch.cuda.synchronize()
     return [(ev.name, ev.time_range.elapsed_us()) for ev in prof.events()
             if getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA]
+
+
+def kernel_counts(fn, n: int) -> dict:
+    """name -> number of device kernels torch.profiler sees while fn runs n
+    times. A session that saw no device kernel at all is taken once more:
+    torch.profiler has returned an empty session for a short call."""
+    for _ in range(2):
+        counts = {}
+        for name, _ in device_kernels(fn, n):
+            counts[name] = counts.get(name, 0) + 1
+        if counts:
+            break
+    return counts
 
 
 def timings(fn, n: int = 100) -> dict:
@@ -284,15 +346,18 @@ def phase_k1(shape, seed, regions, timed=False, label_values=None):
            "losses": losses.view(-1).tolist(), "fwd_max_abs_err": fwd_err,
            "bwd_max_abs_err": bwd_abs, "bwd_rel_err": g_err}
     if timed:
+        # device kernels of 3 Function calls: each forward launches 1 or 2
+        # kernels, each backward 1
         x = logits.clone().requires_grad_(True)
-        fwd_k = [k for k, _ in device_kernels(
-            lambda: fused_losses.region_dice_ce(x, labels, mask, lab2))]
+        fwd_k = kernel_counts(
+            lambda: fused_losses.region_dice_ce(x, labels, mask, lab2), 3)
         vals = fused_losses.region_dice_ce(x, labels, mask, lab2)
-        bwd_k = [k for k, _ in device_kernels(
-            lambda: torch.autograd.grad(vals, [x], grads))]
-        check(1 <= len(fwd_k) <= 2 and 1 <= len(bwd_k) <= 2,
-              f"K1 Function's device kernels at {tag}: forward {fwd_k}, "
-              f"backward {bwd_k}")
+        bwd_k = kernel_counts(
+            lambda: torch.autograd.grad(vals, [x], grads, retain_graph=True), 3)
+        check(1 <= len(fwd_k) <= 2 and set(fwd_k.values()) == {3}
+              and len(bwd_k) == 1 and set(bwd_k.values()) == {3},
+              f"K1 Function's device kernels over 3 calls at {tag}: forward "
+              f"{fwd_k}, backward {bwd_k}")
         xg = logits.clone().requires_grad_(True)
         p_vals = fused_losses.compose_plain(fused_losses.region_stats_plain(
             xg, labels, mask, lab2), 1e-10, 1e-16).view(-1)
@@ -477,9 +542,7 @@ def phase_slice():
     out = step(state, batches[0], gen)          # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fused_losses.stats_kernel.launches = 0
-    fused_losses.stats_grad_kernel.launches = 0
-    nms.ccl_kernel.launches = 0
+    zero_launch_counts()
     times, metrics = [], []
     n_steps = len(batches) - 1
     for batch in batches[1:]:
@@ -508,7 +571,7 @@ def phase_slice():
          "--format=csv,noheader"], capture_output=True, text=True, check=True,
         timeout=60).stdout.strip(), flush=True)
     phase_profile(state, step, batches[1:3], gen)
-    return launches
+    return launches, res["median_step_ms"]
 
 
 def _kernel_class(name: str) -> str:
@@ -569,6 +632,197 @@ def phase_profile(state, step, batches, gen) -> None:
         flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phases 7 and 8: eval parity and the trainer through its CLI
+# ---------------------------------------------------------------------------
+
+def phase_eval_parity() -> dict:
+    """Slice-wise eval on the card and on the CPU from the same weights,
+    trained briefly on phantoms so the predictions are not one class."""
+    set_tf32(False)
+    cfg = acdc_chap_config()
+    cfg.model.feature_chns = (4, 8, 16, 16, 32)
+    cfg.data.batch_size, cfg.data.labeled_bs = 8, 4
+    cfg.data.image_size = (64, 64)
+    torch.manual_seed(5)
+    model = net_factory(cfg.model.name, cfg.data.in_chns, cfg.data.num_classes,
+                        cfg.model, device="cuda")
+    opt = make_optimizer(model, cfg.optim.base_lr)
+    state = create_train_state(model, opt, cfg.model.feature_chns)
+    step = build_supervised_train_step(model, opt, cfg, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for i in range(30):
+        step(state, phantom_inputs(cfg, 200 + i, "cuda"), gen)
+    cpu_model = net_factory(cfg.model.name, cfg.data.in_chns,
+                            cfg.data.num_classes, cfg.model, device="cpu")
+    cpu_model.load_state_dict(model.state_dict())
+    ds = SyntheticVolumeDataset((6, 64, 64), cfg.data.num_classes, length=2)
+    on_card = make_predictor(model, device="cuda")
+    on_cpu = make_predictor(cpu_model, device="cpu")
+    agree = [float(np.mean(predict_volume(on_card, ds[i]["image"], (64, 64))
+                           == predict_volume(on_cpu, ds[i]["image"], (64, 64))))
+             for i in range(len(ds))]
+    m_card = evaluate_volumes(ds, on_card, cfg.data.num_classes, (64, 64))
+    m_cpu = evaluate_volumes(ds, on_cpu, cfg.data.num_classes, (64, 64))
+    dice = [float(m_card[:, 0].mean()), float(m_cpu[:, 0].mean())]
+    res = {"pixel_agreement": agree, "mean_dice_card_cpu": dice,
+           "mean_hd95_card_cpu": [float(m_card[:, 1].mean()),
+                                  float(m_cpu[:, 1].mean())],
+           "settings": tf32_settings()}
+    print("eval_parity", json.dumps(res), flush=True)
+    check(min(agree) >= 0.999, f"eval predictions agree on >= 99.9%: {agree}")
+    check(abs(dice[0] - dice[1]) <= 1e-3, f"eval mean dice card vs cpu {dice}")
+    return res
+
+
+def _records(save_dir: str) -> list:
+    with open(os.path.join(save_dir, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def _meta(save_dir: str) -> dict:
+    with open(os.path.join(save_dir, "checkpoints", "meta.json")) as f:
+        return json.load(f)
+
+
+def trainer_run(flags, overrides, steps, per_step) -> dict:
+    """One cli.train_2d.main call with the launch counters set to 0 just
+    before it and read just after; they must be ``steps`` x ``per_step``
+    (eval and checkpoints launch no K1 or K2)."""
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    out = cli_train.main(TRAINER_FLAGS + flags + TRAINER_OVERRIDES + overrides)
+    wall_s = time.perf_counter() - t0
+    launches = launch_counts()
+    want = {k: v * steps for k, v in per_step.items()}
+    check(launches == want, f"trainer launches {launches}, expected {want} "
+                            f"({per_step} per step over {steps} steps)")
+    records = _records(out["save_dir"])
+    return {**out, "wall_s": wall_s, "launches": launches, "records": records}
+
+
+def phase_trainer(bare_step_ms: float) -> dict:
+    set_tf32(True)     # PyTorch's defaults, as in phase 6
+    shutil.rmtree(RUNS_DIR, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    first = trainer_run(["--max_iterations", "20"], [], 20, LAUNCHES_PER_STEP)
+    peak = torch.cuda.max_memory_allocated()
+    save_dir = first["save_dir"]
+    check(first["steps"] == 20, f"20 CHAP steps, ran {first['steps']}")
+    best_before = _meta(save_dir)
+    resumed = trainer_run(["--max_iterations", "30", "--resume"], [], 10,
+                          LAUNCHES_PER_STEP)
+    check(resumed["save_dir"] == save_dir and resumed["steps"] == 30,
+          f"resume continues the run to step 30: {resumed['steps']}")
+    evals = [r for r in resumed["records"] if "val_mean_dice" in r]
+    check([r["step"] for r in evals] == [10, 20, 30],
+          f"evals at 10, 20, 30: {[r['step'] for r in evals]}")
+    best_after = _meta(save_dir)
+    check(best_after["best_metric"] >= best_before["best_metric"] and
+          (best_after == best_before or best_after["best_iteration"] == 30),
+          f"best slot kept across the resume: {best_before} -> {best_after}")
+    t0 = time.perf_counter()
+    test_mean = cli_test.main(["--snapshot", save_dir, "--ckpt", "best",
+                               "--device", "cuda"])
+    test_s = time.perf_counter() - t0
+    check(np.isfinite(test_mean).all() and test_mean.shape == (3, 4),
+          f"cli.test_2d metrics {test_mean}")
+    check(os.path.exists(os.path.join(save_dir, "performance.txt")),
+          "cli.test_2d wrote performance.txt")
+    supervised = trainer_run(["--max_iterations", "5", "--mode", "supervised",
+                              "--exp", "supervised"], ["eval.eval_every=5"],
+                             5, SUPERVISED_LAUNCHES_PER_STEP)
+    # 10 steps with an eval every 5: the second stretch runs without the
+    # first step's warm-up or the loader's start
+    host = trainer_run(["--max_iterations", "10", "--exp", "host_input"],
+                       ["eval.eval_every=5", "data.device_input=false"],
+                       10, LAUNCHES_PER_STEP)
+
+    def rates(run, key="steps_per_sec_since_eval", after=0):
+        return [r[key] for r in run["records"] if key in r and r["step"] > after]
+    for run in (first, resumed, supervised, host):
+        for r in run["records"]:
+            if "loss" in r:
+                check(math.isfinite(r["loss"]), f"finite loss {r}")
+    pool = [r["pool_build_s"] for r in resumed["records"] if "pool_build_s" in r]
+    with open(os.path.join(save_dir, "config.json")) as f:
+        data_cfg = json.load(f)["data"]
+    res = {
+        "card": card_line(), "batch": data_cfg["batch_size"],
+        "labeled_bs": data_cfg["labeled_bs"], "image_size": data_cfg["image_size"],
+        "pool_slices": data_cfg["synthetic_train_size"], "pool_build_s": pool,
+        "device_input_steps_per_s": rates(resumed),
+        "host_input_steps_per_s": rates(host),
+        "supervised_steps_per_s": rates(supervised),
+        "bare_step_steps_per_s": 1e3 / bare_step_ms,
+        # steps over the wall time from the run's loop start to each log
+        # step, the evals and checkpoints before it included
+        "window_steps_per_s": {
+            "chap_20": rates(first, "steps_per_sec"),
+            "resume_10": rates(resumed, "steps_per_sec", after=20)},
+        "eval_s": [r["eval_s"] for r in evals],
+        "checkpoint_ms": [r["checkpoint_ms"] for r in evals],
+        "val_dice": [r["val_mean_dice"] for r in evals],
+        "best": best_after, "test_2d_mean": test_mean.mean(axis=0).tolist(),
+        "test_2d_s": test_s, "peak_mem_bytes": peak,
+        "wall_s": {"chap_20": first["wall_s"], "resume_10": resumed["wall_s"],
+                   "supervised_5": supervised["wall_s"], "host_10": host["wall_s"]},
+        "launches": {"chap_20": first["launches"], "resume_10": resumed["launches"],
+                     "supervised_5": supervised["launches"],
+                     "host_10": host["launches"]},
+        "settings": tf32_settings()}
+    print("trainer", json.dumps(res), flush=True)
+    shutil.rmtree(RUNS_DIR, ignore_errors=True)
+    return res
+
+
+def loop_breakdown(when: str, rounds: int = 2, n: int = 5) -> dict:
+    """What the trainer's loop adds to the bare step, in one process at one
+    moment: ms per step on phase 6's phantom batches and on batches the
+    device pool's batch function draws each step, each with a sync after
+    every step and with one sync after ``n`` steps (the trainer's way),
+    alternated over ``rounds``; and the batch function's own device ms.
+    ``when`` tags the line. main does not run it: call it by hand."""
+    set_tf32(True)     # PyTorch's defaults, as in phase 6
+    cfg =cli_train.build_config(cli_train.parse_args(
+        TRAINER_FLAGS + TRAINER_OVERRIDES))
+    state, step = make_step(cfg, "cuda", seed=1337)
+    slices = cfg.data.synthetic_train_size
+    labeled = patients_to_slices(cfg.data.dataset, cfg.data.labeled_num)
+    pool = build_device_pool(SyntheticSliceDataset(
+        cfg.data.image_size[0], cfg.data.num_classes, slices),
+        cfg.data.image_size, device="cuda")
+    batch_fn = build_device_batch_fn(slices, labeled, cfg.data.batch_size,
+                                     cfg.data.labeled_bs)
+    gen = torch.Generator(device="cuda").manual_seed(1337)
+    bgen = torch.Generator(device="cuda").manual_seed(7)
+    phantoms = [phantom_inputs(cfg, 10 + i, "cuda") for i in range(n)]
+    step(state, phantoms[0], gen)                    # warm-up
+    torch.cuda.synchronize()
+
+    def run(pooled: bool, sync_each: bool) -> float:
+        t0 = time.perf_counter()
+        for i in range(n):
+            step(state, batch_fn(pool, bgen) if pooled else phantoms[i], gen)
+            if sync_each:
+                torch.cuda.synchronize()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    kinds = {"phantom_sync_each": (False, True), "pool_sync_each": (True, True),
+             "pool_sync_end": (True, False), "phantom_sync_end": (False, False)}
+    ms = {k: [] for k in kinds}
+    for _ in range(rounds):
+        for k, (pooled, sync_each) in kinds.items():
+            ms[k].append(run(pooled, sync_each))
+    res = {"ms_per_step": ms,
+           "batch_fn_device_ms": device_ms(lambda: batch_fn(pool, bgen), 50),
+           "batch_fn_host_us": host_us(lambda: batch_fn(pool, bgen), 50),
+           "steps": n, "rounds": rounds, "when": when}
+    print("loop", json.dumps(res), flush=True)
+    return res
+
+
 def main() -> int:
     # phase 1: device
     if not torch.cuda.is_available():
@@ -609,15 +863,20 @@ def main() -> int:
     # phase 5: CUDA-against-CPU step parity
     phase_parity()
     # phase 6: the slice at full width
-    launches = phase_slice()
+    launches, bare_step_ms = phase_slice()
+    # phase 7: eval parity, card against CPU
+    phase_eval_parity()
+    # phase 8: the trainer through its CLI at full width
+    trainer = phase_trainer(bare_step_ms)
 
-    # phase 7: report
+    # phase 9: report
     k2_bound = k2["clean"]["bound"]
     kernels = [
         {"name": "K1_fwd", "route": "triton",
          "source": "chap_tpu_torch/ops/fused_losses.py",
          "replaces": "chap_tpu/ops/fused_losses.py:99",
          "launches": launches["K1_fwd"],
+         "trainer_launches": sum(r["K1_fwd"] for r in trainer["launches"].values()),
          "max_abs_err": max(k1["fwd_max_abs_err"], k1_r1["fwd_max_abs_err"]),
          "ms": k1["fwd"]["device_ms"], "kernel_ms": k1["fwd"]["kernel_ms"],
          "host_us": k1["fwd"]["host_us"],
@@ -628,6 +887,7 @@ def main() -> int:
          "source": "chap_tpu_torch/ops/fused_losses.py",
          "replaces": "chap_tpu/ops/fused_losses.py:159",
          "launches": launches["K1_bwd"],
+         "trainer_launches": sum(r["K1_bwd"] for r in trainer["launches"].values()),
          "max_abs_err": max(k1["bwd_max_abs_err"], k1_r1["bwd_max_abs_err"]),
          "ms": k1["bwd"]["device_ms"], "kernel_ms": k1["bwd"]["kernel_ms"],
          "host_us": k1["bwd"]["host_us"],
@@ -638,6 +898,7 @@ def main() -> int:
          "source": "chap_tpu_torch/csrc/ccl.cu",
          "replaces": "chap_tpu/semi/nms.py:118",
          "launches": launches["K2_ccl"],
+         "trainer_launches": sum(r["K2_ccl"] for r in trainer["launches"].values()),
          "max_abs_err": max(r["max_abs_err"] for r in k2.values()),
          "ms": k2["clean"]["device_ms"], "kernel_ms": k2["clean"]["kernel_ms"],
          "host_us": k2["clean"]["host_us"],
