@@ -1,11 +1,14 @@
 """Carry chap_tpu (Flax) weights into the port's torch modules.
 
 ``state_dict_from_flax`` inverts chap_tpu/convert/torch_import.py: it walks
-the same DualDecoder rule table (a copy of torch_import.py:43-82, so the
-port needs nothing of chap_tpu) and undoes the layout rules of
-torch_import.py:358-372:
-    conv    Flax (kh, kw, I, O)                    -> torch [O, I, kh, kw]
-    deconv  Flax (kh, kw, I, O), spatially flipped -> torch [I, O, kh, kw]
+the same rule tables (copies of torch_import.py:43-82 for the 2D
+DualDecoder and :101-166 for VNet and DualDecoder3d, so the port needs
+nothing of chap_tpu) and undoes the layout rules of torch_import.py:358-372:
+    conv    Flax (kh, kw, I, O)                     -> torch [O, I, kh, kw]
+            Flax (kx, ky, kz, I, O)                 -> torch [O, I, kx, ky, kz]
+    deconv  Flax (kh, kw, I, O), spatially flipped  -> torch [I, O, kh, kw]
+            Flax (kx, ky, kz, I, O), flipped on all three spatial axes
+                                                    -> torch [I, O, kx, ky, kz]
     bn      scale / bias / mean / var -> weight / bias / running_mean / running_var
 Inputs are numpy trees (nested dicts of arrays), e.g. jax.device_get of
 ``variables["params"]`` and ``variables["batch_stats"]``.
@@ -59,6 +62,74 @@ def dualdecoder_rules(decoder_type: str = "mcnet") -> List[Rule]:
                          bilinear=(decoder_type != "mcnet")))
 
 
+def _convblock3d(tp: str, fp: str, n_stages: int, has_norm: bool) -> List[Rule]:
+    """vnet.py convBlock (:8-35): n_stages x (conv[,norm],relu)."""
+    step = 3 if has_norm else 2
+    rules: List[Rule] = []
+    for i in range(n_stages):
+        rules.append((f"{tp}.conv.{step * i}", "conv", f"{fp}/Conv_{i}"))
+        if has_norm:
+            rules.append((f"{tp}.conv.{step * i + 1}", "bn",
+                          f"{fp}/BatchNorm_{i}"))
+    return rules
+
+
+_VNET_ENC_STAGES = (("block_one", 1), ("block_two", 2), ("block_three", 3),
+                    ("block_four", 3), ("block_five", 3))
+_VNET_DEC_STAGES = (("block_six", 3), ("block_seven", 3), ("block_eight", 2),
+                    ("block_nine", 1))
+
+
+def _vnet_encoder(tp: str, fp: str, has_norm: bool) -> List[Rule]:
+    rules: List[Rule] = []
+    for name, n in _VNET_ENC_STAGES:
+        rules += _convblock3d(f"{tp}.{name}", f"{fp}/{name}", n, has_norm)
+    for name in ("block_one_dw", "block_two_dw", "block_three_dw",
+                 "block_four_dw"):
+        rules.append((f"{tp}.{name}.conv.0", "conv", f"{fp}/{name}/Conv_0"))
+        if has_norm:
+            rules.append((f"{tp}.{name}.conv.1", "bn",
+                          f"{fp}/{name}/BatchNorm_0"))
+    return rules
+
+
+def _vnet_decoder(tp: str, fp: str, has_norm: bool, up_type: int) -> List[Rule]:
+    """vnet.py Decoder (:170-223) with Upsampling_function (:97-125): mode 0
+    = ConvTranspose3d at Sequential index 0; modes 1/2 = Upsample (no
+    params) at 0, Conv3d at 1; norm follows the conv."""
+    rules: List[Rule] = []
+    for name in ("block_five_up", "block_six_up", "block_seven_up",
+                 "block_eight_up"):
+        if up_type == 0:
+            rules.append((f"{tp}.{name}.conv.0", "deconv",
+                          f"{fp}/{name}/ConvTranspose_0"))
+            norm_idx = 1
+        else:
+            rules.append((f"{tp}.{name}.conv.1", "conv", f"{fp}/{name}/Conv_0"))
+            norm_idx = 2
+        if has_norm:
+            rules.append((f"{tp}.{name}.conv.{norm_idx}", "bn",
+                          f"{fp}/{name}/BatchNorm_0"))
+    for name, n in _VNET_DEC_STAGES:
+        rules += _convblock3d(f"{tp}.{name}", f"{fp}/{name}", n, has_norm)
+    rules.append((f"{tp}.out_conv", "conv", f"{fp}/out_conv"))
+    return rules
+
+
+def vnet_rules(normalization: str = "batchnorm") -> List[Rule]:
+    has_norm = normalization != "none"
+    return (_vnet_encoder("encoder", "encoder", has_norm)
+            + _vnet_decoder("decoder", "decoder", has_norm, up_type=0))
+
+
+def dualdecoder3d_rules(normalization: str = "batchnorm") -> List[Rule]:
+    """vnet.py DualDecoder3d (:225-238): decoder1 trilinear, decoder2 deconv."""
+    has_norm = normalization != "none"
+    return (_vnet_encoder("encoder", "encoder", has_norm)
+            + _vnet_decoder("decoder1", "decoder1", has_norm, up_type=1)
+            + _vnet_decoder("decoder2", "decoder2", has_norm, up_type=0))
+
+
 def _get(tree: Mapping[str, Any], path: str) -> Mapping[str, Any]:
     node = tree
     for part in path.split("/"):
@@ -70,19 +141,42 @@ def _t(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x, dtype=np.float32, copy=True))
 
 
+def _conv_weight(kernel: np.ndarray) -> np.ndarray:
+    """Flax (*k, I, O) -> torch [O, I, *k]."""
+    n = kernel.ndim - 2
+    return np.transpose(kernel, (n + 1, n) + tuple(range(n)))
+
+
+def _deconv_weight(kernel: np.ndarray) -> np.ndarray:
+    """Flax (*k, I, O), flipped on every spatial axis -> torch [I, O, *k]."""
+    n = kernel.ndim - 2
+    flipped = kernel[(slice(None, None, -1),) * n]
+    return np.transpose(flipped, (n, n + 1) + tuple(range(n)))
+
+
 def state_dict_from_flax(params: Mapping[str, Any], batch_stats: Mapping[str, Any],
-                         decoder_type: str = "mcnet") -> Dict[str, torch.Tensor]:
-    """Flax DualDecoder variables (numpy trees) -> the port's state_dict."""
+                         decoder_type: str = "mcnet", family: str = "dualdecoder",
+                         normalization: str = "batchnorm"
+                         ) -> Dict[str, torch.Tensor]:
+    """Flax variables (numpy trees) -> the port's state_dict. ``family``:
+    ``dualdecoder`` (2D, with ``decoder_type``), ``vnet`` or
+    ``dualdecoder3d`` (with ``normalization``)."""
+    if family == "dualdecoder":
+        rules = dualdecoder_rules(decoder_type)
+    elif family == "vnet":
+        rules = vnet_rules(normalization)
+    elif family == "dualdecoder3d":
+        rules = dualdecoder3d_rules(normalization)
+    else:
+        raise ValueError(f"unknown family {family!r}")
     sd: Dict[str, torch.Tensor] = {}
-    for tp, kind, fp in dualdecoder_rules(decoder_type):
+    for tp, kind, fp in rules:
         leaf = _get(params, fp)
         if kind == "conv":
-            sd[f"{tp}.weight"] = _t(np.transpose(np.asarray(leaf["kernel"]),
-                                                 (3, 2, 0, 1)))
+            sd[f"{tp}.weight"] = _t(_conv_weight(np.asarray(leaf["kernel"])))
             sd[f"{tp}.bias"] = _t(leaf["bias"])
         elif kind == "deconv":
-            k = np.asarray(leaf["kernel"])[::-1, ::-1]
-            sd[f"{tp}.weight"] = _t(np.transpose(k, (2, 3, 0, 1)))
+            sd[f"{tp}.weight"] = _t(_deconv_weight(np.asarray(leaf["kernel"])))
             sd[f"{tp}.bias"] = _t(leaf["bias"])
         else:   # bn
             stats = _get(batch_stats, fp)

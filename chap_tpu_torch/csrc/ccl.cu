@@ -40,16 +40,38 @@
 //   3. flatten  every pixel's parent becomes its root; each tile-local root
 //               adds its tile-local size to its global root with one
 //               atomicAdd (not one per pixel).
-//   4. select   per tile, every global root atomicMax-es a 64-bit key
-//               (size, ~label) into a shared slot per class; then one global
-//               atomicMax per (tile, class) into the (map, class) slot.
+//   4. select   per 256-pixel range of one map, every global root
+//               atomicMax-es a 64-bit key (size, ~label) into a shared slot
+//               per class; then one global atomicMax per (range, class) into
+//               the (map, class) slot.
 //   5. write    out = class where the pixel's root is its slot's winner,
 //               0 elsewhere (no separate zero pass).
 // Ragged maps (H or W not a multiple of 32) are masked in every phase.
 // Measured by chip_smoke.py on an H100 80GB HBM3 at 700 W, for those 24 maps:
-// 0.064-0.110 ms of kernel time across clean, speckled and percolating
+// 0.063-0.110 ms of kernel time across clean, speckled and percolating
 // label maps, where labelling each class's masks apart with global
 // union-find alone took 0.49-1.61 ms.
+//
+// K2 in 3D (entry point chap_largest_cc_3d), for the 3D CHAP step's maps
+// seg [B, X, Y, Z] (Z fastest), 26-connected: the same result as
+// chap_tpu/semi/nms.py::largest_cc_batch on [B, X, Y, Z] (labels are max
+// linear indices within a map, with Z fastest, as chap_tpu's flatten).
+// At the LA step's 4 maps of 112x112x80 the bound is 16.1 MB of int32 in
+// and 16.1 MB out, 9.6 us at 3.35 TB/s. Same five phases as in 2D:
+//   1. local    one block per 4x8x16 tile (X x Y x Z, 512 voxels): each
+//               voxel unites with those of its 13 backward 26-neighbours
+//               (smaller linear index) of the same class inside the tile,
+//               in shared memory; sizes per tile-local root as in 2D.
+//   2. border   one thread per voxel of the batch; only a voxel on a tile
+//               face where a backward neighbour crosses into another tile
+//               (x at the tile's low face, y at its low or high face, z at
+//               its low or high face) does work: it unites with every
+//               same-class backward neighbour that lies in another tile.
+//               So voxels that touch only across a tile's edge or corner
+//               (up to 7 other tiles) merge too.
+//   3. flatten  the 2D kernel's ccl_flatten.
+//   4. select   the 2D kernel's ccl_select with n = X*Y*Z.
+//   5. write    the 2D kernel's ccl_write with n = X*Y*Z.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -59,7 +81,7 @@ namespace {
 constexpr int kTile = 32;                  // tile side, one thread per pixel
 constexpr int kTilePixels = kTile * kTile;
 constexpr int kSharedSlots = 32;           // classes reduced in shared memory
-constexpr int kThreads = 256;              // phases 3 and 5
+constexpr int kThreads = 256;              // phases 3, 4 and 5
 
 typedef unsigned long long u64;
 
@@ -247,23 +269,21 @@ __global__ void ccl_flatten(int* parent, int* size, int total) {
   if (s > 0 && r != g) atomicAdd(size + r, s);
 }
 
-// grid (tiles_x, tiles_y, batch), block (32, 32)
-__global__ void __launch_bounds__(kTilePixels)
-ccl_select(const int* __restrict__ seg, const int* __restrict__ parent,
-           const int* __restrict__ size, u64* slot, int h, int w,
-           int num_classes) {
+// grid (ceil(n / kThreads), batch), block kThreads; n pixels or voxels per map
+__global__ void ccl_select(const int* __restrict__ seg,
+                           const int* __restrict__ parent,
+                           const int* __restrict__ size, u64* slot, int n,
+                           int num_classes) {
   __shared__ u64 s_best[kSharedSlots];
-  const int l = threadIdx.y * kTile + threadIdx.x;
+  const int l = threadIdx.x;
   const int n_cls = num_classes - 1;
   const int n_shared = n_cls < kSharedSlots ? n_cls : kSharedSlots;
   if (l < n_shared) s_best[l] = 0ull;
   __syncthreads();
-  const int x = blockIdx.x * kTile + threadIdx.x;
-  const int y = blockIdx.y * kTile + threadIdx.y;
-  u64* map_slot = slot + blockIdx.z * n_cls;
-  if (x < w && y < h) {
-    const int p = y * w + x;
-    const int g = blockIdx.z * h * w + p;
+  const int p = blockIdx.x * kThreads + l;
+  u64* map_slot = slot + blockIdx.y * n_cls;
+  if (p < n) {
+    const int g = blockIdx.y * n + p;
     if (parent[g] == g) {                  // a global root: foreground
       const int c = seg[g];
       const u64 key = (static_cast<u64>(size[g]) << 32) |
@@ -297,7 +317,133 @@ __global__ void ccl_write(const int* __restrict__ seg,
   out[g] = v;
 }
 
+// ---- 3D ---------------------------------------------------------------------
+
+constexpr int kTX = 4, kTY = 8, kTZ = 16;  // 3D tile, one thread per voxel
+constexpr int kTileVoxels = kTX * kTY * kTZ;
+
+// the 13 backward 26-neighbours (smaller linear index, Z fastest)
+__constant__ signed char kBack[13][3] = {
+    {-1, -1, -1}, {-1, -1, 0}, {-1, -1, 1}, {-1, 0, -1}, {-1, 0, 0},
+    {-1, 0, 1},   {-1, 1, -1}, {-1, 1, 0},  {-1, 1, 1},  {0, -1, -1},
+    {0, -1, 0},   {0, -1, 1},  {0, 0, -1}};
+
+// grid (tiles_z, tiles_y, tiles_x * batch), block (kTZ, kTY, kTX)
+__global__ void __launch_bounds__(kTileVoxels)
+ccl3_local(const int* __restrict__ seg, int* __restrict__ parent,
+           int* __restrict__ size, u64* __restrict__ slot, int nx, int ny,
+           int nz, int tiles_x, int num_classes, int n_slots) {
+  __shared__ int s_cls[kTileVoxels];
+  __shared__ int s_par[kTileVoxels];
+  __shared__ int s_cnt[kTileVoxels];
+  const int lz = threadIdx.x, ly = threadIdx.y, lx = threadIdx.z;
+  const int l = (lx * kTY + ly) * kTZ + lz;   // == the linear thread id
+  const int map = blockIdx.z / tiles_x;
+  const int tx = blockIdx.z - map * tiles_x;
+  const int x0 = tx * kTX, y0 = blockIdx.y * kTY, z0 = blockIdx.x * kTZ;
+  const int x = x0 + lx, y = y0 + ly, z = z0 + lz;
+  const bool in = x < nx && y < ny && z < nz;
+  const int map_base = map * nx * ny * nz;
+  const int g = map_base + (x * ny + y) * nz + z;
+  const int c = in ? fg_class(seg[g], num_classes) : 0;
+  s_cls[l] = c;
+  s_par[l] = l;
+  s_cnt[l] = 0;
+  const int block = (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
+  for (int i = block * kTileVoxels + l; i < n_slots;
+       i += gridDim.x * gridDim.y * gridDim.z * kTileVoxels) {
+    slot[i] = 0ull;
+  }
+  __syncthreads();
+  // within a tile a larger local index is a larger global index (both are
+  // lexicographic in (x, y, z))
+  if (c) {
+#pragma unroll
+    for (int k = 0; k < 13; ++k) {
+      const int ax = lx + kBack[k][0], ay = ly + kBack[k][1], az = lz + kBack[k][2];
+      if (ax < 0 || ay < 0 || ay >= kTY || az < 0 || az >= kTZ) continue;
+      const int nl = (ax * kTY + ay) * kTZ + az;
+      if (s_cls[nl] == c) unite_shared(s_par, l, nl);
+    }
+  }
+  __syncthreads();
+  const int r = c ? find_shared(s_par, l) : -1 - l;
+  const unsigned peers = __match_any_sync(0xffffffffu, r);
+  if (c && (l & 31) == __ffs(peers) - 1) atomicAdd(s_cnt + r, __popc(peers));
+  __syncthreads();
+  if (!in) return;
+  if (c) {
+    const int rx = r / (kTY * kTZ), ry = (r / kTZ) % kTY, rz = r % kTZ;
+    parent[g] = map_base + ((x0 + rx) * ny + y0 + ry) * nz + z0 + rz;
+  } else {
+    parent[g] = -1;
+  }
+  size[g] = (c && r == l) ? s_cnt[l] : 0;
+}
+
+// one thread per voxel of the batch
+__global__ void ccl3_border(const int* __restrict__ seg, int* parent, int nx,
+                            int ny, int nz, int num_classes, int total) {
+  const int g = blockIdx.x * blockDim.x + threadIdx.x;
+  if (g >= total) return;
+  const int n = nx * ny * nz;
+  const int map_base = (g / n) * n;
+  const int p = g - map_base;
+  const int x = p / (ny * nz);
+  const int y = (p / nz) % ny;
+  const int z = p % nz;
+  const int lx = x % kTX, ly = y % kTY, lz = z % kTZ;
+  // an interior voxel's backward neighbours all lie in its own tile
+  if (lx != 0 && ly != 0 && ly != kTY - 1 && lz != 0 && lz != kTZ - 1) return;
+  const int c = fg_class(seg[g], num_classes);
+  if (!c) return;
+#pragma unroll
+  for (int k = 0; k < 13; ++k) {
+    const int ax = x + kBack[k][0], ay = y + kBack[k][1], az = z + kBack[k][2];
+    if (ax < 0 || ay < 0 || ay >= ny || az < 0 || az >= nz) continue;
+    if (ax / kTX == x / kTX && ay / kTY == y / kTY && az / kTZ == z / kTZ)
+      continue;                            // same tile: united in phase 1
+    const int ng = map_base + (ax * ny + ay) * nz + az;
+    if (seg[ng] == c) unite_global(parent, g, ng);
+  }
+}
+
 }  // namespace
+
+// seg, out: [batch, nx, ny, nz] int32 (nz fastest); parent, size:
+// [batch*nx*ny*nz] int32 scratch; slot: [batch*(num_classes-1)] uint64
+// scratch. Launches on `stream`, allocates nothing, does not synchronise.
+// Returns cudaGetLastError() after the launches.
+extern "C" int chap_largest_cc_3d(const int* seg, int* out, int* parent,
+                                  int* size, void* slot, int batch, int nx,
+                                  int ny, int nz, int num_classes,
+                                  void* stream) {
+  if (batch <= 0 || nx <= 0 || ny <= 0 || nz <= 0 || num_classes < 2 ||
+      batch > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long total_ll = static_cast<long long>(batch) * nx * ny * nz;
+  const int tiles_x = (nx + kTX - 1) / kTX;
+  if (total_ll >= (1ll << 31) || static_cast<long long>(tiles_x) * batch > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int total = static_cast<int>(total_ll);
+  const int n = nx * ny * nz;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  u64* slots = static_cast<u64*>(slot);
+  const dim3 tiles((nz + kTZ - 1) / kTZ, (ny + kTY - 1) / kTY, tiles_x * batch);
+  const dim3 tile_block(kTZ, kTY, kTX);
+  const int blocks = (total + kThreads - 1) / kThreads;
+  ccl3_local<<<tiles, tile_block, 0, s>>>(seg, parent, size, slots, nx, ny, nz,
+                                          tiles_x, num_classes,
+                                          batch * (num_classes - 1));
+  ccl3_border<<<blocks, kThreads, 0, s>>>(seg, parent, nx, ny, nz,
+                                          num_classes, total);
+  ccl_flatten<<<blocks, kThreads, 0, s>>>(parent, size, total);
+  ccl_select<<<dim3((n + kThreads - 1) / kThreads, batch), kThreads, 0,
+                    s>>>(seg, parent, size, slots, n, num_classes);
+  ccl_write<<<blocks, kThreads, 0, s>>>(seg, parent, slots, out, n,
+                                        num_classes, total);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // seg, out: [batch, h, w] int32; parent, size: [batch*h*w] int32 scratch;
 // slot: [batch*(num_classes-1)] uint64 scratch. Launches on `stream`,
@@ -318,9 +464,10 @@ extern "C" int chap_largest_cc(const int* seg, int* out, int* parent, int* size,
                                          num_classes, batch * (num_classes - 1));
   ccl_border<<<tiles, 3 * kTile, 0, s>>>(seg, parent, h, w, num_classes);
   ccl_flatten<<<blocks, kThreads, 0, s>>>(parent, size, total);
-  ccl_select<<<tiles, tile_block, 0, s>>>(seg, parent, size, slots, h, w,
-                                          num_classes);
-  ccl_write<<<blocks, kThreads, 0, s>>>(seg, parent, slots, out, h * w,
+  const int n = h * w;
+  ccl_select<<<dim3((n + kThreads - 1) / kThreads, batch), kThreads, 0, s>>>(
+      seg, parent, size, slots, n, num_classes);
+  ccl_write<<<blocks, kThreads, 0, s>>>(seg, parent, slots, out, n,
                                         num_classes, total);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,7 +1,8 @@
 """Datasets (a copy of chap_tpu/data/datasets.py, kept here so the port never
 imports the JAX package): the ACDC h5 train slices and val/test volumes,
-deterministic cardiac-MR-like phantoms (plain and hard), ``build_datasets``
-and the labeled patients -> slices table.
+the LA / Pancreas / BraTS h5 case volumes, deterministic cardiac-MR-like
+phantoms (plain and hard), ``build_datasets`` and the labeled patients ->
+slices table.
 
 ACDC on-disk layout (list-file driven, as chap_tpu's):
     <root>/train_slices.list            one slice id per line
@@ -58,6 +59,26 @@ class AcdcVolumeDataset:
         self.base_dir = base_dir
         with open(os.path.join(base_dir, f"{split}.list")) as f:
             self.case_ids = [line.strip() for line in f if line.strip()]
+
+    def __len__(self) -> int:
+        return len(self.case_ids)
+
+    def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
+        sample = _read_h5(os.path.join(self.base_dir, "data",
+                                       self.case_ids[idx] + ".h5"))
+        sample["case"] = self.case_ids[idx]
+        return sample
+
+
+class Volume3dDataset:
+    """LA / Pancreas / BraTS case dataset: a .list file of h5 volumes
+    (val_3D.py:92-95 path scheme <root>/data/<case>.h5), 'image' and 'label'
+    [X, Y, Z]."""
+
+    def __init__(self, base_dir: str, test_list: str = "test.list"):
+        self.base_dir = base_dir
+        with open(os.path.join(base_dir, test_list)) as f:
+            self.case_ids = [line.strip().split(",")[0] for line in f if line.strip()]
 
     def __len__(self) -> int:
         return len(self.case_ids)

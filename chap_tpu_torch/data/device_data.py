@@ -1,5 +1,5 @@
-"""Device-resident input, the 2D half (port of chap_tpu/data/device_data.py,
-the default ``data.device_input=true`` path): upload the slice pool to the
+"""Device-resident input (port of chap_tpu/data/device_data.py, the default
+``data.device_input=true`` path). The 2D half: upload the slice pool to the
 card once, then sample and augment every training batch on the card, so a
 step needs no host->device copy and no host sync for its input.
 
@@ -18,7 +18,13 @@ step needs no host->device copy and no host sync for its input.
     ``rotate(reshape=False)``: the inverse map about (size - 1) / 2,
     nearest = floor(x + 0.5), constant 0 outside [0, size - 1].
 
-The 3D volume pool and patch sampler wait for the 3D slice (ROADMAP).
+The 3D half (chap_tpu/data/device_data.py:142-253): the volume pool, every
+volume centre-padded to the patch and then zero-padded into one common box
+with its true extent kept; and the patch function, which draws the two
+streams' volume ids, a uniform crop start inside each volume's extent and
+the RandomRotFlip parameters on the card, and cuts and augments the whole
+batch with one gather per tensor (the crop offsets composed with the
+rot90 / flip index map), with no per-sample Python.
 """
 from __future__ import annotations
 
@@ -165,3 +171,134 @@ def build_device_batch_fn(num_slices: int, num_labeled: int, batch_size: int,
         return {"image": imgs.unsqueeze(1), "label": labs}
 
     return batch_fn
+
+
+# ---------------------------------------------------------------------------
+# 3D: volume pool and patch function
+# ---------------------------------------------------------------------------
+
+class DeviceVolumePool(NamedTuple):
+    """images [N, X, Y, Z] float32 and labels [N, X, Y, Z] uint8 on one
+    device, in a common box; shapes [N, 3] int64 the true per-volume extents
+    inside it (volumes smaller than the patch centre-padded to it first, as
+    transforms3d.random_crop_3d does)."""
+    images: torch.Tensor
+    labels: torch.Tensor
+    shapes: torch.Tensor
+
+
+def build_device_volume_pool(volumes, patch: Tuple[int, int, int],
+                             dtype: torch.dtype = torch.float32,
+                             device: Optional[Union[str, torch.device]] = None
+                             ) -> DeviceVolumePool:
+    """volumes: a sequence of {'image': [X, Y, Z], 'label': [X, Y, Z]} host
+    dicts, uploaded in one copy each to ``device`` (the card unless
+    ``device="cpu"``)."""
+    device = resolve_device(device)
+    n = len(volumes)
+    shapes = np.zeros((n, 3), np.int64)
+    padded = []
+    for i in range(n):
+        img = np.asarray(volumes[i]["image"], np.float32)
+        lab = np.asarray(volumes[i]["label"], np.uint8)
+        pads = [max(patch[d] - img.shape[d], 0) for d in range(3)]
+        if any(pads):
+            pad = [(p // 2, p - p // 2) for p in pads]
+            img = np.pad(img, pad, mode="constant")
+            lab = np.pad(lab, pad, mode="constant")
+        shapes[i] = img.shape
+        padded.append((img, lab))
+    box = tuple(int(shapes[:, d].max()) for d in range(3))
+    images = np.zeros((n, *box), np.float32)
+    labels = np.zeros((n, *box), np.uint8)
+    for i, (img, lab) in enumerate(padded):
+        sl = (i,) + tuple(slice(0, s) for s in shapes[i])
+        images[sl] = img
+        labels[sl] = lab
+    return DeviceVolumePool(torch.from_numpy(images).to(device=device, dtype=dtype),
+                            torch.from_numpy(labels).to(device),
+                            torch.from_numpy(shapes).to(device))
+
+
+def rot_flip_index_3d(k: torch.Tensor, ax: torch.Tensor, patch: Tuple[int, int, int]
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Source indices inside a patch of out = flip(rot90(x, k, axes=(0, 1)),
+    ax) per sample (chap_tpu's _augment_patch_3d); k, ax: [B] int64, ax 3
+    for no flip. Returns (si [B, px, py], sj [B, px, py], sk [B, pz])."""
+    px, py, pz = patch
+    if px != py:
+        raise ValueError(f"XY-rot90 augmentation needs a square XY patch, got "
+                         f"{tuple(patch)}")
+    dev = k.device
+    k, ax = k.view(-1, 1, 1), ax.view(-1, 1, 1)
+    ii = torch.arange(px, device=dev).view(1, px, 1)
+    jj = torch.arange(py, device=dev).view(1, 1, py)
+    fi = torch.where(ax == 0, px - 1 - ii, ii)
+    fj = torch.where(ax == 1, py - 1 - jj, jj)
+    si = torch.where(k == 0, fi, torch.where(k == 1, fj, torch.where(
+        k == 2, px - 1 - fi, px - 1 - fj)))
+    sj = torch.where(k == 0, fj, torch.where(k == 1, py - 1 - fi, torch.where(
+        k == 2, py - 1 - fj, fi)))
+    kk = torch.arange(pz, device=dev).view(1, pz)
+    sk = torch.where(ax.view(-1, 1) == 2, pz - 1 - kk, kk)
+    return si, sj, sk
+
+
+def gather_patches(pool: DeviceVolumePool, vids: torch.Tensor,
+                   starts: torch.Tensor, k: torch.Tensor, ax: torch.Tensor,
+                   patch: Tuple[int, int, int]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cut patch ``b`` of volume vids[b] at starts[b] ([B, 3]) and apply its
+    rot / flip (k[b], ax[b]): one gather per tensor for the whole batch.
+    Returns images [B, px, py, pz] and labels [B, px, py, pz]."""
+    si, sj, sk = rot_flip_index_3d(k, ax, patch)
+    b = vids.shape[0]
+    xs = (starts[:, 0].view(b, 1, 1) + si)[:, :, :, None]
+    ys = (starts[:, 1].view(b, 1, 1) + sj)[:, :, :, None]
+    zs = (starts[:, 2].view(b, 1) + sk)[:, None, None, :]
+    v = vids.view(b, 1, 1, 1)
+    return pool.images[v, xs, ys, zs], pool.labels[v, xs, ys, zs]
+
+
+def draw_augment_3d(batch_size: int, generator: torch.Generator
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """RandomRotFlip draws per row, on the generator's device: with
+    probability 0.5 (u > 0.5) k in 0..3 and a flip axis in 0..2, else the
+    identity (k 0, ax 3)."""
+    dev = generator.device
+    do = torch.rand(batch_size, generator=generator, device=dev) > 0.5
+    k = torch.randint(0, 4, (batch_size,), generator=generator, device=dev)
+    ax = torch.randint(0, 3, (batch_size,), generator=generator, device=dev)
+    return torch.where(do, k, 0), torch.where(do, ax, 3)
+
+
+def build_device_patch_fn(num_volumes: int, num_labeled: int, batch_size: int,
+                          labeled_bs: int, patch: Tuple[int, int, int],
+                          augment: bool = True) -> Callable:
+    """Returns patch_fn(pool, generator) -> {'image': [B, 1, *patch],
+    'label': [B, *patch] uint8}: two-stream volume ids (labeled ids <
+    num_labeled), a uniform crop inside each volume's true extent and
+    RandomRotFlip, every draw from ``generator`` on the pool's device."""
+    if not 0 < num_labeled < num_volumes:
+        raise ValueError(f"need 0 < num_labeled ({num_labeled}) < num_volumes "
+                         f"({num_volumes}) for two streams")
+
+    def patch_fn(pool: DeviceVolumePool, generator: torch.Generator
+                 ) -> Dict[str, torch.Tensor]:
+        dev = pool.images.device
+        vids = torch.cat([
+            torch.randint(0, num_labeled, (labeled_bs,), generator=generator,
+                          device=dev),
+            torch.randint(num_labeled, num_volumes, (batch_size - labeled_bs,),
+                          generator=generator, device=dev)])
+        u = torch.rand((batch_size, 3), generator=generator, device=dev)
+        room = pool.shapes[vids] - torch.tensor(patch, device=dev) + 1
+        starts = torch.floor(u * room.float()).long()
+        if augment:
+            k, ax = draw_augment_3d(batch_size, generator)
+        else:
+            k = torch.zeros(batch_size, dtype=torch.int64, device=dev)
+            ax = torch.full((batch_size,), 3, dtype=torch.int64, device=dev)
+        imgs, labs = gather_patches(pool, vids, starts, k, ax, patch)
+        return {"image": imgs.unsqueeze(1), "label": labs}
+
+    return patch_fn

@@ -22,8 +22,9 @@ def mix_loss(logits: torch.Tensor, img_l: torch.Tensor, patch_l: torch.Tensor,
     """Returns (loss_image, loss_patch, total) like the reference's
     (loss_image, loss_patch, (dice+ce)/2) triple.
 
-    logits: [B, C, H, W]; img_l / patch_l: integer [B, H, W]; mask: {0,1}
-    [B, H, W], 1 selecting the surviving "image" region."""
+    logits: [B, C, *spatial] (2D [H, W] or 3D [X, Y, Z]); img_l / patch_l:
+    integer [B, *spatial]; mask: {0,1} [B, *spatial], 1 selecting the
+    surviving "image" region."""
     if logits.shape[1] != num_classes:
         raise ValueError(f"logits have {logits.shape[1]} classes, expected "
                          f"{num_classes}")

@@ -30,7 +30,7 @@ def _divergence(logits1: torch.Tensor, logits2: torch.Tensor,
                 soft1: torch.Tensor, soft2: torch.Tensor,
                 mask: torch.Tensor, losstype: str) -> torch.Tensor:
     """Masked divergence of perturbed predictions vs. the clean soft targets
-    (logits / soft: [B, C, H, W]; mask: [B, H, W])."""
+    (logits / soft: [B, C, *spatial]; mask: [B, *spatial])."""
     if losstype == "kl":
         kl1 = kl_div_per_pixel(torch.log_softmax(logits1, dim=1), soft1)
         kl2 = kl_div_per_pixel(torch.log_softmax(logits2, dim=1), soft2)
@@ -72,8 +72,9 @@ def vat_loss_2d(apply_fn: ApplyFn, x: torch.Tensor, soft1: torch.Tensor,
     """VAT loss against a dual-headed model.
 
     apply_fn: x -> (logits1, logits2) with the parameters bound; parameter
-    gradients flow through the final adversarial pass only. x: [B, Cin, H, W];
-    soft1 / soft2: [B, C, H, W] clean soft predictions; mask: [B, H, W]."""
+    gradients flow through the final adversarial pass only. Rank-generic, as
+    chap_tpu's: x [B, Cin, *spatial] (2D [H, W] or 3D [X, Y, Z]); soft1 /
+    soft2: [B, C, *spatial] clean soft predictions; mask: [B, *spatial]."""
     d = vat_direction(apply_fn, x, soft1, soft2, mask, d0, xi=xi,
                       num_iters=num_iters, losstype=losstype)
     l1, l2 = apply_fn(x + epi * d)

@@ -1,7 +1,8 @@
-"""Building blocks of the 2D UNet family (port of chap_tpu/models/layers.py).
+"""Building blocks of the 2D UNet family, and the BatchNorm and upsampling
+the 3D VNet family shares with it (port of chap_tpu/models/layers.py).
 
-NCHW, with the original torch module names (``conv_conv.0`` ...), so a
-reference ``state_dict`` loads by name and chap_tpu's converter rules apply.
+NCHW / NCDHW, with the original torch module names (``conv_conv.0`` ...), so
+a reference ``state_dict`` loads by name and chap_tpu's converter rules apply.
 
 BatchNorm follows chap_tpu's Flax semantics, not torch's: in train mode it
 normalises with the biased batch statistics and does NOT touch its running
@@ -30,6 +31,21 @@ def upsample2x_bilinear(x: torch.Tensor) -> torch.Tensor:
     return F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=True)
 
 
+def upsample2x_trilinear(x: torch.Tensor) -> torch.Tensor:
+    """nn.Upsample(scale_factor=2, mode='trilinear', align_corners=True) on
+    NCDHW (vnet.py:105). An axis of size 1 becomes two copies of its value,
+    as chap_tpu's scale 2.0 for that axis (layers.py:44) gives."""
+    return F.interpolate(x, scale_factor=2, mode="trilinear", align_corners=True)
+
+
+def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:
+    """Repeat every spatial axis of an NC... tensor twice (chap_tpu's
+    upsample2x_nearest over the spatial dims)."""
+    for axis in range(2, x.dim()):
+        x = x.repeat_interleave(2, dim=axis)
+    return x
+
+
 def dropout_from_uniform(x: torch.Tensor, p: float,
                          u: Optional[torch.Tensor]) -> torch.Tensor:
     """Flax nn.Dropout with its draw passed in: keep where u < 1-p (JAX's
@@ -42,11 +58,13 @@ def dropout_from_uniform(x: torch.Tensor, p: float,
                                                        device=x.device))
 
 
-class BatchNorm2d(nn.BatchNorm2d):
-    """BatchNorm with Flax train-mode semantics (see the module docstring).
+class FlaxBatchNorm:
+    """BatchNorm with Flax train-mode semantics (see the module docstring),
+    mixed into torch's BatchNorm2d / BatchNorm3d for their parameters and
+    buffers.
 
     ``stats_key`` is the module's qualified name in its model; the owning
-    model sets it (DualDecoder.__init__)."""
+    model sets it (``set_stats_keys``)."""
 
     stats_key: str = ""
 
@@ -60,11 +78,28 @@ class BatchNorm2d(nn.BatchNorm2d):
                                 self.weight, self.bias, False, 0.0, self.eps)
         if stats is not None:
             with torch.no_grad():
-                var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+                var, mean = torch.var_mean(
+                    x, dim=(0,) + tuple(range(2, x.dim())), correction=0)
             stats[self.stats_key] = (mean, var)
         # running buffers are not passed: nothing is updated in place
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                             self.eps)
+
+
+class BatchNorm2d(FlaxBatchNorm, nn.BatchNorm2d):
+    pass
+
+
+class BatchNorm3d(FlaxBatchNorm, nn.BatchNorm3d):
+    pass
+
+
+def set_stats_keys(model: nn.Module) -> None:
+    """Name every FlaxBatchNorm of ``model`` by its qualified name, the key
+    under which it reports its batch statistics."""
+    for name, module in model.named_modules():
+        if isinstance(module, FlaxBatchNorm):
+            module.stats_key = name
 
 
 class ConvBlock(nn.Module):

@@ -11,8 +11,8 @@ from typing import List, Optional, Sequence
 import torch
 import torch.nn as nn
 
-from chap_tpu_torch.models.layers import (BatchNorm2d, ConvBlock, DownBlock,
-                                          Stats, UpBlock)
+from chap_tpu_torch.models.layers import (ConvBlock, DownBlock, Stats, UpBlock,
+                                          set_stats_keys)
 from chap_tpu_torch.models.perturb import perform_dropout
 
 DEFAULT_CHNS = (16, 32, 64, 128, 256)
@@ -100,9 +100,7 @@ class DualDecoder(nn.Module):
             self.decoder2 = Decoder(num_classes, feature_chns, False)
         else:
             raise ValueError(f"unknown decoder_type {decoder_type!r}")
-        for name, module in self.named_modules():
-            if isinstance(module, BatchNorm2d):
-                module.stats_key = name
+        set_stats_keys(self)
 
     def forward(self, x: torch.Tensor, *,
                 drop_u: Optional[Sequence[Optional[torch.Tensor]]] = None,
@@ -112,7 +110,7 @@ class DualDecoder(nn.Module):
                 perturb_draws=None,
                 stats: Optional[Stats] = None):
         """x: [B, Cin, H, W]. Train mode (``model.train()``) normalises with
-        batch statistics and writes them into ``stats`` (layers.BatchNorm2d).
+        batch statistics and writes them into ``stats`` (layers.FlaxBatchNorm).
         Returns (logits1, logits2)."""
         feature = self.encoder(x, drop_u, stats)
         if dropout_level is not None:

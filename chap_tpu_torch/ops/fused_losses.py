@@ -6,8 +6,10 @@ Replaces chap_tpu/ops/fused_losses.py::masked_seg_stats -> _stats_kernel
 chap_tpu/losses/mix.py makes on ``mask`` and ``1 - mask`` over the same
 logits.
 
-What it computes, for logits [B, C, H, W], p = softmax over C and R in
-{1, 2} regions, region r with integer labels l_r [B, H, W] and weight w_r
+What it computes, for logits [B, C, *spatial] (spatial: [H, W] or
+[X, Y, Z]; the kernels see the spatial axes flattened, class stride their
+product), p = softmax over C and R in {1, 2} regions, region r with integer
+labels l_r [B, *spatial] and weight w_r
 (w_1 = mask, w_2 = 1 - mask), t_r = one_hot(l_r):
     I_rc = sum w_r p_c t_rc,  Z_rc = sum w_r p_c^2,  Y_rc = sum w_r t_rc,
     CE_rc = sum w_r t_rc (-log p_c),
@@ -19,8 +21,10 @@ What bounds it on the H100: bytes, and on the main path the host. At
 mix_loss's shape [6, 4, 256, 256] a forward reads 6.3 MB of fp32 logits,
 two 1.6 MB int32 label maps and a 1.6 MB fp32 mask (11.0 MB, 3.3 us at
 3.35 TB/s); the backward reads the same and writes 6.3 MB of gradient
-(17.3 MB, 5.2 us). Both are tens of flops a pixel, far below the rate the
-card computes at. What the design does about it:
+(17.3 MB, 5.2 us). At the 3D CHAP step's [1, 2, 112, 112, 80] (R = 2) a
+forward reads 8.0 MB of logits and 12.0 MB of labels and mask (20.1 MB,
+6.0 us). Both are tens of flops a pixel, far below the rate the card
+computes at. What the design does about it:
   * one read of the logits serves both regions: mix_loss calls K1 once
     (R = 2, ``1 - mask`` formed in registers), not once per region;
   * forward, two launches: ``stats_partials`` (two programs per SM) reduces
@@ -72,6 +76,13 @@ def _next_pow2(n: int) -> int:
 # plain versions
 # ---------------------------------------------------------------------------
 
+def _class_view(logits: torch.Tensor) -> torch.Tensor:
+    """Class indices shaped [1, C, 1, ...] against logits [B, C, *spatial]."""
+    c = logits.shape[1]
+    return torch.arange(c, device=logits.device).view(
+        (1, c) + (1,) * (logits.dim() - 2))
+
+
 def _regions(mask: torch.Tensor, labels: torch.Tensor,
              labels2: Optional[torch.Tensor]):
     m = mask.float()
@@ -85,13 +96,12 @@ def region_stats_plain(logits: torch.Tensor, labels: torch.Tensor,
                        labels2: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain version of K1's statistics: [R, 4, C] rows (I, Z, Y, CE) per
     class for region 1 (labels, mask) and, with ``labels2``, region 2
-    (labels2, 1 - mask). Logits [B, C, H, W]; differentiable."""
-    c = logits.shape[1]
+    (labels2, 1 - mask). Logits [B, C, *spatial]; differentiable."""
     x = logits.float()
     p = torch.softmax(x, dim=1)
     logp = torch.log_softmax(x, dim=1)
-    cls = torch.arange(c, device=logits.device).view(1, c, 1, 1)
-    dims = (0, 2, 3)
+    cls = _class_view(logits)
+    dims = (0,) + tuple(range(2, logits.dim()))
     rows = []
     for lab, w in _regions(mask, labels, labels2):
         t = (lab.unsqueeze(1) == cls).float()
@@ -115,7 +125,7 @@ def compose_plain(stats: torch.Tensor, smooth_dice: float,
 
 def masked_seg_stats_plain(logits: torch.Tensor, labels: torch.Tensor,
                            mask: torch.Tensor) -> Stats:
-    """(I[C], Z[C], Y[C], ce_sum, mask_sum) for logits [B, C, H, W]
+    """(I[C], Z[C], Y[C], ce_sum, mask_sum) for logits [B, C, *spatial]
     (chap_tpu's _masked_seg_stats_xla)."""
     inter, z, y, ce_c = region_stats_plain(logits, labels, mask)[0]
     return inter, z, y, ce_c.sum(), y.sum()
@@ -132,11 +142,11 @@ def stats_grad_plain(logits: torch.Tensor, labels: torch.Tensor,
     gradient: it has no CE term in the forward."""
     c = logits.shape[1]
     p = torch.softmax(logits.float(), dim=1)
-    cls = torch.arange(c, device=logits.device).view(1, c, 1, 1)
+    cls = _class_view(logits)
     dl_dp = torch.zeros_like(p)
     d_ce = torch.zeros_like(p)
     for r, (lab, w) in enumerate(_regions(mask, labels, labels2)):
-        inter, z, y = (v[:c].view(1, c, 1, 1) for v in stats[r, :3].float())
+        inter, z, y = (v[:c].view(cls.shape) for v in stats[r, :3].float())
         g_dice, g_ce = grads[r].float()
         denom = z + y + smooth_dice
         a = g_dice * (-2.0 / denom / c)                          # dL/dI_c
@@ -321,20 +331,24 @@ def _kernels():
 
 def _prepare(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor,
              labels2: Optional[torch.Tensor] = None):
-    """Check what the kernels take: NCHW float logits on the card, labels and
-    mask [B, H, W]. Labels become int32 and the mask fp32 (no-ops when they
-    already are)."""
+    """Check what the kernels take: float logits [B, C, *spatial] on the card
+    with one to three spatial axes, labels and mask [B, *spatial]. Labels
+    become int32 and the mask fp32 (no-ops when they already are)."""
+    if not 3 <= logits.dim() <= 5 or logits.dtype not in (
+            torch.float32, torch.bfloat16, torch.float16):
+        raise ValueError(f"logits must be float [B, C, *spatial] with 1-3 "
+                         f"spatial axes ([B, C, H, W], [B, C, X, Y, Z]), got "
+                         f"{tuple(logits.shape)} {logits.dtype}")
+    if logits.numel() >= 1 << 31:
+        raise ValueError("K1 indexes pixels with int32: logits must hold "
+                         "fewer than 2**31 values")
+    want = (logits.shape[0],) + tuple(logits.shape[2:])
+    maps = [labels, mask] + ([] if labels2 is None else [labels2])
+    if any(tuple(t.shape) != want for t in maps):
+        raise ValueError(f"labels / mask {[tuple(t.shape) for t in maps]} "
+                         f"must be {want}")
     if not logits.is_cuda:
         raise ValueError("K1 kernels take CUDA tensors only")
-    if logits.dim() != 4 or logits.dtype not in (torch.float32, torch.bfloat16,
-                                                 torch.float16):
-        raise ValueError(f"logits must be float [B, C, H, W], got "
-                         f"{tuple(logits.shape)} {logits.dtype}")
-    b, _, h, w = logits.shape
-    maps = [labels, mask] + ([] if labels2 is None else [labels2])
-    if any(tuple(t.shape) != (b, h, w) for t in maps):
-        raise ValueError(f"labels / mask {[tuple(t.shape) for t in maps]} "
-                         f"must be {(b, h, w)}")
     if any(t.device != logits.device for t in maps):
         raise ValueError("labels and mask must be on the logits' device")
     if labels.dtype.is_floating_point or (
@@ -362,8 +376,9 @@ def stats_kernel(logits: torch.Tensor, labels: torch.Tensor,
     ``labels2=None``; else region 2 is (labels2, 1 - mask)."""
     logits, labels, mask, labels2 = _prepare(logits, labels, mask, labels2)
     partials_k, finalize_k, _ = _kernels()
-    b, c, h, w = logits.shape
-    n_pix = b * h * w
+    c = logits.shape[1]
+    n_pix = labels.numel()
+    hw = n_pix // logits.shape[0]          # the class stride
     c_pad = _next_pow2(c)
     r = 1 if labels2 is None else 2
     n_part = max(1, min(-(-n_pix // BLOCK),
@@ -373,7 +388,7 @@ def stats_kernel(logits: torch.Tensor, labels: torch.Tensor,
     out = torch.empty((r * 4 * c_pad + 2 * r,), device=logits.device,
                       dtype=torch.float32)
     lab2 = labels if labels2 is None else labels2
-    partials_k[(n_part,)](logits, labels, lab2, mask, part, n_pix, h * w,
+    partials_k[(n_part,)](logits, labels, lab2, mask, part, n_pix, hw,
                           C=c, C_PAD=c_pad, R=r, BLOCK=BLOCK, num_warps=4)
     finalize_k[(1,)](part, out, n_part, float(smooth_dice), float(eps_ce),
                      C=c, C_PAD=c_pad, R=r, ROWS=FIN_ROWS, num_warps=4)
@@ -403,8 +418,9 @@ def stats_grad_kernel(logits: torch.Tensor, labels: torch.Tensor,
     device, (g_dice_1, g_ce_1[, g_dice_2, g_ce_2]), None for zero."""
     logits, labels, mask, labels2 = _prepare(logits, labels, mask, labels2)
     _, _, grad_k = _kernels()
-    b, c, h, w = logits.shape
-    n_pix = b * h * w
+    c = logits.shape[1]
+    n_pix = labels.numel()
+    hw = n_pix // logits.shape[0]          # the class stride
     c_pad = _next_pow2(c)
     r = 1 if labels2 is None else 2
     if (tuple(stats.shape) != (r, 4, c_pad) or stats.dtype != torch.float32
@@ -417,7 +433,7 @@ def stats_grad_kernel(logits: torch.Tensor, labels: torch.Tensor,
     grad = torch.empty_like(logits)
     lab2 = labels if labels2 is None else labels2
     grad_k[(-(-n_pix // BLOCK),)](
-        logits, labels, lab2, mask, stats, *g, grad, n_pix, h * w,
+        logits, labels, lab2, mask, stats, *g, grad, n_pix, hw,
         float(smooth_dice), float(eps_ce), C=c, C_PAD=c_pad, R=r,
         BLOCK=BLOCK, num_warps=4)
     stats_grad_kernel.launches += 1
@@ -450,8 +466,8 @@ class _RegionDiceCE(torch.autograd.Function):
 
 def masked_seg_stats(logits: torch.Tensor, labels: torch.Tensor,
                      mask: torch.Tensor) -> Stats:
-    """(I[C], Z[C], Y[C], ce_sum, mask_sum) for logits [B, C, H, W]: the
-    kernel for a CUDA tensor, the plain version for a CPU tensor."""
+    """(I[C], Z[C], Y[C], ce_sum, mask_sum) for logits [B, C, *spatial]:
+    the kernel for a CUDA tensor, the plain version for a CPU tensor."""
     if logits.device.type == "cpu":
         return masked_seg_stats_plain(logits, labels, mask)
     c = logits.shape[1]

@@ -21,6 +21,19 @@ ENCODER_LEVEL_PATHS = (
     "encoder.down4.maxpool_conv.1.conv_conv.4.weight",
 )
 
+# the VNet 3D encoder (models/vnet3d.py VEncoder, batchnorm): the final conv
+# of each scale's ConvBlock3d, stages (1, 2, 3, 3, 3), chap_tpu's
+# VNET_LEVEL_PATHS (gradsim.py:37-43) as module paths. A [O, I, kx, ky, kz]
+# weight holds the same per-channel elements as chap_tpu's kernel, in
+# another order, which the cosine does not see.
+VNET_LEVEL_PATHS = (
+    "encoder.block_one.conv.0.weight",
+    "encoder.block_two.conv.3.weight",
+    "encoder.block_three.conv.6.weight",
+    "encoder.block_four.conv.6.weight",
+    "encoder.block_five.conv.6.weight",
+)
+
 
 def init_sim_scores(feature_chns: Sequence[int], device=None) -> List[torch.Tensor]:
     """All-zero scores. Zeros are scores, not "no scores": perform_dropout
@@ -39,7 +52,7 @@ def update_grad_sim(state: Sequence[torch.Tensor], grads_l: Sequence[torch.Tenso
                     grads_u: Sequence[torch.Tensor], decay: float = 0.9
                     ) -> List[torch.Tensor]:
     """EMA-update per-level per-channel cos(g_labeled, g_unlabeled).
-    grads_*: the level weights' gradients, each [O, I, kh, kw]."""
+    grads_*: the level weights' gradients, each [O, I, *kernel]."""
     new_state = []
     for old, gl, gu in zip(state, grads_l, grads_u):
         a = gl.reshape(gl.shape[0], -1)

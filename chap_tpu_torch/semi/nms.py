@@ -2,22 +2,27 @@
 chap_tpu/semi/nms.py).
 
 For each sample and each foreground class, keep only the largest
-8-connected component of the label map. Components are labelled by their
-largest linear index and ties in size go to the smallest label, exactly as
-chap_tpu's device path does (the scipy host path breaks ties its own way).
+component of the label map, with full connectivity: 8 neighbours for
+[B, H, W] slices, 26 for [B, X, Y, Z] volumes. Components are labelled by
+their largest linear index (the last axis fastest) and ties in size go to
+the smallest label, exactly as chap_tpu's device path does (the scipy host
+path breaks ties its own way).
 
 On a CUDA tensor this runs kernel K2, union-find labelling written in CUDA
 C++ (csrc/ccl.cu, which says what bounds it and how its design meets that):
 one labelling per map with same-class adjacency, tile-local union-find in
-shared memory, with no host synchronisation. On a CPU tensor it runs K2's
-plain version: chap_tpu's algorithm in PyTorch (3x3 max-pool propagation
-inside the mask, with pointer jumps, until fixpoint; then the modal label
-with the same tie rule). ``ccl_kernel.launches`` counts K2 launches.
+shared memory, with no host synchronisation; 2D and 3D maps have entry
+points of their own. On a CPU tensor it runs K2's plain version: chap_tpu's
+algorithm in PyTorch (3^d max-pool propagation inside the mask, with
+pointer jumps, until fixpoint; then the modal label with the same tie
+rule). ``ccl_kernel.launches`` and ``ccl3d_kernel.launches`` count the 2D
+and the 3D launches.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import numpy as np
 import torch
@@ -55,33 +60,37 @@ def _largest_cc_host(segmentation: np.ndarray, num_classes: int) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 def _label_mask_batch_plain(mask: torch.Tensor) -> torch.Tensor:
-    """Component labels of a [M, H, W] bool mask: each component gets the
-    max linear index it contains; background -1. Synchronises with the host
-    once a round (the fixpoint test)."""
-    m, h, w = mask.shape
-    n = h * w
+    """Component labels of a [M, H, W] or [M, X, Y, Z] bool mask: each
+    component gets the max linear index it contains; background -1.
+    Synchronises with the host once a round (the fixpoint test)."""
+    m, spatial = mask.shape[0], tuple(mask.shape[1:])
+    pool = {2: F.max_pool2d, 3: F.max_pool3d}.get(len(spatial))
+    if pool is None:
+        raise ValueError(f"mask must be [M, H, W] or [M, X, Y, Z], got "
+                         f"{tuple(mask.shape)}")
+    n = math.prod(spatial)
     if n >= 1 << 24:
-        raise ValueError("the plain labelling pools labels as float32: H*W "
-                         "must stay below 2**24")
-    idx = torch.arange(n, device=mask.device).view(1, h, w).expand(m, h, w)
+        raise ValueError("the plain labelling pools labels as float32: a map "
+                         "must hold fewer than 2**24 pixels")
+    idx = torch.arange(n, device=mask.device).view((1,) + spatial).expand(mask.shape)
     labels = torch.where(mask, idx, -1)
     while True:
-        neigh = F.max_pool2d(labels.float().unsqueeze(1), 3, stride=1,
-                             padding=1).squeeze(1).long()
+        neigh = pool(labels.float().unsqueeze(1), 3, stride=1,
+                     padding=1).squeeze(1).long()
         new = torch.where(mask, torch.maximum(labels, neigh), -1)
         # pointer jump: adopt the label of the pixel your label names (it is
         # in the same component and its label is at least as large)
         flat = new.reshape(m, n)
         jumped = torch.gather(flat, 1, flat.clamp(min=0))
-        new = torch.where(flat >= 0, jumped, -1).view(m, h, w)
+        new = torch.where(flat >= 0, jumped, -1).view(mask.shape)
         if torch.equal(new, labels):
             return labels
         labels = new
 
 
 def largest_cc_mask_plain(mask: torch.Tensor) -> torch.Tensor:
-    """[M, H, W] bool -> bool mask of each sample's largest component (ties:
-    smallest label)."""
+    """[M, *spatial] bool -> bool mask of each sample's largest component
+    (ties: smallest label)."""
     m = mask.shape[0]
     flat = _label_mask_batch_plain(mask).reshape(m, -1)
     n = flat.shape[1]
@@ -94,7 +103,7 @@ def largest_cc_mask_plain(mask: torch.Tensor) -> torch.Tensor:
 
 def largest_cc_batch_plain(segmentation: torch.Tensor, num_classes: int
                            ) -> torch.Tensor:
-    """Plain version of K2 on [B, H, W] integer maps."""
+    """Plain version of K2 on [B, H, W] or [B, X, Y, Z] integer maps."""
     b = segmentation.shape[0]
     masks = torch.cat([segmentation == c for c in range(1, num_classes)])
     keep = largest_cc_mask_plain(masks)
@@ -115,36 +124,48 @@ def _library() -> ctypes.CDLL:
     fn = lib.chap_largest_cc
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    fn3 = lib.chap_largest_cc_3d
+    fn3.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn3.restype = ctypes.c_int
     return lib
+
+
+def _launch_k2(entry: str, segmentation: torch.Tensor, num_classes: int,
+               rank: int) -> torch.Tensor:
+    """Check, allocate the outputs and scratch, and launch one K2 entry
+    point on [B, *spatial] maps of ``rank`` spatial axes."""
+    if not segmentation.is_cuda:
+        raise ValueError("K2 takes CUDA tensors only")
+    if segmentation.dim() != rank + 1 or segmentation.dtype.is_floating_point:
+        want = "[B, H, W]" if rank == 2 else "[B, X, Y, Z]"
+        raise ValueError(f"segmentation must be integer {want}, got "
+                         f"{tuple(segmentation.shape)} {segmentation.dtype}")
+    if num_classes < 2:
+        raise ValueError("num_classes must be >= 2")
+    b = segmentation.shape[0]
+    total = segmentation.numel()
+    if total >= 1 << 31 or b > 65535:
+        raise ValueError("K2 indexes pixels with int32 and maps with a grid "
+                         "dimension (at most 65535)")
+    seg = segmentation.to(torch.int32).contiguous()
+    out = torch.empty_like(seg)
+    parent = torch.empty(total, dtype=torch.int32, device=seg.device)
+    size = torch.empty(total, dtype=torch.int32, device=seg.device)
+    slot = torch.empty(b * (num_classes - 1), dtype=torch.int64,
+                       device=seg.device)
+    stream = torch.cuda.current_stream(seg.device).cuda_stream
+    err = getattr(_library(), entry)(
+        seg.data_ptr(), out.data_ptr(), parent.data_ptr(), size.data_ptr(),
+        slot.data_ptr(), *seg.shape, num_classes, stream)
+    if err != 0:
+        raise RuntimeError(f"K2 launch failed: cudaError {err}")
+    return out
 
 
 def ccl_kernel(segmentation: torch.Tensor, num_classes: int) -> torch.Tensor:
     """K2 on the card: [B, H, W] integer maps -> int32 maps with each class's
-    largest component kept."""
-    if not segmentation.is_cuda:
-        raise ValueError("K2 takes CUDA tensors only")
-    if segmentation.dim() != 3 or segmentation.dtype.is_floating_point:
-        raise ValueError(f"segmentation must be integer [B, H, W], got "
-                         f"{tuple(segmentation.shape)} {segmentation.dtype}")
-    if num_classes < 2:
-        raise ValueError("num_classes must be >= 2")
-    b, h, w = segmentation.shape
-    if b * h * w >= 1 << 31 or b > 65535:
-        raise ValueError("K2 indexes pixels with int32 and maps with the "
-                         "grid's z dimension (at most 65535)")
-    seg = segmentation.to(torch.int32).contiguous()
-    out = torch.empty_like(seg)
-    parent = torch.empty(b * h * w, dtype=torch.int32, device=seg.device)
-    size = torch.empty(b * h * w, dtype=torch.int32, device=seg.device)
-    slot = torch.empty(b * (num_classes - 1), dtype=torch.int64,
-                       device=seg.device)
-    stream = torch.cuda.current_stream(seg.device).cuda_stream
-    err = _library().chap_largest_cc(seg.data_ptr(), out.data_ptr(),
-                                     parent.data_ptr(), size.data_ptr(),
-                                     slot.data_ptr(), b, h, w, num_classes,
-                                     stream)
-    if err != 0:
-        raise RuntimeError(f"K2 launch failed: cudaError {err}")
+    largest 8-connected component kept."""
+    out = _launch_k2("chap_largest_cc", segmentation, num_classes, 2)
     ccl_kernel.launches += 1
     return out
 
@@ -152,17 +173,34 @@ def ccl_kernel(segmentation: torch.Tensor, num_classes: int) -> torch.Tensor:
 ccl_kernel.launches = 0
 
 
+def ccl3d_kernel(segmentation: torch.Tensor, num_classes: int) -> torch.Tensor:
+    """K2 in 3D on the card: [B, X, Y, Z] integer maps -> int32 maps with
+    each class's largest 26-connected component kept."""
+    out = _launch_k2("chap_largest_cc_3d", segmentation, num_classes, 3)
+    ccl3d_kernel.launches += 1
+    return out
+
+
+ccl3d_kernel.launches = 0
+
+
+def _kernel_for(x: torch.Tensor):
+    return ccl3d_kernel if x.dim() == 4 else ccl_kernel
+
+
 def largest_cc_batch(segmentation: torch.Tensor, num_classes: int) -> torch.Tensor:
-    """Per-class largest-CC cleanup of [B, H, W] integer label maps: K2 on
-    a CUDA tensor, its plain version on a CPU tensor. Keeps the dtype."""
+    """Per-class largest-CC cleanup of [B, H, W] or [B, X, Y, Z] integer
+    label maps: K2 on a CUDA tensor, its plain version on a CPU tensor.
+    Keeps the dtype."""
     if segmentation.device.type == "cpu":
         return largest_cc_batch_plain(segmentation, num_classes)
-    return ccl_kernel(segmentation, num_classes).to(segmentation.dtype)
+    kernel = _kernel_for(segmentation)
+    return kernel(segmentation, num_classes).to(segmentation.dtype)
 
 
 def largest_cc_mask(mask: torch.Tensor) -> torch.Tensor:
-    """[M, H, W] bool -> bool mask of each sample's largest component."""
+    """[M, *spatial] bool -> bool mask of each sample's largest component."""
     if mask.device.type == "cpu":
         return largest_cc_mask_plain(mask)
-    return ccl_kernel(mask.to(torch.int32), 2) == 1
+    return _kernel_for(mask)(mask.to(torch.int32), 2) == 1
 

@@ -21,7 +21,7 @@ from typing import Callable, Dict, List, Mapping, Sequence, Tuple
 import torch
 import torch.nn as nn
 
-from chap_tpu_torch.models.layers import BN_MOMENTUM, BatchNorm2d
+from chap_tpu_torch.models.layers import BN_MOMENTUM, FlaxBatchNorm
 from chap_tpu_torch.semi.gradsim import init_sim_scores
 
 
@@ -59,8 +59,7 @@ def bn_running_stats(model: nn.Module) -> Dict[str, Tuple[torch.Tensor, torch.Te
     """{stats_key: (running_mean, running_var)} of the model's BatchNorms —
     the buffers themselves, not copies."""
     return {m.stats_key: (m.running_mean, m.running_var)
-            for m in model.modules() if isinstance(m, BatchNorm2d)}
-
+            for m in model.modules() if isinstance(m, FlaxBatchNorm)}
 
 
 def fold_batch_stats(model: nn.Module,

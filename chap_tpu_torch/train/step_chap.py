@@ -4,7 +4,9 @@ chap_tpu/train/step_chap.py::build_chap_train_step, sequential mode).
 One step: a train-mode teacher pass, largest-CC cleanup of the pseudo-labels
 (K2), BCP mixing and four masked dice+CE mix losses (K1), the channel-dropout
 consistency pass steered by GradSim scores, VAT gated by the top-k
-disagreement mask, and one SGD update.
+disagreement mask, and one SGD update. Rank-generic, as chap_tpu's: [B, 1,
+H, W] slices for the 2D DualDecoder, [B, 1, X, Y, Z] patches for the 3D
+DualDecoder3d (with ``level_paths=VNET_LEVEL_PATHS``).
 
 Every random draw of a step is made up front by ``draw_step_uniforms`` (or
 passed in as ``draws``), so two steps fed the same draws compute the same
@@ -39,6 +41,7 @@ from chap_tpu_torch.losses.ce import cross_entropy, cross_entropy_per_pixel
 from chap_tpu_torch.losses.mix import mix_loss
 from chap_tpu_torch.losses.vat import vat_loss_2d
 from chap_tpu_torch.models.perturb import perturb_draw_shapes
+from chap_tpu_torch.models.vnet3d import dropout_shapes as vnet_dropout_shapes
 from chap_tpu_torch.semi.bcp import draw_box_starts, generate_mask_nd, mix_images
 from chap_tpu_torch.semi.gradsim import (ENCODER_LEVEL_PATHS, level_weights,
                                          update_grad_sim)
@@ -86,13 +89,30 @@ def uniform_sampler(generator: Optional[torch.Generator] = None,
     return rand, device
 
 
-def encoder_dropout_draws(cfg: Config, rows: int, h: int, w: int, rand
-                          ) -> List[Optional[torch.Tensor]]:
-    """One uniform per encoder level, shaped like that level's first conv
-    output [rows, C_i, H >> i, W >> i], or None where its dropout is 0."""
-    return [rand((rows, c, h >> i, w >> i)) if p > 0 else None
-            for i, (c, p) in enumerate(zip(cfg.model.feature_chns,
-                                           cfg.model.dropout))]
+def level_channels(cfg: Config, rank: int) -> Tuple[int, ...]:
+    """Channels of the five encoder levels that the channel perturbation and
+    GradSim see: the 2D UNet's feature_chns, or the VNet's nf x (1, 2, 4, 8,
+    16) for ``rank`` 3."""
+    if rank == 2:
+        return tuple(cfg.model.feature_chns)
+    nf = cfg.model.n_filters_3d
+    return tuple(nf * m for m in (1, 2, 4, 8, 16))
+
+
+def dropout_draws(cfg: Config, rows: int, spatial: Sequence[int], rand,
+                  decoders: int = 2) -> List[Optional[torch.Tensor]]:
+    """The ``drop_u`` uniforms of one train-mode pass over ``rows`` samples.
+    2D: one per encoder level, shaped like that level's first conv output
+    [rows, C_i, H >> i, W >> i], or None where its dropout is 0. 3D: the
+    VNet's bottleneck and each of its ``decoders`` outputs
+    (models/vnet3d.py dropout_shapes)."""
+    if len(spatial) == 2:
+        h, w = spatial
+        return [rand((rows, c, h >> i, w >> i)) if p > 0 else None
+                for i, (c, p) in enumerate(zip(cfg.model.feature_chns,
+                                               cfg.model.dropout))]
+    return [rand(s) for s in vnet_dropout_shapes(rows, cfg.model.n_filters_3d,
+                                                 spatial, decoders)]
 
 
 def draw_step_uniforms(cfg: Config, image_shape: Sequence[int],
@@ -103,22 +123,22 @@ def draw_step_uniforms(cfg: Config, image_shape: Sequence[int],
     says (from ``generator``, or from ``device``'s default generator):
 
       bcp_starts  box start per spatial axis (0-d int64)
-      drop        {pass: encoder_dropout_draws} for the passes teacher,
-                  student, fp (channel dropout) and vat
+      drop        {pass: dropout_draws} for the passes teacher, student, fp
+                  (channel dropout) and vat
       perturb     per-level channel-perturbation uniforms (models/perturb.py)
       vat_d       the initial VAT direction's uniform, shaped like the
                   unlabeled half of the image
     """
-    b, cin, h, w = (int(s) for s in image_shape)
+    b, cin, *spatial = (int(s) for s in image_shape)
     labeled_bs, sub_bs = _check_layout(cfg)
     rand, device = uniform_sampler(generator, device)
-    chns = cfg.model.feature_chns
+    chns = level_channels(cfg, len(spatial))
     rows = {"teacher": b - labeled_bs, "student": 2 * sub_bs,
             "fp": b - labeled_bs, "vat": b - labeled_bs}
     draws: Dict[str, object] = {
         "bcp_starts": [s.to(device) for s in
-                       draw_box_starts((h, w), generator, device=device)],
-        "drop": {name: encoder_dropout_draws(cfg, n, h, w, rand)
+                       draw_box_starts(spatial, generator, device=device)],
+        "drop": {name: dropout_draws(cfg, n, spatial, rand)
                  for name, n in rows.items()},
     }
     if cfg.semi.dropout:
@@ -126,7 +146,7 @@ def draw_step_uniforms(cfg: Config, image_shape: Sequence[int],
                                      [True] * len(chns), cfg.semi.comp_drop)
         draws["perturb"] = [[rand(s) for s in lvl] for lvl in shapes]
     if cfg.semi.adv_noise:
-        draws["vat_d"] = rand((b - labeled_bs, cin, h, w))
+        draws["vat_d"] = rand((b - labeled_bs, cin, *spatial))
     return draws
 
 
@@ -138,12 +158,14 @@ def build_chap_train_step(model: torch.nn.Module,
                           device: Optional[Union[str, torch.device]] = None):
     """Returns ``step(state, batch, generator=None, draws=None) -> StepOutput``.
 
-    batch: {'image': [B, 1, H, W] float, 'label': [B, H, W] int} on the
-    step's device, with the two-stream layout [labeled_bs labeled ;
+    batch: {'image': [B, 1, *spatial] float, 'label': [B, *spatial] int} on
+    the step's device, with the two-stream layout [labeled_bs labeled ;
     B - labeled_bs unlabeled]. ``draws`` (draw_step_uniforms) replaces every
     random draw; without it the step draws from ``generator``. The step
     updates ``state.model`` and ``state.optimizer`` in place and returns the
     seven metrics of chap_tpu's step as 0-d device tensors (no host sync).
+    ``level_paths``: the GradSim level weights, ENCODER_LEVEL_PATHS for the
+    2D UNet, VNET_LEVEL_PATHS for the VNet.
     """
     device = resolve_device(device)
     num_classes = cfg.data.num_classes
@@ -155,7 +177,9 @@ def build_chap_train_step(model: torch.nn.Module,
                          f"step on {device}")
     if cfg.optim.fused_passes and (semi.dropout or semi.adv_noise):
         logger.warning("optim.fused_passes=True: the port runs the sequential "
-                       "passes, the same maths (tests/test_step_fused.py)")
+                       "passes, the same maths (tests/test_step_fused.py); "
+                       "chap_tpu's 3D trainer forces fused_passes=False "
+                       "(trainer_3d.py:189-192)")
     if split or cfg.optim.split_step:
         logger.warning("split step requested: a TPU-compiler workaround, "
                        "ignored (eager PyTorch compiles no step program)")

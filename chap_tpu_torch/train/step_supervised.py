@@ -19,19 +19,19 @@ from chap_tpu_torch.config import Config
 from chap_tpu_torch.device import resolve_device
 from chap_tpu_torch.losses.dice import dice_ce_supervised
 from chap_tpu_torch.train.state import TrainState, fold_batch_stats, make_lr_schedule
-from chap_tpu_torch.train.step_chap import (StepOutput, encoder_dropout_draws,
+from chap_tpu_torch.train.step_chap import (StepOutput, dropout_draws,
                                             uniform_sampler)
 
 
 def draw_supervised_uniforms(cfg: Config, image_shape: Sequence[int],
                              generator: Optional[torch.Generator] = None,
-                             device: Optional[Union[str, torch.device]] = None
-                             ) -> Dict[str, object]:
-    """{'drop': encoder_dropout_draws over the batch's B rows}, drawn as
-    step_chap.uniform_sampler says."""
-    b, _, h, w = (int(s) for s in image_shape)
+                             device: Optional[Union[str, torch.device]] = None,
+                             decoders: int = 2) -> Dict[str, object]:
+    """{'drop': step_chap.dropout_draws over the batch's B rows} for a model
+    with ``decoders`` outputs, drawn as step_chap.uniform_sampler says."""
+    b, _, *spatial = (int(s) for s in image_shape)
     rand, _ = uniform_sampler(generator, device)
-    return {"drop": encoder_dropout_draws(cfg, b, h, w, rand)}
+    return {"drop": dropout_draws(cfg, b, spatial, rand, decoders)}
 
 
 def build_supervised_train_step(model: torch.nn.Module,

@@ -6,23 +6,27 @@ H100. Run from the repository root with no arguments:
 
 Phases (any failure raises and the script exits non-zero):
   1. device    nvidia-smi name and power limit; torch / CUDA / Triton versions
-  2. build     nvcc builds csrc/ccl.cu (K2; registers and shared memory per
-               phase kernel from -Xptxas=-v) while Triton compiles K1
+  2. build     one nvcc per CUDA source, started together: csrc/ccl.cu (K2,
+               2D and 3D entry points) and csrc/sliding_window.cu (K3);
+               registers and shared memory per kernel from -Xptxas=-v;
+               meanwhile Triton compiles K1
   3. K1        the fused masked dice+CE Triton kernels, one region (R = 1)
                and two (R = 2, mix_loss's single call), against their plain
-               version at the main path's [6, 4, 256, 256], a ragged
+               version at the 2D path's [6, 4, 256, 256], a ragged
                [1, 4, 23, 29] and [2, 3, 23, 29] with labels outside
-               [0, C) that match a padded class index: statistics, dice,
+               [0, C) that match a padded class index, and the 3D step's
+               [1, 2, 112, 112, 80] (R = 2) and [2, 2, 112, 112, 80]
+               (R = 1) and a ragged [2, 3, 23, 29, 17]: statistics, dice,
                ce and d/dlogits (also with one region's grads None) at
-               rtol 2e-3, two calls bit-identical; torch.profiler counts
-               the device kernels of 3 forward calls (1 or 2 kernels each)
-               and of 3 backward calls (1 each); device ms per
-               launch over 100 back-to-back calls, host us per call, and
-               the median of single calls, each between two events
+               rtol 2e-3, two calls bit-identical; at the timed shapes
+               torch.profiler counts the device kernels of 3 forward calls
+               (1 or 2 kernels each) and of 3 backward calls (1 each);
+               device ms per launch over 100 back-to-back calls, host us
+               per call, and the median of single calls
   4. K2        the CUDA largest-CC kernel exactly equal to its plain version
                on adversarial maps (ragged, a serpentine through every tile,
                all foreground / background, one-pixel components, ties
-               across tiles, C = 2 and 4) and on the main path's 24 maps of
+               across tiles, C = 2 and 4) and on the 2D path's 24 maps of
                256^2 in three regimes (speckled, clean phantoms, percolating
                30% fill), timed as K1
   5. parity    one CHAP step on the card (kernels) and one on the CPU (plain
@@ -52,15 +56,57 @@ Phases (any failure raises and the script exits non-zero):
                step. Prints the ``trainer`` line (pool build s, steps/s
                between evals per path beside phase 6's bare step, eval s,
                checkpoint ms, val dice, peak memory)
-  9. report    the kernels line (JSON), the card line, and the last line
+  9. K2 3D     the 26-connected entry point exactly equal to its plain
+               version (max_pool3d propagation) on ragged 23x29x17 maps, 3D
+               serpentines through every 4x8x16 tile, chains joined only
+               through tile corners or edge diagonals, ties across tiles,
+               all foreground / background, C = 2 and 3, labels outside
+               [0, C); then on the 3D step's 4 maps of 112x112x80 in three
+               regimes (clean ellipsoids, speckled, percolating 30% fill),
+               timed as K1
+ 10. K3        the sliding-window accumulate against its plain version over
+               whole patch grids: the LA eval's batches of 16 patches of
+               112x112x80 in a 160x160x96 volume, and a ragged 16x16x8 patch
+               in a 40x36x20 volume at C = 3; score within 1e-6 relative,
+               counts equal, label maps equal (near-ties within 1e-5
+               counted), two runs bit-identical; one LA batch timed
+ 11. parity 3D one 3D CHAP step on the card and on the CPU from the same
+               weights and draws (nf 4, patch 32x32x16, batch 4, TF32 off):
+               the 7 metrics at rtol 2e-3, launches 4 / 12 / 1 (K2 3D);
+               then the sliding-window eval of a 48x48x24 volume on both
+               from weights trained 20 supervised steps on the card:
+               >= 99.9% of voxels agree, each map 1-99% foreground, K3
+               once per patch batch
+ 12. slice 3D  the 3D CHAP step at configs/la_chap.yml's values (nf 16,
+               widths 16-256, patch 112x112x80, batch 4 = 2 + 2, fp32 via
+               model.dtype=float32) on phantom patches, random weights from a
+               seed: 1 warm-up and 3 timed steps, launches per step asserted
+               (4 K1 forward, 12 K1 backward, 1 K2 3D), peak memory; then
+               torch.profiler over 1 step by kernel class
+ 13. trainer3d chap_tpu_torch.cli.train_3d.main at configs/la_chap.yml's
+               values on synthetic volumes (12 of 128x128x88 in the device
+               pool; the LA patch set back by override, since --dataset
+               synthetic pins 64x64x48): 4 CHAP steps, --resume to 6 (the
+               step counter continues), 2 cps and 2 supervised steps (2 / 2
+               / 0 a step), 3 CHAP steps on the host loader; then
+               test_all_case on the run's latest weights over 2 synthetic
+               volumes of 160x160x96 at stride 18/4, sw_batch 16, K3
+               launches equal to the patch batches; cli.test_3d on the card.
+               Prints the ``trainer3d`` line (steps/s, eval s per volume,
+               checkpoint ms, peak bytes)
+ 14. report    the kernels line (JSON), the card line, and the last line
                {"ok": true, "device": {...}}
+
+The 2D phases keep the counts and depths they had before the 3D path was
+added; the whole script takes about 2.5 minutes on one H100.
 
 Two diagnostics run only by hand, each from the repository root:
 
     python3 -c "import chip_smoke as c; c.phase_slice()"
     python3 -c "import chip_smoke as c; c.loop_breakdown('by_hand')"
 
-the first is phase 6 alone; the second prints a ``loop`` line, the ms per
+the first is phase 6 alone (``c.phase_slice_3d()`` is phase 12 alone); the
+second prints a ``loop`` line, the ms per
 full-width step on phantom and on device-pool batches with a sync after
 every step and after 5, and the batch function's own device ms.
 """
@@ -81,27 +127,39 @@ import numpy as np
 import torch
 
 from chap_tpu_torch.cli import test_2d as cli_test
+from chap_tpu_torch.cli import test_3d as cli_test3d
 from chap_tpu_torch.cli import train_2d as cli_train
-from chap_tpu_torch.config import acdc_chap_config
+from chap_tpu_torch.cli import train_3d as cli_train3d
+from chap_tpu_torch.config import acdc_chap_config, load_config
 from chap_tpu_torch.data.datasets import (SyntheticSliceDataset, SyntheticVolumeDataset,
                                           patients_to_slices, phantom_batch)
 from chap_tpu_torch.data.device_data import build_device_batch_fn, build_device_pool
+from chap_tpu_torch.eval import sliding_window as sw
 from chap_tpu_torch.eval.eval2d import evaluate_volumes, make_predictor, predict_volume
-from chap_tpu_torch.models.factory import net_factory
+from chap_tpu_torch.models.factory import net_factory, net_factory_3d
 from chap_tpu_torch.ops import cuda_build, fused_losses
 from chap_tpu_torch.semi import nms
+from chap_tpu_torch.semi.gradsim import VNET_LEVEL_PATHS
 from chap_tpu_torch.train.state import create_train_state, make_optimizer
-from chap_tpu_torch.train.step_chap import build_chap_train_step, draw_step_uniforms
+from chap_tpu_torch.train.step_chap import (build_chap_train_step, draw_step_uniforms,
+                                            level_channels)
 from chap_tpu_torch.train.step_supervised import build_supervised_train_step
+from chap_tpu_torch.train.trainer_3d import build_supervised3d_train_step
+from chap_tpu_torch.utils.checkpoint import CheckpointManager
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 FP32_FLOP_PER_S = 67e12        # outside the tensor cores
 RTOL = 2e-3
 # per CHAP step: 4 mix_loss calls, each one K1 forward over both regions and
 # one K1 backward in each of grads_l, grads_u and total.backward(); one K2
-LAUNCHES_PER_STEP = {"K1_fwd": 4, "K1_bwd": 12, "K2_ccl": 1}
-# per supervised step: dice_ce_supervised on each decoder output, K1 with R = 1
-SUPERVISED_LAUNCHES_PER_STEP = {"K1_fwd": 2, "K1_bwd": 2, "K2_ccl": 0}
+# (the 2D kernel for slices, the 3D one for patches); no K3 (eval only)
+LAUNCHES_PER_STEP = {"K1_fwd": 4, "K1_bwd": 12, "K2_ccl": 1, "K2_ccl3d": 0,
+                     "K3_sw": 0}
+LAUNCHES_PER_STEP_3D = {**LAUNCHES_PER_STEP, "K2_ccl": 0, "K2_ccl3d": 1}
+# per supervised (or 3D cps) step: dice_ce_supervised on each decoder
+# output, K1 with R = 1
+SUPERVISED_LAUNCHES_PER_STEP = {"K1_fwd": 2, "K1_bwd": 2, "K2_ccl": 0,
+                                "K2_ccl3d": 0, "K3_sw": 0}
 # the trainer phase: configs/acdc_chap.yml through the CLI, synthetic data
 RUNS_DIR = os.path.join("build", "chip_smoke_runs")
 TRAINER_FLAGS = ["--cfg", "configs/acdc_chap.yml", "--dataset", "synthetic",
@@ -121,13 +179,17 @@ def check(cond: bool, what: str) -> None:
 def launch_counts() -> dict:
     return {"K1_fwd": fused_losses.stats_kernel.launches,
             "K1_bwd": fused_losses.stats_grad_kernel.launches,
-            "K2_ccl": nms.ccl_kernel.launches}
+            "K2_ccl": nms.ccl_kernel.launches,
+            "K2_ccl3d": nms.ccl3d_kernel.launches,
+            "K3_sw": sw.sw_accumulate_kernel.launches}
 
 
 def zero_launch_counts() -> None:
     fused_losses.stats_kernel.launches = 0
     fused_losses.stats_grad_kernel.launches = 0
     nms.ccl_kernel.launches = 0
+    nms.ccl3d_kernel.launches = 0
+    sw.sw_accumulate_kernel.launches = 0
 
 
 def single_call_ms(fn, n: int = 20, warmup: int = 3) -> float:
@@ -233,7 +295,7 @@ def ptxas_summary(log: str) -> list:
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
-            short = re.search(r"\d+(ccl_[a-z]+)", entry.group(1))
+            short = re.search(r"\d+((?:ccl3?|sw)_[a-z_]+)", entry.group(1))
             name = short.group(1) if short else entry.group(1)
         elif name and "Used" in line:
             out.append((name, line.split(":", 1)[-1].strip()))
@@ -267,14 +329,14 @@ def k1_inputs(shape, seed, label_values=None):
     larger values are labels outside [0, C), which count nowhere) and a
     {0, 1} mask."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    b, c, h, w = shape
+    b, c, *spatial = shape
     hi = label_values or c
     logits = torch.randn(shape, generator=gen, device="cuda") * 2
-    labels = torch.randint(0, hi, (b, h, w), generator=gen, device="cuda",
+    labels = torch.randint(0, hi, (b, *spatial), generator=gen, device="cuda",
                            dtype=torch.int32)
-    labels2 = torch.randint(0, hi, (b, h, w), generator=gen, device="cuda",
+    labels2 = torch.randint(0, hi, (b, *spatial), generator=gen, device="cuda",
                             dtype=torch.int32)
-    mask = (torch.rand((b, h, w), generator=gen, device="cuda") < 0.6).float()
+    mask = (torch.rand((b, *spatial), generator=gen, device="cuda") < 0.6).float()
     return logits, labels, labels2, mask
 
 
@@ -494,6 +556,17 @@ def phantom_inputs(cfg, seed, device):
             "label": torch.from_numpy(labels).to(device)}
 
 
+def to_cuda(obj):
+    """Every tensor of a nest of dicts and lists, copied to the card."""
+    if isinstance(obj, torch.Tensor):
+        return obj.cuda()
+    if isinstance(obj, dict):
+        return {k: to_cuda(v) for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [to_cuda(v) for v in obj]
+    return obj
+
+
 def phase_parity():
     set_tf32(False)
     cfg = acdc_chap_config()
@@ -506,16 +579,6 @@ def phase_parity():
     batch = phantom_inputs(cfg, 1, "cpu")
     draws = draw_step_uniforms(cfg, batch["image"].shape,
                                torch.Generator().manual_seed(2), "cpu")
-
-    def to_cuda(obj):
-        if isinstance(obj, torch.Tensor):
-            return obj.cuda()
-        if isinstance(obj, dict):
-            return {k: to_cuda(v) for k, v in obj.items()}
-        if isinstance(obj, list):
-            return [to_cuda(v) for v in obj]
-        return obj
-
     before = launch_counts()
     on_cpu = cpu_step(cpu_state, batch, draws=draws).metrics
     on_card = cuda_step(cuda_state, to_cuda(batch), draws=to_cuda(draws)).metrics
@@ -580,8 +643,12 @@ def _kernel_class(name: str) -> str:
         return "K1_fwd"
     if n.startswith("stats_grad"):
         return "K1_bwd"
+    if "ccl3_" in n or "select_flat" in n:
+        return "K2_ccl3d"
     if "ccl_" in n:
         return "K2_ccl"
+    if "sw_accumulate" in n:
+        return "K3_sw"
     if "batch_norm" in n or "batchnorm" in n or "bn_" in n or "welford" in n:
         return "batchnorm"
     if any(k in n for k in ("conv", "xmma", "gemm", "cudnn", "wgrad", "dgrad",
@@ -594,9 +661,9 @@ def _kernel_class(name: str) -> str:
     return "elementwise_other"
 
 
-def phase_profile(state, step, batches, gen) -> None:
-    """Device time by kernel class over two steps (torch.profiler), and the
-    device's busy share of the wall time."""
+def phase_profile(state, step, batches, gen, tag="profile") -> dict:
+    """Device time by kernel class over the steps of ``batches``
+    (torch.profiler), and the device's busy share of the wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -616,20 +683,21 @@ def phase_profile(state, step, batches, gen) -> None:
         cls = _kernel_class(ev.key)
         by_class[cls] = by_class.get(cls, 0.0) + dev_us / 1e3 / len(batches)
         top.append((dev_us / 1e3 / len(batches), ev.count // len(batches), ev.key[:70]))
-        if cls.startswith(("K1", "K2")):
+        if cls.startswith(("K1", "K2", "K3")):
             ported[ev.key[:70]] = [dev_us / 1e3 / len(batches),
                                    ev.count / len(batches)]
     device_ms = sum(by_class.values())
     top.sort(reverse=True)
-    print("profile", json.dumps({
+    res = {
         "steps": len(batches), "wall_ms_per_step": wall_ms / len(batches),
         "device_ms_per_step": device_ms,
         "device_busy_share": device_ms / (wall_ms / len(batches)),
         "ms_per_step_by_class": dict(sorted(by_class.items(),
                                             key=lambda kv: -kv[1])),
         "ported_kernels_ms_and_calls_per_step": ported,
-        "top_kernels_ms_per_step": [[round(t, 3), c, k] for t, c, k in top[:15]]}),
-        flush=True)
+        "top_kernels_ms_per_step": [[round(t, 3), c, k] for t, c, k in top[:15]]}
+    print(tag, json.dumps(res), flush=True)
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -776,6 +844,472 @@ def phase_trainer(bare_step_ms: float) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phases 9-14: the 3D path (K1 at 5-D, K2 in 3D, K3, parity, slice, trainer)
+# ---------------------------------------------------------------------------
+
+LA_PATCH = (112, 112, 80)
+# configs/la_chap.yml through the 3D CLI on synthetic volumes; --dataset
+# synthetic pins a 64x64x48 patch, so the LA patch is set back by override
+TRAINER3D_FLAGS = ["--cfg", "configs/la_chap.yml", "--dataset", "synthetic",
+                   "--adv_noise", "--dropout", "--device", "cuda"]
+TRAINER3D_OVERRIDES = ["data.patch_size_3d=[112,112,80]", "model.dtype=float32",
+                       "run.log_every=2", f"run.snapshot_root={RUNS_DIR}"]
+
+
+def la_config():
+    """configs/la_chap.yml with the one override the port needs (float32;
+    bf16 is not ported yet)."""
+    return load_config("configs/la_chap.yml", ["model.dtype=float32"])
+
+
+def serpentine3d(nx, ny, nz):
+    """One component through every 4x8x16 tile of K2 in 3D: a 2D serpentine
+    in each even x plane, the planes joined at (y, z) = (0, 0)."""
+    m = np.zeros((nx, ny, nz), np.int32)
+    for x in range(0, nx, 2):
+        m[x] = serpentine(ny, nz)
+    m[:, 0, 0] = 1
+    return m
+
+
+def diagonals3d(n):
+    """Voxel chains joined only through corners (x, y, z all step) or along
+    edge diagonals (two of them step), across tile boundaries, in every
+    backward direction; plus two 2-voxel components, one joined only across a
+    tile corner and one only across a tile edge, of another class."""
+    m = np.zeros((n, n, n), np.int32)
+    for t in range(n):
+        m[t, t, t] = 1
+    for t in range(n - 4):
+        m[t, n - 1 - t, t + 2] = 1
+        m[t + 1, t, n - 1 - t] = 1
+    for t in range(n - 6):
+        m[t + 3, t, 0] = 1
+        m[t, 0, t + 5] = 1
+    m[3, 7, 15] = m[4, 8, 16] = 2
+    m[7, 15, 3] = m[8, 16, 3] = 2
+    return m
+
+
+def ellipsoids(rs, b, shape, n=4):
+    """[b, *shape] maps of class 1 on a few random ellipsoids each."""
+    axes = np.meshgrid(*(np.arange(s, dtype=np.float32) for s in shape),
+                       indexing="ij")
+    out = np.zeros((b, *shape), np.int32)
+    for i in range(b):
+        for _ in range(n):
+            c = [rs.uniform(0.2, 0.8) * s for s in shape]
+            r = [rs.uniform(0.05, 0.2) * s for s in shape]
+            inside = sum(((a - ci) / ri) ** 2 for a, ci, ri in zip(axes, c, r)) <= 1
+            out[i][inside] = 1
+    return out
+
+
+def k2_regime_3d(name: str, rs: np.random.RandomState, b=4, shape=LA_PATCH):
+    """The 3D CHAP step's 4 maps of 112x112x80, 2 classes."""
+    if name == "clean":
+        return ellipsoids(rs, b, shape)
+    if name == "speckled":
+        lab = ellipsoids(rs, b, shape)
+        noise = rs.rand(b, *shape) < 0.08
+        lab[noise] = rs.randint(0, 2, int(noise.sum()))
+        return lab
+    return (rs.rand(b, *shape) < 0.3).astype(np.int32)
+
+
+def k2_adversarial_3d(rs: np.random.RandomState) -> dict:
+    """name -> (segmentation [B, X, Y, Z] int32, num_classes)."""
+    ties = np.zeros((1, 12, 24, 40), np.int32)
+    for x, y, z in [(0, 0, 0), (5, 10, 20), (9, 17, 35), (2, 12, 33)]:
+        ties[0, x:x + 2, y:y + 2, z:z + 2] = 1        # equal cubes, four tiles
+    ties[0, 8:10, 2:4, 2:3] = 2
+    ties[0, 1:3, 20:22, 10:11] = 2
+    snakes = np.stack([serpentine3d(24, 56, 80), serpentine3d(24, 56, 80) * 2])
+    u = rs.rand(2, 20, 24, 33)
+    return {
+        "ragged_2x23x29x17": (rs.randint(0, 3, (2, 23, 29, 17)), 3),
+        "serpentine_2x24x56x80": (snakes, 3),
+        "serpentine_ragged_13x27x37": (serpentine3d(13, 27, 37)[None] * 2, 3),
+        "corner_and_edge_diagonals_40": (diagonals3d(40)[None], 3),
+        "ties_across_tiles": (ties, 3),
+        "all_foreground": (np.full((2, 20, 20, 36), 2), 3),
+        "all_background": (np.zeros((2, 20, 20, 36)), 2),
+        "c2_percolating_3x33x40x50": ((rs.rand(3, 33, 40, 50) < 0.3), 2),
+        "c3_percolating": (np.select([u < 0.3, u < 0.6], [1, 2], 0), 3),
+        "labels_out_of_range": (rs.randint(-1, 5, (2, 20, 24, 33)), 3),
+    }
+
+
+def phase_k2_3d():
+    names = []
+    for name, (seg, c) in k2_adversarial_3d(np.random.RandomState(8)).items():
+        seg = torch.from_numpy(np.asarray(seg, np.int32)).cuda()
+        k = nms.ccl3d_kernel(seg, c)
+        torch.cuda.synchronize()
+        check(torch.equal(k, nms.largest_cc_batch_plain(seg, c)),
+              f"K2 3D equals its plain version ({name})")
+        names.append(name)
+    print("K2 3D adversarial cases equal to the plain version:", ", ".join(names),
+          flush=True)
+    out = {}
+    for i, regime in enumerate(("speckled", "clean", "percolating")):
+        seg = torch.from_numpy(k2_regime_3d(regime, np.random.RandomState(200 + i))
+                               ).to(device="cuda", dtype=torch.int32)
+        k = nms.ccl3d_kernel(seg, 2)
+        p = nms.largest_cc_batch_plain(seg, 2)
+        check(torch.equal(k, p), f"K2 3D equals its plain version ({regime})")
+        check(torch.equal(k, nms.ccl3d_kernel(seg, 2)),
+              f"K2 3D deterministic ({regime})")
+        res = {"maps": list(seg.shape), "kept_voxels": int((k > 0).sum()),
+               "bound": bound_ms(2 * seg.numel() * seg.element_size(), 0),
+               "max_abs_err": float((k - p).abs().max()),
+               **timings(lambda: nms.ccl3d_kernel(seg, 2), n=50),
+               "plain_ms": device_ms(lambda: nms.largest_cc_batch_plain(seg, 2),
+                                     n=2, warmup=1)}
+        print("K2_3d", regime, json.dumps(res), flush=True)
+        out[regime] = res
+    return out
+
+
+def phase_k3() -> dict:
+    """K3 against its plain version over a whole patch grid: the LA eval's
+    batches of 16 patches of 112x112x80 in a 160x160x96 volume (80 patches),
+    and a ragged 16x16x8 patch in a 40x36x20 volume at C = 3 in batches of 5.
+    Score and count within 1e-6 of the plain version's, label maps equal
+    (voxels whose two best classes tie within 1e-5 are counted, not held),
+    two runs bit-identical; one LA batch timed."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    cases = {"la_160x160x96": ((160, 160, 96), LA_PATCH, 18, 4, 16, 2),
+             "ragged_40x36x20": ((40, 36, 20), (16, 16, 8), 12, 6, 5, 3)}
+    out = {}
+    for name, (shape, patch, sxy, sz, bs, c) in cases.items():
+        starts = sw.compute_grid(shape, patch, sxy, sz)
+        maps = [(torch.zeros((c, *shape), device="cuda"),
+                 torch.zeros(shape, device="cuda")) for _ in range(3)]
+        for i in range(0, len(starts), bs):
+            st = starts[i:i + bs]
+            l1, l2 = (torch.randn((len(st), c, *patch), generator=gen,
+                                  device="cuda") * 3 for _ in range(2))
+            sw.sw_accumulate_kernel(l1, l2, st, *maps[0])
+            sw.sw_accumulate_kernel(l1, l2, st, *maps[1])
+            sw.sw_accumulate_plain(l1, l2, st, *maps[2])
+        torch.cuda.synchronize()
+        (ks, kc), (rs_, rc), (ps, pc) = maps
+        check(torch.equal(ks, rs_) and torch.equal(kc, rc),
+              f"K3 bit-identical on repeat ({name})")
+        check(torch.equal(kc, pc), f"K3 count equals the plain version's ({name})")
+        err = rel_err(ks, ps)
+        check(err <= 1e-6, f"K3 score within 1e-6 of the plain version ({name}): {err}")
+        k_prob, p_prob = ks / kc.clamp_min(1e-8), ps / pc.clamp_min(1e-8)
+        differ = k_prob.argmax(0) != p_prob.argmax(0)
+        top2 = p_prob.topk(2, dim=0).values
+        near_tie = (top2[0] - top2[1]) <= 1e-5
+        check(not bool((differ & ~near_tie).any()),
+              f"K3 label maps equal the plain version's ({name})")
+        res = {"patches": len(starts), "batch": bs, "classes": c,
+               "max_abs_err": float((ks - ps).abs().max()), "rel_err": err,
+               "label_voxels_differing_at_near_ties": int(differ.sum())}
+        if name.startswith("la"):
+            st = starts[:bs]
+            l1, l2 = (torch.randn((bs, c, *patch), generator=gen, device="cuda")
+                      for _ in range(2))
+            score, cnt = (torch.zeros((c, *shape), device="cuda"),
+                          torch.zeros(shape, device="cuda"))
+            lo, size = sw.batch_box(st, patch)
+            box = math.prod(size)
+            # logits read once; score and count read and written over the box;
+            # per patch voxel about 8 operations a class
+            res.update({"box": size,
+                        "bound": bound_ms(2 * l1.numel() * 4 + 2 * (c + 1) * box * 4,
+                                          8 * l1.numel()),
+                        **timings(lambda: sw.sw_accumulate_kernel(l1, l2, st, score,
+                                                                  cnt), n=20),
+                        "plain_ms": device_ms(lambda: sw.sw_accumulate_plain(
+                            l1, l2, st, score, cnt), n=5, warmup=1)})
+        print("K3", name, json.dumps(res), flush=True)
+        out[name] = res
+    return out
+
+
+def phantom_patches(cfg, seed, device):
+    """A [B, 1, *patch] batch of crops of 2-class phantom volumes."""
+    patch = tuple(cfg.data.patch_size_3d)
+    b = cfg.data.batch_size
+    vols = SyntheticVolumeDataset((patch[2] + 8, patch[0] + 16, patch[1] + 16),
+                                  cfg.data.num_classes, length=b, seed=seed)
+    rs = np.random.RandomState(seed)
+    images, labels = [], []
+    for i in range(b):
+        v = vols[i]
+        img, lab = v["image"].transpose(2, 1, 0), v["label"].transpose(2, 1, 0)
+        s = [rs.randint(0, n - p + 1) for n, p in zip(img.shape, patch)]
+        sl = tuple(slice(a, a + p) for a, p in zip(s, patch))
+        images.append(img[sl])
+        labels.append(lab[sl])
+    return {"image": torch.from_numpy(np.stack(images)[:, None]).to(device),
+            "label": torch.from_numpy(np.stack(labels).astype(np.int32)).to(device)}
+
+
+def make_step_3d(cfg, device, seed=0, state_dict=None):
+    torch.manual_seed(seed)
+    model = net_factory_3d("dualdecoder", cfg.data.in_chns, cfg.data.num_classes,
+                           "train", cfg.model, device=device)
+    if state_dict is not None:
+        model.load_state_dict(state_dict)
+    opt = make_optimizer(model, cfg.optim.base_lr, cfg.optim.momentum,
+                         cfg.optim.weight_decay)
+    state = create_train_state(model, opt, level_channels(cfg, 3))
+    return state, build_chap_train_step(model, opt, cfg, use_nms=True,
+                                        level_paths=VNET_LEVEL_PATHS, device=device)
+
+
+def phase_parity_3d() -> dict:
+    """One 3D CHAP step on the card and on the CPU from the same weights and
+    draws (nf 4, patch 32x32x16, batch 4, TF32 off): the 7 metrics at rtol
+    2e-3. Then the sliding-window eval of a 48x48x24 volume on both, from
+    weights trained 20 supervised steps on the card: >= 99.9% of voxels
+    agree, each map between 1% and 99% foreground (so agreement cannot come
+    from two all-background maps), K3 launched once per patch batch."""
+    set_tf32(False)
+    cfg = la_config()
+    cfg.model.n_filters_3d = 4
+    cfg.data.patch_size_3d = (32, 32, 16)
+    cpu_state, cpu_step = make_step_3d(cfg, "cpu")
+    cuda_state, cuda_step = make_step_3d(cfg, "cuda",
+                                         state_dict=cpu_state.model.state_dict())
+    batch = phantom_patches(cfg, 1, "cpu")
+    draws = draw_step_uniforms(cfg, batch["image"].shape,
+                               torch.Generator().manual_seed(2), "cpu")
+    before = launch_counts()
+    on_cpu = cpu_step(cpu_state, batch, draws=draws).metrics
+    on_card = cuda_step(cuda_state, to_cuda(batch), draws=to_cuda(draws)).metrics
+    after = launch_counts()
+    ran = {k: after[k] - before[k] for k in after}
+    check(ran == LAUNCHES_PER_STEP_3D,
+          f"the card's 3D step went through K1 and K2 in 3D: {ran} launches, "
+          f"expected {LAUNCHES_PER_STEP_3D}")
+    res = {}
+    for k in METRICS:
+        a, b = float(on_card[k]), float(on_cpu[k])
+        check(math.isclose(a, b, rel_tol=RTOL, abs_tol=1e-6),
+              f"3D step parity {k}: card {a} vs cpu {b}")
+        res[k] = [a, b]
+    # eval parity from briefly trained weights
+    model = cuda_state.model
+    opt = make_optimizer(model, cfg.optim.base_lr)
+    state = create_train_state(model, opt)
+    step = build_supervised3d_train_step(model, opt, cfg, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for i in range(20):
+        step(state, phantom_patches(cfg, 300 + i, "cuda"), gen)
+    cpu_model = net_factory_3d("dualdecoder", 1, 2, "test", cfg.model, device="cpu")
+    cpu_model.load_state_dict(model.state_dict())
+    vol = SyntheticVolumeDataset((24, 48, 48), 2, length=1, seed=9)[0]
+    image = vol["image"].transpose(2, 1, 0)
+    n_batches = -(-len(sw.compute_grid(image.shape, (32, 32, 16), 8, 4)) // 4)
+    zero_launch_counts()
+    on_card = sw.test_single_case(model, image, 8, 4, (32, 32, 16), 2, sw_batch=4,
+                                  device="cuda")
+    k3 = sw.sw_accumulate_kernel.launches
+    on_cpu = sw.test_single_case(cpu_model, image, 8, 4, (32, 32, 16), 2,
+                                 sw_batch=4, device="cpu")
+    agree = float(np.mean(on_card == on_cpu))
+    res.update({"eval_voxel_agreement": agree, "eval_fg_share": float(on_cpu.mean()),
+                "eval_k3_launches": k3, "settings": tf32_settings()})
+    print("parity_3d", json.dumps(res), flush=True)
+    check(k3 == n_batches, f"eval launched K3 {k3} times for {n_batches} batches")
+    check(agree >= 0.999, f"3D eval voxels agree on >= 99.9%: {agree}")
+    fg = [float(on_card.mean()), float(on_cpu.mean())]
+    check(all(0.01 < f < 0.99 for f in fg),
+          f"3D eval parity needs foreground and background in the maps: {fg}")
+    return res
+
+
+def phase_slice_3d():
+    """The 3D CHAP step at configs/la_chap.yml's values (nf 16, patch
+    112x112x80, batch 4 = 2 + 2, fp32) on phantom patches, random weights
+    from a seed: 1 warm-up and 3 timed steps, launches per step asserted,
+    peak memory, then one step profiled by kernel class."""
+    set_tf32(True)     # PyTorch's defaults: TF32 in cuDNN convs, not in matmuls
+    cfg = la_config()
+    state, step = make_step_3d(cfg, "cuda", seed=1337)
+    batches = [phantom_patches(cfg, 10 + i, "cuda") for i in range(5)]
+    gen = torch.Generator(device="cuda").manual_seed(1337)
+    step(state, batches[0], gen)                 # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts()
+    times, metrics = [], []
+    for batch in batches[1:4]:
+        t0 = time.perf_counter()
+        out = step(state, batch, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        metrics.append({k: float(v) for k, v in out.metrics.items()})
+    launches = launch_counts()
+    n_steps = len(times)
+    for m in metrics:
+        check(all(math.isfinite(v) for v in m.values()), f"finite 3D metrics {m}")
+    check(launches == {k: v * n_steps for k, v in LAUNCHES_PER_STEP_3D.items()},
+          f"3D launches over {n_steps} steps: {launches}, expected "
+          f"{LAUNCHES_PER_STEP_3D} per step")
+    res = {"step_ms": times, "median_step_ms": statistics.median(times),
+           "patches_per_s": 1e3 * cfg.data.batch_size / statistics.median(times),
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "launches_per_step": {k: v / n_steps for k, v in launches.items()},
+           "last_metrics": metrics[-1], "settings": tf32_settings(),
+           "batch": cfg.data.batch_size, "patch": list(cfg.data.patch_size_3d),
+           "n_filters_3d": cfg.model.n_filters_3d}
+    print("slice_3d", json.dumps(res), flush=True)
+    profile = phase_profile(state, step, batches[4:5], gen, tag="profile_3d")
+    del state, step, batches
+    torch.cuda.empty_cache()
+    return launches, res, profile
+
+
+def conv_flop(model, x) -> int:
+    """Operations (2 per multiply-add) of the model's 3D convolutions and
+    transpose convolutions in one eval-mode forward of x, from forward
+    hooks on the modules' shapes."""
+    total = [0]
+
+    def hook(module, inputs, output):
+        k = math.prod(module.kernel_size)
+        if isinstance(module, torch.nn.ConvTranspose3d):
+            total[0] += 2 * inputs[0].numel() * module.out_channels * k
+        else:
+            total[0] += 2 * output.numel() * module.in_channels * k
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, (torch.nn.Conv3d, torch.nn.ConvTranspose3d))]
+    was_training = model.training
+    model.eval()
+    try:
+        with torch.no_grad():
+            model(x)
+    finally:
+        for h in handles:
+            h.remove()
+        model.train(was_training)
+    return total[0]
+
+
+def trainer3d_run(flags, overrides, steps, per_step) -> dict:
+    """One cli.train_3d.main call with the launch counters set to 0 just
+    before it and read just after; they must be ``steps`` x ``per_step``."""
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    out = cli_train3d.main(TRAINER3D_FLAGS + flags + TRAINER3D_OVERRIDES + overrides)
+    wall_s = time.perf_counter() - t0
+    launches = launch_counts()
+    want = {k: v * steps for k, v in per_step.items()}
+    check(launches == want, f"3D trainer launches {launches}, expected {want} "
+                            f"({per_step} per step over {steps} steps)")
+    check(out["steps"] == steps or "--resume" in flags,
+          f"3D trainer ran {out['steps']} steps, expected {steps}")
+    records = _records(out["save_dir"])
+    for r in records:
+        if "loss" in r:
+            check(math.isfinite(r["loss"]), f"finite 3D loss {r}")
+    return {**out, "wall_s": wall_s, "launches": launches, "records": records}
+
+
+def phase_trainer_3d(bare_step_ms: float) -> dict:
+    """cli.train_3d at configs/la_chap.yml's values on synthetic volumes: 4
+    CHAP steps, --resume to 6, 2 cps and 2 supervised steps, 3 CHAP steps on
+    the host loader; then test_all_case on the run's latest weights over 2
+    synthetic volumes of 160x160x96 (stride 18/4, sw_batch 16) and
+    cli.test_3d on the card."""
+    set_tf32(True)
+    shutil.rmtree(RUNS_DIR, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    first = trainer3d_run(["--max_iterations", "4"], [], 4, LAUNCHES_PER_STEP_3D)
+    save_dir = first["save_dir"]
+    resumed = trainer3d_run(["--max_iterations", "6", "--resume"], [], 2,
+                            LAUNCHES_PER_STEP_3D)
+    check(resumed["save_dir"] == save_dir and resumed["steps"] == 6,
+          f"resume continues the 3D run to step 6: {resumed['steps']}")
+    check([r["step"] for r in resumed["records"] if "loss" in r] == [2, 4, 6],
+          "3D log steps 2, 4 before and 6 after the resume")
+    cps = trainer3d_run(["--max_iterations", "2", "--method", "cps", "--exp", "cps"],
+                        [], 2, SUPERVISED_LAUNCHES_PER_STEP)
+    sup = trainer3d_run(["--max_iterations", "2", "--method", "supervised",
+                         "--model", "dualdecoder", "--exp", "sup"], [], 2,
+                        SUPERVISED_LAUNCHES_PER_STEP)
+    host = trainer3d_run(["--max_iterations", "3", "--exp", "host_input"],
+                         ["data.device_input=false"], 3, LAUNCHES_PER_STEP_3D)
+    peak = torch.cuda.max_memory_allocated()
+    # the sliding-window eval on the run's latest weights
+    cfg = la_config()
+    model = net_factory_3d("dualdecoder", 1, 2, "test", cfg.model, device="cuda")
+    CheckpointManager(save_dir).restore(
+        "latest", create_train_state(model, make_optimizer(model, 0.01),
+                                     level_channels(cfg, 3)))
+    vols = SyntheticVolumeDataset((96, 160, 160), 2, length=2, seed=4)
+    cases = [{"image": vols[i]["image"].transpose(2, 1, 0),
+              "label": vols[i]["label"].transpose(2, 1, 0),
+              "case": vols[i]["case"]} for i in range(2)]
+    n_batches = sum(-(-len(sw.compute_grid(c["image"].shape, LA_PATCH, 18, 4)) // 16)
+                    for c in cases)
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    metrics = sw.test_all_case(model, cases, 2, LA_PATCH, 18, 4, sw_batch=16,
+                               device="cuda")
+    eval_s = time.perf_counter() - t0
+    k3 = launch_counts()["K3_sw"]
+    check(k3 == n_batches, f"test_all_case launched K3 {k3} times for "
+                           f"{n_batches} patch batches")
+    check(np.isfinite(metrics).all() and metrics.shape == (1, 2),
+          f"test_all_case metrics {metrics}")
+    # the card's part of one volume: forwards, K3 and argmax, no host metrics
+    engine = sw.SlidingWindowEngine(model, LA_PATCH, 16, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.predict_async(cases[0]["image"], 18, 4, 2)
+    torch.cuda.synchronize()
+    predict_s = time.perf_counter() - t0
+    batches_per_volume = n_batches // len(cases)
+    forward_flop = conv_flop(model, torch.zeros((16, 1) + LA_PATCH, device="cuda"))
+    t0 = time.perf_counter()
+    test_metrics = cli_test3d.main(["--dataset", "synthetic", "--snapshot", save_dir,
+                                    "--ckpt", "latest", "--model", "dualdecoder",
+                                    "--sw_batch", "16", "--device", "cuda"])
+    test_s = time.perf_counter() - t0
+    check(test_metrics.shape == (1, 4) and np.isfinite(test_metrics[:, 0]).all(),
+          f"cli.test_3d metrics {test_metrics}")
+
+    def rates(run):
+        return [r["steps_per_sec"] for r in run["records"] if "steps_per_sec" in r]
+    res = {
+        "card": card_line(), "patch": list(LA_PATCH), "batch": cfg.data.batch_size,
+        "n_filters_3d": cfg.model.n_filters_3d,
+        "pool_build_s": [r["pool_build_s"] for r in first["records"]
+                         if "pool_build_s" in r],
+        "window_steps_per_s": {"chap_4": rates(first), "host_3": rates(host)},
+        "bare_step_steps_per_s": 1e3 / bare_step_ms,
+        "checkpoint_ms": [r["checkpoint_ms"] for r in resumed["records"]
+                          if "checkpoint_ms" in r],
+        "eval_volumes": [list(c["image"].shape) for c in cases],
+        "eval_patch_batches": n_batches, "eval_s_per_volume": eval_s / len(cases),
+        "predict_s_per_volume": predict_s,
+        "conv_tflop_per_volume": forward_flop * batches_per_volume / 1e12,
+        "conv_tflop_per_s": forward_flop * batches_per_volume / predict_s / 1e12,
+        "eval_dice_hd95": metrics[0].tolist(), "test_3d_s": test_s,
+        "test_3d_mean": test_metrics.mean(axis=0).tolist(), "peak_mem_bytes": peak,
+        "wall_s": {"chap_4": first["wall_s"], "resume_2": resumed["wall_s"],
+                   "cps_2": cps["wall_s"], "supervised_2": sup["wall_s"],
+                   "host_3": host["wall_s"]},
+        "launches": {"chap_4": first["launches"], "resume_2": resumed["launches"],
+                     "cps_2": cps["launches"], "supervised_2": sup["launches"],
+                     "host_3": host["launches"], "test_all_case": k3},
+        "settings": tf32_settings()}
+    print("trainer3d", json.dumps(res), flush=True)
+    shutil.rmtree(RUNS_DIR, ignore_errors=True)
+    return res
+
+
 def loop_breakdown(when: str, rounds: int = 2, n: int = 5) -> dict:
     """What the trainer's loop adds to the bare step, in one process at one
     moment: ms per step on phase 6's phantom batches and on batches the
@@ -834,21 +1368,26 @@ def main() -> int:
           f"{triton.__version__} python {sys.version.split()[0]} "
           f"{torch.cuda.get_device_name(0)}", flush=True)
 
-    # phase 2: build (nvcc for K2 in a thread while Triton compiles K1)
+    # phase 2: build: one nvcc per CUDA source, all started together, while
+    # Triton compiles K1
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        nvcc = pool.submit(cuda_build.build, "ccl.cu")
+    sources = ("ccl.cu", "sliding_window.cu")
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        nvcc = {src: pool.submit(cuda_build.build, src) for src in sources}
         logits, labels, labels2, mask = k1_inputs((1, 4, 8, 8), 0)
         for lab2 in (None, labels2):       # K1 with R = 1 and R = 2
             x = logits.clone().requires_grad_(True)
             sum(fused_losses.region_dice_ce(x, labels, mask, lab2)).backward()
         torch.cuda.synchronize()
         triton_s = time.perf_counter() - t0
-        built = nvcc.result()
-    print(f"build nvcc_s={built['seconds']:.2f} triton_first_call_s={triton_s:.2f} "
+        built = {src: f.result() for src, f in nvcc.items()}
+    print("build " + " ".join(f"nvcc_s[{src}]={b['seconds']:.2f}"
+                              for src, b in built.items())
+          + f" triton_first_call_s={triton_s:.2f} "
           f"wall_s={time.perf_counter() - t0:.2f}", flush=True)
-    for kernel, use in ptxas_summary(built["log"]):
-        print("ptxas", kernel, use, flush=True)
+    for b in built.values():
+        for kernel, use in ptxas_summary(b["log"]):
+            print("ptxas", kernel, use, flush=True)
 
     # phase 3: K1
     set_tf32(False)
@@ -858,6 +1397,11 @@ def main() -> int:
         phase_k1((1, 4, 23, 29), 2, regions)
     # C = 3 pads the class axis to 4: labels 3 and 4 lie outside [0, C)
     phase_k1((2, 3, 23, 29), 3, 2, label_values=5)
+    # the 3D step's calls: the 3D mix_loss (R = 2, sub_bs 1) and
+    # dice_ce_supervised on the labeled half (R = 1), and a ragged volume
+    k1_3d = phase_k1((1, 2) + LA_PATCH, 4, 2, timed=True)
+    k1_3d_r1 = phase_k1((2, 2) + LA_PATCH, 4, 1, timed=True)
+    phase_k1((2, 3, 23, 29, 17), 5, 2, label_values=5)
     # phase 4: K2
     k2 = phase_k2()
     # phase 5: CUDA-against-CPU step parity
@@ -868,42 +1412,69 @@ def main() -> int:
     phase_eval_parity()
     # phase 8: the trainer through its CLI at full width
     trainer = phase_trainer(bare_step_ms)
+    torch.cuda.empty_cache()
+    # phases 9-14: the 3D path
+    k2_3d = phase_k2_3d()
+    k3 = phase_k3()
+    phase_parity_3d()
+    launches_3d, slice_3d, profile_3d = phase_slice_3d()
+    trainer_3d = phase_trainer_3d(slice_3d["median_step_ms"])
 
-    # phase 9: report
-    k2_bound = k2["clean"]["bound"]
+    # phase 14: report
+    def trainer_launches(run, name):
+        """A kernel's launches over a trainer phase's runs."""
+        return sum(r[name] for r in run["launches"].values() if isinstance(r, dict))
+
+    def k1_row(name, replaces, key, res, res_r1, launches_of, run):
+        return {"name": name, "route": "triton",
+                "source": "chap_tpu_torch/ops/fused_losses.py",
+                "replaces": replaces, "launches": launches_of[key],
+                "trainer_launches": trainer_launches(run, key),
+                "shape": res["shape"], "regions": res["regions"],
+                "max_abs_err": max(res[f"{name[3:6]}_max_abs_err"],
+                                   res_r1[f"{name[3:6]}_max_abs_err"]),
+                "ms": res[name[3:6]]["device_ms"],
+                "kernel_ms": res[name[3:6]]["kernel_ms"],
+                "host_us": res[name[3:6]]["host_us"],
+                "plain_ms": res[f"{name[3:6]}_plain_ms"],
+                "bound_ms": res[f"{name[3:6]}_bound"][0],
+                "bound_by": res[f"{name[3:6]}_bound"][1], "library_ms": None}
+
+    def k2_row(name, res, launches_of, key, run):
+        return {"name": name, "route": "cuda",
+                "source": "chap_tpu_torch/csrc/ccl.cu",
+                "replaces": "chap_tpu/semi/nms.py:118",
+                "launches": launches_of[key],
+                "trainer_launches": trainer_launches(run, key),
+                "max_abs_err": max(r["max_abs_err"] for r in res.values()),
+                "ms": res["clean"]["device_ms"],
+                "kernel_ms": res["clean"]["kernel_ms"],
+                "host_us": res["clean"]["host_us"],
+                "plain_ms": res["clean"]["plain_ms"],
+                "bound_ms": res["clean"]["bound"][0],
+                "bound_by": res["clean"]["bound"][1], "library_ms": None}
+
+    la = k3["la_160x160x96"]
     kernels = [
-        {"name": "K1_fwd", "route": "triton",
-         "source": "chap_tpu_torch/ops/fused_losses.py",
-         "replaces": "chap_tpu/ops/fused_losses.py:99",
-         "launches": launches["K1_fwd"],
-         "trainer_launches": sum(r["K1_fwd"] for r in trainer["launches"].values()),
-         "max_abs_err": max(k1["fwd_max_abs_err"], k1_r1["fwd_max_abs_err"]),
-         "ms": k1["fwd"]["device_ms"], "kernel_ms": k1["fwd"]["kernel_ms"],
-         "host_us": k1["fwd"]["host_us"],
-         "plain_ms": k1["fwd_plain_ms"],
-         "bound_ms": k1["fwd_bound"][0], "bound_by": k1["fwd_bound"][1],
+        k1_row("K1_fwd", "chap_tpu/ops/fused_losses.py:99", "K1_fwd", k1, k1_r1,
+               launches, trainer),
+        k1_row("K1_bwd", "chap_tpu/ops/fused_losses.py:159", "K1_bwd", k1, k1_r1,
+               launches, trainer),
+        k1_row("K1_fwd_3d", "chap_tpu/ops/fused_losses.py:99", "K1_fwd", k1_3d,
+               k1_3d_r1, launches_3d, trainer_3d),
+        k1_row("K1_bwd_3d", "chap_tpu/ops/fused_losses.py:159", "K1_bwd", k1_3d,
+               k1_3d_r1, launches_3d, trainer_3d),
+        k2_row("K2_ccl", k2, launches, "K2_ccl", trainer),
+        k2_row("K2_ccl3d", k2_3d, launches_3d, "K2_ccl3d", trainer_3d),
+        {"name": "K3_sw", "route": "cuda",
+         "source": "chap_tpu_torch/csrc/sliding_window.cu",
+         "replaces": "chap_tpu/eval/sliding_window.py:98",
+         "launches": trainer_3d["launches"]["test_all_case"],
+         "max_abs_err": max(r["max_abs_err"] for r in k3.values()),
+         "ms": la["device_ms"], "kernel_ms": la["kernel_ms"],
+         "host_us": la["host_us"], "plain_ms": la["plain_ms"],
+         "bound_ms": la["bound"][0], "bound_by": la["bound"][1],
          "library_ms": None},
-        {"name": "K1_bwd", "route": "triton",
-         "source": "chap_tpu_torch/ops/fused_losses.py",
-         "replaces": "chap_tpu/ops/fused_losses.py:159",
-         "launches": launches["K1_bwd"],
-         "trainer_launches": sum(r["K1_bwd"] for r in trainer["launches"].values()),
-         "max_abs_err": max(k1["bwd_max_abs_err"], k1_r1["bwd_max_abs_err"]),
-         "ms": k1["bwd"]["device_ms"], "kernel_ms": k1["bwd"]["kernel_ms"],
-         "host_us": k1["bwd"]["host_us"],
-         "plain_ms": k1["bwd_plain_ms"],
-         "bound_ms": k1["bwd_bound"][0], "bound_by": k1["bwd_bound"][1],
-         "library_ms": None},
-        {"name": "K2_ccl", "route": "cuda",
-         "source": "chap_tpu_torch/csrc/ccl.cu",
-         "replaces": "chap_tpu/semi/nms.py:118",
-         "launches": launches["K2_ccl"],
-         "trainer_launches": sum(r["K2_ccl"] for r in trainer["launches"].values()),
-         "max_abs_err": max(r["max_abs_err"] for r in k2.values()),
-         "ms": k2["clean"]["device_ms"], "kernel_ms": k2["clean"]["kernel_ms"],
-         "host_us": k2["clean"]["host_us"],
-         "plain_ms": k2["clean"]["plain_ms"],
-         "bound_ms": k2_bound[0], "bound_by": k2_bound[1], "library_ms": None},
     ]
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -351,3 +351,106 @@ def test_k1_gradient_with_labels_outside_classes(regions):
     for lab, w in regs:
         outside |= (lab >= 3) & (np.asarray(w) > 0)
     assert differs.any() and not (differs & ~outside).any()
+
+
+# ---------------------------------------------------------------------------
+# 5-D logits [B, C, X, Y, Z]: the 3D step's calls at small shapes
+# ---------------------------------------------------------------------------
+
+def _ncdhw(x):
+    """chap_tpu's channel-last [B, X, Y, Z, C] -> the port's [B, C, X, Y, Z]."""
+    return _t(np.moveaxis(x, -1, 1))
+
+
+@pytest.mark.parametrize("regions,shape", [(1, (2, 9, 8, 6)), (2, (1, 9, 8, 6)),
+                                           (2, (2, 7, 5, 3))])
+def test_k1_plain_5d_matches_chap_tpu(regions, shape):
+    """K1's plain version on 5-D logits, R = 1 (dice_ce_supervised on the
+    labeled half) and R = 2 (the 3D mix_loss's single call), 2 classes: the
+    losses and d/dlogits against chap_tpu's fused_masked_dice_ce on
+    channel-last logits, rtol 2e-3."""
+    rs = np.random.RandomState(30 + regions)
+    logits = (rs.randn(*shape, 2) * 2).astype(np.float32)
+    lab1 = rs.randint(0, 2, shape).astype(np.int32)
+    lab2 = rs.randint(0, 2, shape).astype(np.int32)
+    mask = (rs.rand(*shape) < 0.5).astype(np.float32)
+    weights = (1.0, 0.7, 0.5, 1.3)[:2 * regions]
+    regs = [(lab1, mask), (lab2, 1.0 - mask)][:regions]
+
+    def f(lg):
+        vals = jnp.stack([v for lab, w in regs
+                          for v in jax_fused(lg, jnp.asarray(lab), jnp.asarray(w))])
+        return jnp.sum(jnp.asarray(weights) * vals), vals
+
+    (_, want_vals), want_grad = jax.value_and_grad(f, has_aux=True)(
+        jnp.asarray(logits))
+    x = _ncdhw(logits).requires_grad_(True)
+    vals = fused_losses.region_dice_ce(x, _t(lab1), _t(mask),
+                                       _t(lab2) if regions == 2 else None)
+    sum(w * v for w, v in zip(weights, vals)).backward()
+    _close([v.item() for v in vals], want_vals)
+    _close(x.grad.numpy(), np.moveaxis(np.asarray(want_grad), -1, 1), atol=1e-7)
+
+
+def test_k1_wrapper_refuses_other_ranks():
+    """The kernels take [B, C, *spatial] with 1-3 spatial axes; anything
+    else is refused with the layout it needs, before any device check."""
+    with pytest.raises(ValueError, match=r"\[B, C, X, Y, Z\]"):
+        fused_losses.stats_kernel(torch.zeros(1, 2, 3, 3, 3, 3),
+                                  torch.zeros(1, 3, 3, 3, 3, dtype=torch.int32),
+                                  torch.zeros(1, 3, 3, 3, 3))
+    with pytest.raises(ValueError, match="must be"):
+        fused_losses.stats_kernel(torch.zeros(1, 2, 4, 4, 4),
+                                  torch.zeros(1, 4, 4, dtype=torch.int32),
+                                  torch.zeros(1, 4, 4))
+    assert fused_losses.stats_kernel.launches == 0
+
+
+@pytest.mark.parametrize("unlab", [False, True])
+def test_mix_loss_and_dice_ce_5d_match_chap_tpu(unlab):
+    """The 3D mix_loss (a cuboid BCP mask) and dice_ce_supervised on 5-D
+    logits, rtol 2e-3."""
+    from chap_tpu.losses.dice import dice_ce_supervised as jax_dice_ce
+    rs = np.random.RandomState(33)
+    logits = rs.randn(2, 10, 9, 8, 2).astype(np.float32)
+    img_l = rs.randint(0, 2, (2, 10, 9, 8)).astype(np.int32)
+    patch_l = rs.randint(0, 2, (2, 10, 9, 8)).astype(np.int32)
+    mask = np.ones((2, 10, 9, 8), np.int32)
+    mask[:, 2:8, 1:7, 2:6] = 0
+    want = jax_mix_loss(jnp.asarray(logits), jnp.asarray(img_l), jnp.asarray(patch_l),
+                        jnp.asarray(mask), 2, unlab=unlab)
+    got = mix_loss(_ncdhw(logits), _t(img_l), _t(patch_l), _t(mask), 2, unlab=unlab)
+    for g, w in zip(got, want):
+        _close(g.item(), w)
+    want = jax_dice_ce(jnp.asarray(logits), jnp.asarray(img_l), 2, fused=False)
+    _close(dice_ce_supervised(_ncdhw(logits), _t(img_l), 2).item(), want)
+
+
+@pytest.mark.parametrize("losstype", ["kl", "dice"])
+def test_vat_loss_5d_matches_chap_tpu(monkeypatch, losstype):
+    """VAT on [B, 1, X, Y, Z] volumes through a small two-headed function
+    (a tanh of the input and its neighbour along Y), the initial direction's
+    uniform fed to both, rtol 2e-3."""
+    rs = np.random.RandomState(34)
+    x = rs.rand(2, 8, 6, 5, 1).astype(np.float32)
+    soft1 = jax.nn.softmax(jnp.asarray(rs.randn(2, 8, 6, 5, 2).astype(np.float32)), -1)
+    soft2 = jax.nn.softmax(jnp.asarray(rs.randn(2, 8, 6, 5, 2).astype(np.float32)), -1)
+    mask = (rs.rand(2, 8, 6, 5) < 0.4).astype(np.float32)
+    u = rs.rand(2, 8, 6, 5, 1).astype(np.float32)
+
+    def jax_apply(xx):
+        h = jnp.tanh(2.0 * xx + 0.3 * jnp.roll(xx, 1, axis=2))
+        return (jnp.concatenate([h, 1.0 - h], -1),
+                jnp.concatenate([0.5 * h, -h], -1))
+
+    def port_apply(xx):
+        h = torch.tanh(2.0 * xx + 0.3 * torch.roll(xx, 1, dims=3))
+        return torch.cat([h, 1.0 - h], 1), torch.cat([0.5 * h, -h], 1)
+
+    monkeypatch.setattr(jax_vat, "jax", JaxFeed(RandomFeed([u])))
+    want = jax_vat_loss_2d(jax_apply, jnp.asarray(x), soft1, soft2, jnp.asarray(mask),
+                           jax.random.PRNGKey(0), losstype=losstype)
+    got = vat_loss_2d(port_apply, _ncdhw(x), _ncdhw(np.asarray(soft1)),
+                      _ncdhw(np.asarray(soft2)), _t(mask), d0=_ncdhw(u),
+                      losstype=losstype)
+    _close(got.item(), want)

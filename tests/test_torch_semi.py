@@ -188,3 +188,155 @@ def test_k2_plain_matches_chap_tpu_on_tile_cases(name):
         assert (got[0] == seg[0]).all()        # the snake is one component
     if name == "ties_across_tiles":
         assert got[0, 5, 5] == 1 and got[0, 40, 70] == 0 and got[0, 10, 60] == 2
+
+
+# ---------------------------------------------------------------------------
+# 3D: [B, X, Y, Z] maps, 26-connected (K2's 3D tiles are 4 x 8 x 16 voxels)
+# ---------------------------------------------------------------------------
+
+def _serpentine3d(nx, ny, nz):
+    """One component through every 4x8x16 tile: a 2D serpentine in each
+    even x plane, the planes joined at (y, z) = (0, 0)."""
+    m = np.zeros((nx, ny, nz), np.int32)
+    for x in range(0, nx, 2):
+        m[x] = _serpentine(ny, nz, 3)
+    m[:, 0, 0] = 1
+    return m
+
+
+def _diagonals(nx, ny, nz):
+    """Voxel chains that touch only at corners (x, y, z all step) or along
+    an edge (two of them step), across tile boundaries: the longest chain is
+    the main diagonal; chains that step back in y or z follow the other
+    backward neighbours; a 2-voxel chain joined only across a tile corner."""
+    m = np.zeros((nx, ny, nz), np.int32)
+    n = min(nx, ny, nz)
+    for t in range(n):
+        m[t, t, t] = 1                                   # corner steps
+    for t in range(n - 4):
+        m[t, ny - 1 - t, t + 2] = 1                      # y steps back
+        m[t + 1, t, nz - 1 - t] = 1                      # z steps back
+    for t in range(n - 6):
+        m[t + 3, t, 0] = 1                               # edge steps (x, y)
+        m[t, 0, t + 5] = 1                               # edge steps (x, z)
+    m[3, 7, 15] = m[4, 8, 16] = 2                        # only across a corner
+    m[7, 15, 3] = m[8, 16, 3] = 2                        # only across an edge
+    return m
+
+
+def _k2_case_3d(name):
+    rs = np.random.RandomState(21)
+    if name == "ragged_23x29x17":
+        return rs.randint(0, 3, (2, 23, 29, 17)), 3
+    if name == "serpentine":
+        return _serpentine3d(12, 24, 40)[None] * 2, 3
+    if name == "diagonals":
+        return _diagonals(20, 20, 20)[None], 3
+    if name == "ties_across_tiles":
+        seg = np.zeros((1, 12, 24, 40), np.int32)
+        for x, y, z in [(0, 0, 0), (5, 10, 20), (9, 17, 35), (2, 12, 33)]:
+            seg[0, x:x + 2, y:y + 2, z:z + 2] = 1      # equal cubes, four tiles
+        seg[0, 8:10, 2:4, 2:3] = 2
+        seg[0, 1:3, 20:22, 10:11] = 2
+        return seg, 3
+    if name == "percolating_c2":
+        return (rs.rand(2, 9, 17, 20) < 0.3).astype(np.int32), 2
+    if name == "all_foreground":
+        return np.full((2, 5, 9, 17), 2, np.int32), 3
+    return np.zeros((2, 5, 9, 17), np.int32), 2          # all background
+
+
+K2_3D_CASES = ["ragged_23x29x17", "serpentine", "diagonals",
+               "ties_across_tiles", "percolating_c2", "all_foreground",
+               "all_background"]
+
+
+@pytest.mark.parametrize("name", K2_3D_CASES)
+def test_k2_plain_3d_matches_chap_tpu(name):
+    """K2's 3D plain version (max_pool3d propagation) exactly equal to
+    chap_tpu's largest_cc_batch on [B, X, Y, Z] maps: ragged maps, a
+    serpentine through every tile, chains joined only through corners or
+    edge diagonals, ties across tiles, all foreground / background, C = 2
+    and 3."""
+    seg, c = _k2_case_3d(name)
+    seg = np.asarray(seg, np.int32)
+    want = np.asarray(jax_largest_cc_batch(jnp.asarray(seg), c))
+    got = nms.largest_cc_batch(torch.from_numpy(seg), c)
+    assert got.dtype == torch.int32 and got.shape == seg.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+    if name == "serpentine":
+        assert (got.numpy() == seg).all()               # one component
+    if name == "diagonals":
+        kept = got.numpy()[0]
+        n = 20
+        assert all(kept[t, t, t] == 1 for t in range(n))
+        assert kept[3, 7, 15] == kept[4, 8, 16] == 2     # a corner joins them
+    assert nms.ccl3d_kernel.launches == 0
+
+
+def test_k2_plain_3d_agrees_with_host_oracle():
+    """26-connectivity: the plain version keeps what scipy's 26-connected
+    labelling keeps, on maps without ties."""
+    rs = np.random.RandomState(22)
+    seg = np.zeros((2, 16, 16, 20), np.int32)
+    for b in range(2):
+        for k in range(3):
+            lo = rs.randint(0, 10, 3)
+            seg[b, lo[0]:lo[0] + 3 + k, lo[1]:lo[1] + 4, lo[2]:lo[2] + 2 + 2 * k] = 1
+        seg[b, 15, 15, 19] = 2
+    got = nms.largest_cc_batch(torch.from_numpy(seg), 3).numpy()
+    np.testing.assert_array_equal(got, nms._largest_cc_host(seg, 3))
+
+
+def test_k2_3d_dispatch_never_runs_the_plain_version_off_the_cpu(monkeypatch):
+    """A tensor that is not on the CPU goes to K2's 3D kernel wrapper, which
+    launches or raises; the plain version runs for CPU tensors only."""
+    def no_plain(*args):
+        raise AssertionError("the plain version ran for a non-CPU tensor")
+    monkeypatch.setattr(nms, "largest_cc_batch_plain", no_plain)
+    monkeypatch.setattr(nms, "largest_cc_mask_plain", no_plain)
+    meta = torch.zeros(2, 8, 8, 8, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        nms.largest_cc_batch(meta, 2)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        nms.largest_cc_mask(meta.bool())
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        nms.ccl3d_kernel(torch.zeros(1, 4, 4, 4, dtype=torch.int32), 2)
+    assert nms.ccl3d_kernel.launches == 0 and nms.ccl_kernel.launches == 0
+
+
+@pytest.mark.parametrize("shape,topk", [((2, 32, 32, 16), 0.1),
+                                        ((2, 30, 34, 18), 0.25),
+                                        ((3, 16, 16, 16), 0.5)])
+def test_create_mask_v1_3d_matches_chap_tpu(shape, topk):
+    """The 3D patch grid, with a remainder along every axis at 30x34x18:
+    exact (quarter-step scores make ties real)."""
+    rs = np.random.RandomState(1)
+    p1 = rs.randint(0, 2, shape)
+    p2 = rs.randint(0, 2, shape)
+    know = (rs.randint(0, 4, shape) / 4.0).astype(np.float32)
+    want = jax_create_mask_v1(jnp.asarray(p1), jnp.asarray(p2), jnp.asarray(know),
+                              scale_factor=4, topk=topk)
+    got = create_mask_v1(torch.from_numpy(p1), torch.from_numpy(p2),
+                         torch.from_numpy(know), scale_factor=4, topk=topk)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_vnet_level_paths_name_the_encoder_level_convs():
+    """VNET_LEVEL_PATHS are the port's module paths of chap_tpu's
+    VNET_LEVEL_PATHS: the last conv of each encoder scale, widths nf x (1, 2,
+    4, 8, 16)."""
+    from chap_tpu.semi.gradsim import VNET_LEVEL_PATHS as JAX_VNET_PATHS
+    from chap_tpu_torch.config import ModelConfig
+    from chap_tpu_torch.convert.from_jax import dualdecoder3d_rules
+    from chap_tpu_torch.models.factory import net_factory_3d
+    from chap_tpu_torch.semi.gradsim import VNET_LEVEL_PATHS
+    cfg = ModelConfig()
+    cfg.n_filters_3d = 2
+    params = dict(net_factory_3d("dualdecoder", 1, 2, "train", cfg,
+                                 device="cpu").named_parameters())
+    flax_of = {f"{tp}.weight": fp for tp, _, fp in dualdecoder3d_rules()}
+    for path, jax_path, width in zip(VNET_LEVEL_PATHS, JAX_VNET_PATHS,
+                                     (2, 4, 8, 16, 32)):
+        assert params[path].shape[0] == width
+        assert flax_of[path] == "/".join(jax_path)
