@@ -12,11 +12,15 @@ On a CUDA tensor this runs kernel K2, union-find labelling written in CUDA
 C++ (csrc/ccl.cu, which says what bounds it and how its design meets that):
 one labelling per map with same-class adjacency, tile-local union-find in
 shared memory, with no host synchronisation; 2D and 3D maps have entry
-points of their own. On a CPU tensor it runs K2's plain version: chap_tpu's
-algorithm in PyTorch (3^d max-pool propagation inside the mask, with
-pointer jumps, until fixpoint; then the modal label with the same tie
-rule). ``ccl_kernel.launches`` and ``ccl3d_kernel.launches`` count the 2D
-and the 3D launches.
+points of their own. In 3D (8x16x16 tiles) the tiles merge through one
+global union per distinct pair of touching tile-local components, found
+on each tile's low faces and deduplicated in shared memory, and the later
+passes walk per-tile lists of tile-local roots (a scratch array the
+wrapper allocates) instead of every voxel. On a CPU tensor it runs K2's
+plain version: chap_tpu's algorithm in PyTorch (3^d max-pool propagation
+inside the mask, with pointer jumps, until fixpoint; then the modal label
+with the same tie rule). ``ccl_kernel.launches`` and
+``ccl3d_kernel.launches`` count the 2D and the 3D launches.
 """
 from __future__ import annotations
 
@@ -120,20 +124,27 @@ def largest_cc_batch_plain(segmentation: torch.Tensor, num_classes: int
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    lib = cuda_build.load(_SOURCE)
+    return bind(cuda_build.load(_SOURCE))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entry points' arguments on a loaded build of ccl.cu."""
     fn = lib.chap_largest_cc
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     fn3 = lib.chap_largest_cc_3d
-    fn3.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn3.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn3.restype = ctypes.c_int
+    lib.chap_largest_cc_3d_scratch.argtypes = [ctypes.c_int] * 4
+    lib.chap_largest_cc_3d_scratch.restype = ctypes.c_int
     return lib
 
 
 def _launch_k2(entry: str, segmentation: torch.Tensor, num_classes: int,
-               rank: int) -> torch.Tensor:
+               rank: int, lib: ctypes.CDLL = None) -> torch.Tensor:
     """Check, allocate the outputs and scratch, and launch one K2 entry
-    point on [B, *spatial] maps of ``rank`` spatial axes."""
+    point on [B, *spatial] maps of ``rank`` spatial axes (from ``lib``, a
+    bound build of ccl.cu, by default the repository's)."""
     if not segmentation.is_cuda:
         raise ValueError("K2 takes CUDA tensors only")
     if segmentation.dim() != rank + 1 or segmentation.dtype.is_floating_point:
@@ -147,16 +158,24 @@ def _launch_k2(entry: str, segmentation: torch.Tensor, num_classes: int,
     if total >= 1 << 31 or b > 65535:
         raise ValueError("K2 indexes pixels with int32 and maps with a grid "
                          "dimension (at most 65535)")
+    lib = lib or _library()
     seg = segmentation.to(torch.int32).contiguous()
     out = torch.empty_like(seg)
     parent = torch.empty(total, dtype=torch.int32, device=seg.device)
     size = torch.empty(total, dtype=torch.int32, device=seg.device)
     slot = torch.empty(b * (num_classes - 1), dtype=torch.int64,
                        device=seg.device)
+    ptrs = [seg.data_ptr(), out.data_ptr(), parent.data_ptr(),
+            size.data_ptr(), slot.data_ptr()]
+    if rank == 3:
+        # the 3D entry's lists of tile-local roots, one per tile
+        n = lib.chap_largest_cc_3d_scratch(*seg.shape)
+        if n < 0:
+            raise ValueError(f"maps {tuple(seg.shape)} too large for K2 in 3D")
+        tiles = torch.empty(n, dtype=torch.int32, device=seg.device)
+        ptrs.append(tiles.data_ptr())
     stream = torch.cuda.current_stream(seg.device).cuda_stream
-    err = getattr(_library(), entry)(
-        seg.data_ptr(), out.data_ptr(), parent.data_ptr(), size.data_ptr(),
-        slot.data_ptr(), *seg.shape, num_classes, stream)
+    err = getattr(lib, entry)(*ptrs, *seg.shape, num_classes, stream)
     if err != 0:
         raise RuntimeError(f"K2 launch failed: cudaError {err}")
     return out

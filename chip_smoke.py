@@ -56,20 +56,30 @@ Phases (any failure raises and the script exits non-zero):
                step. Prints the ``trainer`` line (pool build s, steps/s
                between evals per path beside phase 6's bare step, eval s,
                checkpoint ms, val dice, peak memory)
-  9. K2 3D     the 26-connected entry point exactly equal to its plain
-               version (max_pool3d propagation) on ragged 23x29x17 maps, 3D
-               serpentines through every 4x8x16 tile, chains joined only
-               through tile corners or edge diagonals, ties across tiles,
-               all foreground / background, C = 2 and 3, labels outside
-               [0, C); then on the 3D step's 4 maps of 112x112x80 in three
-               regimes (clean ellipsoids, speckled, percolating 30% fill),
-               timed as K1
- 10. K3        the sliding-window accumulate against its plain version over
-               whole patch grids: the LA eval's batches of 16 patches of
-               112x112x80 in a 160x160x96 volume, and a ragged 16x16x8 patch
-               in a 40x36x20 volume at C = 3; score within 1e-6 relative,
-               counts equal, label maps equal (near-ties within 1e-5
-               counted), two runs bit-identical; one LA batch timed
+  9. K2 3D     the 26-connected entry point (8x16x16 tiles labelled in
+               shared memory in hooking rounds, one global union per
+               distinct pair of touching tile-local components, per-tile
+               lists of their representatives) exactly equal to
+               its plain version (max_pool3d propagation), and deterministic,
+               on ragged maps (against the old 4x8x16 and the 8x16x16 tile
+               in every axis), serpentines through every tile, chains and
+               pairs joined only through tile corners or edges, two combs
+               interleaved across a tile face that must stay two
+               components, ties across tiles, all foreground / background,
+               C = 2 and 3 (percolating too), labels outside [0, C); then on
+               the 3D step's 4 maps of 112x112x80 in three regimes (clean
+               ellipsoids, speckled, percolating 30% fill), timed as K1,
+               with each sub-kernel's time
+ 10. K3        the sliding-window accumulate (4 z-voxels a thread, 16-byte
+               loads where pz and a patch's z-start are multiples of 4)
+               against its plain version over whole patch grids: the LA
+               eval's batches of 16 patches of 112x112x80 in a 160x160x96
+               volume, a ragged 16x16x8 patch in a 40x36x20 volume at C = 3
+               (z-stride 6), a 16x16x8 patch at z-stride 4 (16-byte path)
+               and a 16x16x10 patch at z-stride 3 (scalar path); score
+               within 1e-6 relative, counts equal, label maps equal
+               (near-ties within 1e-5 counted), two runs bit-identical; one
+               LA batch timed
  11. parity 3D one 3D CHAP step on the card and on the CPU from the same
                weights and draws (nf 4, patch 32x32x16, batch 4, TF32 off):
                the 7 metrics at rtol 2e-3, launches 4 / 12 / 1 (K2 3D);
@@ -108,11 +118,18 @@ Two diagnostics run only by hand, each from the repository root:
 the first is phase 6 alone (``c.phase_slice_3d()`` is phase 12 alone); the
 second prints a ``loop`` line, the ms per
 full-width step on phantom and on device-pool batches with a sync after
-every step and after 5, and the batch function's own device ms.
+every step and after 5, and the batch function's own device ms. A third,
+
+    python3 -c "import chip_smoke as c; c.k2_3d_variants()"
+
+rebuilds csrc/ccl.cu with the alternatives to its 3D design (other tiles,
+1024 threads a tile, no path halving, pruned hooks) and times each against
+the kept design (``k2_3d_variant`` lines).
 """
 from __future__ import annotations
 
 import concurrent.futures
+import ctypes
 import json
 import math
 import os
@@ -267,6 +284,12 @@ def kernel_counts(fn, n: int) -> dict:
     return counts
 
 
+def short_name(kernel: str) -> str:
+    """A device kernel's name without its namespace, return type and
+    arguments: ``sw_accumulate<2>``, ``ccl3_local``."""
+    return re.sub(r"^(void )?\(anonymous namespace\)::|\(.*$", "", kernel)
+
+
 def timings(fn, n: int = 100) -> dict:
     """device_ms: events around n back-to-back calls (bounded below by the
     host's enqueue when that is slower); kernel_ms: the kernels' own device
@@ -275,7 +298,7 @@ def timings(fn, n: int = 100) -> dict:
     kernels = device_kernels(fn, 20)
     by_kernel = {}
     for name, us in kernels:
-        name = re.sub(r"^\(anonymous namespace\)::|\(.*$", "", name)
+        name = short_name(name)
         by_kernel[name] = by_kernel.get(name, 0.0) + us / 20 / 1e3
     return {"device_ms": device_ms(fn, n), "host_us": host_us(fn, n),
             "kernel_ms": sum(by_kernel.values()), "kernel_ms_by_name": by_kernel,
@@ -295,8 +318,10 @@ def ptxas_summary(log: str) -> list:
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
-            short = re.search(r"\d+((?:ccl3?|sw)_[a-z_]+)", entry.group(1))
-            name = short.group(1) if short else entry.group(1)
+            short = re.search(r"\d+((?:ccl3?|sw)_[a-z_]+)(ILi(\d+)E)?",
+                              entry.group(1))
+            name = entry.group(1) if not short else (
+                short.group(1) + (f"<{short.group(3)}>" if short.group(3) else ""))
         elif name and "Used" in line:
             out.append((name, line.split(":", 1)[-1].strip()))
             name = None
@@ -643,7 +668,7 @@ def _kernel_class(name: str) -> str:
         return "K1_fwd"
     if n.startswith("stats_grad"):
         return "K1_bwd"
-    if "ccl3_" in n or "select_flat" in n:
+    if "ccl3_" in n:
         return "K2_ccl3d"
     if "ccl_" in n:
         return "K2_ccl"
@@ -864,8 +889,9 @@ def la_config():
 
 
 def serpentine3d(nx, ny, nz):
-    """One component through every 4x8x16 tile of K2 in 3D: a 2D serpentine
-    in each even x plane, the planes joined at (y, z) = (0, 0)."""
+    """One component through every 8x16x16 tile of K2 in 3D (and every
+    4x8x16 tile of its first version): a 2D serpentine in each even x
+    plane, the planes joined at (y, z) = (0, 0)."""
     m = np.zeros((nx, ny, nz), np.int32)
     for x in range(0, nx, 2):
         m[x] = serpentine(ny, nz)
@@ -918,6 +944,56 @@ def k2_regime_3d(name: str, rs: np.random.RandomState, b=4, shape=LA_PATCH):
     return (rs.rand(b, *shape) < 0.3).astype(np.int32)
 
 
+TILE_3D = (8, 16, 16)      # K2's 3D tile (ccl.cu's kTX, kTY, kTZ)
+
+
+def tile_contacts3d(tile=TILE_3D):
+    """[7, 3 tx, 2.5 ty, 2.5 tz] maps whose components join only where two
+    voxels meet across a tile corner or a tile edge, in each direction a
+    cross-tile contact can take: map 0 a chain of corner steps through a
+    corner of eight tiles; maps 1-6 a pair joined only across one tile edge
+    (both voxels step across both boundaries, or one forward and one
+    backward), beside a lone voxel with the smallest label, which a pair
+    left apart would tie with and lose to."""
+    tx, ty, tz = tile
+    m = np.zeros((7, 3 * tx, ty * 5 // 2, tz * 5 // 2), np.int32)
+    for t in range(3 * tx):
+        m[0, t, t + ty - tx, t + tz - tx] = 1
+    pairs = [((tx - 1, ty - 1, 5), (tx, ty, 5)), ((tx - 1, 3, tz - 1), (tx, 3, tz)),
+             ((3, ty - 1, tz - 1), (3, ty, tz)), ((tx - 1, ty, 5), (tx, ty - 1, 5)),
+             ((tx - 1, 5, tz), (tx, 5, tz - 1)), ((3, ty - 1, tz), (3, ty, tz - 1))]
+    for i, (a, b) in enumerate(pairs, start=1):
+        m[(i,) + a] = m[(i,) + b] = m[i, 0, 0, 0] = 1
+    return m
+
+
+def combs3d(axis, tile=TILE_3D, n=32):
+    """A 32^3 map with two class-1 combs whose teeth interleave (two voxels
+    apart) across the face between two tiles along ``axis``, each tile
+    holding pieces of both: the larger comb (B, spine above the face) alone
+    is kept. A wrong pair of tile-local roots merges them; a missed one cuts
+    teeth off B."""
+    t = tile[axis]
+    m = np.zeros((n, n, n), np.int32)
+    b_ax, w_ax = [d for d in range(3) if d != axis]
+
+    def put(a, b):
+        idx = [0, 0, 0]
+        idx[axis], idx[b_ax], idx[w_ax] = a, b, 4
+        m[tuple(idx)] = 1
+    for b in range(0, n, 4):
+        for a in range(t - 6, t + 4):
+            put(a, b)
+        for a in range(t - 4, t + 6):
+            put(a, b + 2)
+    for b in range(0, n - 3):
+        put(t - 6, b)
+    for b in range(2, n - 1):
+        put(t + 5, b)
+        put(t + 6, b)
+    return m
+
+
 def k2_adversarial_3d(rs: np.random.RandomState) -> dict:
     """name -> (segmentation [B, X, Y, Z] int32, num_classes)."""
     ties = np.zeros((1, 12, 24, 40), np.int32)
@@ -927,6 +1003,7 @@ def k2_adversarial_3d(rs: np.random.RandomState) -> dict:
     ties[0, 1:3, 20:22, 10:11] = 2
     snakes = np.stack([serpentine3d(24, 56, 80), serpentine3d(24, 56, 80) * 2])
     u = rs.rand(2, 20, 24, 33)
+    u2, u3 = rs.rand(2, 11, 35, 50), rs.rand(2, 17, 33, 35)
     return {
         "ragged_2x23x29x17": (rs.randint(0, 3, (2, 23, 29, 17)), 3),
         "serpentine_2x24x56x80": (snakes, 3),
@@ -938,6 +1015,11 @@ def k2_adversarial_3d(rs: np.random.RandomState) -> dict:
         "c2_percolating_3x33x40x50": ((rs.rand(3, 33, 40, 50) < 0.3), 2),
         "c3_percolating": (np.select([u < 0.3, u < 0.6], [1, 2], 0), 3),
         "labels_out_of_range": (rs.randint(-1, 5, (2, 20, 24, 33)), 3),
+        "ragged_2x11x35x50": (np.select([u2 < 0.15, u2 < 0.3], [1, 2], 0), 3),
+        "serpentine_16x48x64": (serpentine3d(16, 48, 64)[None], 2),
+        "tile_contacts_7x24x40x40": (tile_contacts3d(), 2),
+        "interleaved_combs_3x32x32x32": (np.stack([combs3d(a) for a in range(3)]), 2),
+        "c3_percolating_2x17x33x35": (np.select([u3 < 0.3, u3 < 0.6], [1, 2], 0), 3),
     }
 
 
@@ -949,9 +1031,10 @@ def phase_k2_3d():
         torch.cuda.synchronize()
         check(torch.equal(k, nms.largest_cc_batch_plain(seg, c)),
               f"K2 3D equals its plain version ({name})")
+        check(torch.equal(k, nms.ccl3d_kernel(seg, c)), f"K2 3D deterministic ({name})")
         names.append(name)
-    print("K2 3D adversarial cases equal to the plain version:", ", ".join(names),
-          flush=True)
+    print("K2 3D adversarial cases equal to the plain version and deterministic:",
+          ", ".join(names), flush=True)
     out = {}
     for i, regime in enumerate(("speckled", "clean", "percolating")):
         seg = torch.from_numpy(k2_regime_3d(regime, np.random.RandomState(200 + i))
@@ -972,16 +1055,105 @@ def phase_k2_3d():
     return out
 
 
+# ccl.cu's 3D design against its alternatives, as text substitutions in a
+# copy of the source: other tiles; ccl3_local's flatten without path
+# halving; ccl3_local hooking only the backward neighbours that no other
+# hooked one is adjacent to (x-1 alone covers the other 12), which keeps
+# the same components; registers capped for 2 blocks of 512 threads an SM
+# in place of 4; and 1024 threads a tile (2 voxels each)
+_PRUNE = """__device__ __forceinline__ int prune(int same) {
+  int keep = 0, covered = 0;
+#pragma unroll
+  for (int i = 0; i < 13; ++i) {
+    const int k = i == 0 ? 4 : i == 1 ? 10 : i == 2 ? 12 : i < 7 ? i - 3 : i < 12 ? i - 2 : 11;
+    if (!(same >> k & 1) || (covered >> k & 1)) continue;
+    keep |= 1 << k;
+#pragma unroll
+    for (int j = 0; j < 13; ++j) {
+      const int ex = nb_dx(j) - nb_dx(k), ey = nb_dy(j) - nb_dy(k), ez = nb_dz(j) - nb_dz(k);
+      if (j != k && ex * ex <= 1 && ey * ey <= 1 && ez * ez <= 1) covered |= 1 << j;
+    }
+  }
+  return keep;
+}
+
+"""
+_LOCAL = "// grid n_tiles, block kLocalThreads. Thread t holds"
+_PRUNED = {"    same[j] = m;": "    same[j] = prune(m);", _LOCAL: _PRUNE + _LOCAL}
+K2_3D_VARIANTS = {
+    "8x16x16": {},
+    "4x8x16": {"kTX = 8, kTY = 16, kTZ = 16;": "kTX = 4, kTY = 8, kTZ = 16;"},
+    "4x16x16": {"kTX = 8, kTY = 16, kTZ = 16;": "kTX = 4, kTY = 16, kTZ = 16;"},
+    "no_halving": {"        lab[x] = gp;": "        (void)0;"},
+    "pruned": _PRUNED,
+    "2_blocks_an_sm": {"kLocalBlocksPerSM = 4;": "kLocalBlocksPerSM = 2;"},
+    "1024_threads": {"kLocalThreads = 512;": "kLocalThreads = 1024;",
+                     "kLocalBlocksPerSM = 4;": "kLocalBlocksPerSM = 2;"},
+}
+
+
+def k2_3d_variants(rounds: int = 2) -> list:
+    """By hand: each K2_3D_VARIANTS build of ccl.cu (one nvcc each, started
+    together, into build/kernels/variants/) exactly equal to the plain
+    version, then its profiler kernel ms by sub-kernel in the three regimes
+    at 4 x 112x112x80, the variants in turns over ``rounds``. Launches here
+    count nowhere."""
+    text = (cuda_build.CSRC / "ccl.cu").read_text()
+    out_dir = cuda_build.BUILD_DIR / "variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+
+    def build(tag):
+        src = text
+        for a, b in K2_3D_VARIANTS[tag].items():
+            check(src.count(a) == 1, f"variant {tag}: '{a}' once in ccl.cu")
+            src = src.replace(a, b)
+        cu, so = out_dir / f"ccl_{tag}.cu", out_dir / f"libccl_{tag}.so"
+        cu.write_text(src)
+        built = subprocess.run([cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, "-o",
+                                str(so), str(cu)], check=True, capture_output=True,
+                               text=True)
+        for kernel, use in ptxas_summary(built.stdout + built.stderr):
+            if kernel == "ccl3_local":
+                print("ptxas", tag, kernel, use, flush=True)
+        return nms.bind(ctypes.CDLL(str(so)))
+    with concurrent.futures.ThreadPoolExecutor(len(K2_3D_VARIANTS)) as pool:
+        libs = dict(zip(K2_3D_VARIANTS, pool.map(build, K2_3D_VARIANTS)))
+    out = []
+    for i, regime in enumerate(("speckled", "clean", "percolating")):
+        seg = torch.from_numpy(k2_regime_3d(regime, np.random.RandomState(200 + i))
+                               ).to(device="cuda", dtype=torch.int32)
+        plain = nms.largest_cc_batch_plain(seg, 2)
+        for r in range(rounds):
+            for tag, lib in libs.items():
+                def run():
+                    return nms._launch_k2("chap_largest_cc_3d", seg, 2, 3, lib=lib)
+                check(torch.equal(run(), plain), f"K2 3D variant {tag} exact ({regime})")
+                by_name = {}
+                for name, us in device_kernels(run, 20):
+                    name = short_name(name)
+                    by_name[name] = by_name.get(name, 0.0) + us / 20 / 1e3
+                res = {"variant": tag, "regime": regime, "round": r,
+                       "kernel_ms": sum(by_name.values()), "kernel_ms_by_name": by_name}
+                print("k2_3d_variant", json.dumps(res), flush=True)
+                out.append(res)
+    return out
+
+
 def phase_k3() -> dict:
     """K3 against its plain version over a whole patch grid: the LA eval's
-    batches of 16 patches of 112x112x80 in a 160x160x96 volume (80 patches),
-    and a ragged 16x16x8 patch in a 40x36x20 volume at C = 3 in batches of 5.
-    Score and count within 1e-6 of the plain version's, label maps equal
-    (voxels whose two best classes tie within 1e-5 are counted, not held),
-    two runs bit-identical; one LA batch timed."""
+    batches of 16 patches of 112x112x80 in a 160x160x96 volume (80 patches;
+    pz and every z-start multiples of 4: the 16-byte path), a ragged 16x16x8
+    patch in a 40x36x20 volume at C = 3 in batches of 5 (z-stride 6: both
+    paths in one batch), a 16x16x8 patch at z-stride 4 (16-byte path) and a
+    16x16x10 patch at z-stride 3 (scalar path). Score and count within 1e-6
+    of the plain version's, label maps equal (voxels whose two best classes
+    tie within 1e-5 are counted, not held), two runs bit-identical; one LA
+    batch timed."""
     gen = torch.Generator(device="cuda").manual_seed(11)
     cases = {"la_160x160x96": ((160, 160, 96), LA_PATCH, 18, 4, 16, 2),
-             "ragged_40x36x20": ((40, 36, 20), (16, 16, 8), 12, 6, 5, 3)}
+             "ragged_40x36x20": ((40, 36, 20), (16, 16, 8), 12, 6, 5, 3),
+             "z4_40x36x24": ((40, 36, 24), (16, 16, 8), 12, 4, 6, 2),
+             "pz10_z3_40x36x20": ((40, 36, 20), (16, 16, 10), 12, 3, 6, 3)}
     out = {}
     for name, (shape, patch, sxy, sz, bs, c) in cases.items():
         starts = sw.compute_grid(shape, patch, sxy, sz)

@@ -126,15 +126,26 @@ def _direct_accumulate(l1, l2, starts, score, cnt):
         cnt[sl] += 1
 
 
-@pytest.mark.parametrize("num_classes", [2, 3])
-def test_k3_plain_matches_a_direct_loop(num_classes):
+# (volume, patch, stride_xy, stride_z): K3 reads 16-byte runs where pz and
+# a patch's z-start are multiples of 4, and voxel by voxel elsewhere
+K3_GEOMETRIES = {"z6": ((40, 36, 20), (16, 16, 8), 12, 6),
+                 "z4_aligned": ((40, 36, 24), (16, 16, 8), 12, 4),
+                 "pz10_z3": ((40, 36, 20), (16, 16, 10), 12, 3)}
+
+
+@pytest.mark.parametrize("num_classes,geometry", [(2, "z6"), (3, "z6"),
+                                                  (2, "z4_aligned"),
+                                                  (3, "pz10_z3")],
+                         ids=["2", "3", "z4_aligned", "pz10_z3"])
+def test_k3_plain_matches_a_direct_loop(num_classes, geometry):
     """K3's plain version on one batch of overlapping patches whose box does
     not start at the origin, into maps that already hold earlier batches:
     score and count within 1e-6 relative of a float64 loop, and bit-identical
-    on repeat."""
+    on repeat. Geometries: z-starts at stride 6, pz and every z-start a
+    multiple of 4 (the kernel's 16-byte loads), pz 10 at z-stride 3."""
     rs = np.random.RandomState(6)
-    shape, patch = (40, 36, 20), (16, 16, 8)
-    starts = sw.compute_grid(shape, patch, 12, 6)[5:13]
+    shape, patch, sxy, sz = K3_GEOMETRIES[geometry]
+    starts = sw.compute_grid(shape, patch, sxy, sz)[5:13]
     l1, l2 = (rs.randn(8, num_classes, *patch).astype(np.float32) * 3 for _ in range(2))
     base_s = rs.rand(num_classes, *shape).astype(np.float32)
     base_c = rs.randint(0, 3, shape).astype(np.float32)

@@ -191,12 +191,14 @@ def test_k2_plain_matches_chap_tpu_on_tile_cases(name):
 
 
 # ---------------------------------------------------------------------------
-# 3D: [B, X, Y, Z] maps, 26-connected (K2's 3D tiles are 4 x 8 x 16 voxels)
+# 3D: [B, X, Y, Z] maps, 26-connected (K2's 3D tiles are 8 x 16 x 16 voxels,
+# 4 x 8 x 16 in its first version)
 # ---------------------------------------------------------------------------
 
 def _serpentine3d(nx, ny, nz):
-    """One component through every 4x8x16 tile: a 2D serpentine in each
-    even x plane, the planes joined at (y, z) = (0, 0)."""
+    """One component through every 4x8x16 tile (K2 3D's first version; at
+    16x40x48, through every 8x16x16 tile): a 2D serpentine in each even x
+    plane, the planes joined at (y, z) = (0, 0)."""
     m = np.zeros((nx, ny, nz), np.int32)
     for x in range(0, nx, 2):
         m[x] = _serpentine(ny, nz, 3)
@@ -224,10 +226,76 @@ def _diagonals(nx, ny, nz):
     return m
 
 
+TILE_3D = (8, 16, 16)      # K2's 3D tile since it was redesigned
+
+
+def _tile_contacts(tile=TILE_3D):
+    """[7, 3 tx, 2.5 ty, 2.5 tz] maps whose components join only where two
+    voxels meet across a tile corner or a tile edge, in each direction a
+    cross-tile contact can take. Map 0: a class-1 chain of corner steps
+    through a corner of eight tiles. Maps 1-6: a class-1 pair joined only
+    across one tile edge (both voxels step across both boundaries, or one
+    forward and one backward), beside a lone voxel with the smallest label:
+    a pair left apart would tie with it and lose."""
+    tx, ty, tz = tile
+    m = np.zeros((7, 3 * tx, ty * 5 // 2, tz * 5 // 2), np.int32)
+    for t in range(3 * tx):
+        m[0, t, t + ty - tx, t + tz - tx] = 1            # (tx-1, ty-1, tz-1) -> +1
+    pairs = [((tx - 1, ty - 1, 5), (tx, ty, 5)),          # x and y forward
+             ((tx - 1, 3, tz - 1), (tx, 3, tz)),          # x and z forward
+             ((3, ty - 1, tz - 1), (3, ty, tz)),          # y and z forward
+             ((tx - 1, ty, 5), (tx, ty - 1, 5)),          # x forward, y back
+             ((tx - 1, 5, tz), (tx, 5, tz - 1)),          # x forward, z back
+             ((3, ty - 1, tz), (3, ty, tz - 1))]          # y forward, z back
+    for i, (a, b) in enumerate(pairs, start=1):
+        m[(i,) + a] = m[(i,) + b] = m[i, 0, 0, 0] = 1
+    return m
+
+
+def _combs(axis, tile=TILE_3D, n=32):
+    """A 32^3 map with two class-1 combs whose teeth interleave (two voxels
+    apart) across the face between two tiles along ``axis``: comb A has its
+    spine below the face, comb B above it, so each crosses the face through
+    8 teeth and each tile holds pieces of both. B is larger and alone is
+    kept: pairing tile-local roots wrongly would merge the two, and a
+    missed pair would cut teeth off B."""
+    t = tile[axis]
+    m = np.zeros((n, n, n), np.int32)
+    b_ax, w_ax = [d for d in range(3) if d != axis]
+
+    def put(a, b):
+        idx = [0, 0, 0]
+        idx[axis], idx[b_ax], idx[w_ax] = a, b, 4
+        m[tuple(idx)] = 1
+    for b in range(0, n, 4):
+        for a in range(t - 6, t + 4):
+            put(a, b)                                    # A's teeth
+        for a in range(t - 4, t + 6):
+            put(a, b + 2)                                # B's teeth
+    for b in range(0, n - 3):
+        put(t - 6, b)                                    # A's spine
+    for b in range(2, n - 1):
+        put(t + 5, b)                                    # B's spine, two thick
+        put(t + 6, b)
+    return m
+
+
 def _k2_case_3d(name):
     rs = np.random.RandomState(21)
     if name == "ragged_23x29x17":
         return rs.randint(0, 3, (2, 23, 29, 17)), 3
+    if name == "ragged_11x35x50":
+        u = rs.rand(2, 11, 35, 50)
+        return np.select([u < 0.15, u < 0.3], [1, 2], 0), 3
+    if name == "serpentine_8x16x16":
+        return _serpentine3d(16, 40, 48)[None], 2
+    if name == "tile_contacts":
+        return _tile_contacts(), 2
+    if name == "interleaved_combs":
+        return np.stack([_combs(a) for a in range(3)]), 2
+    if name == "percolating_c3":
+        u = rs.rand(2, 17, 33, 35)
+        return np.select([u < 0.3, u < 0.6], [1, 2], 0), 3
     if name == "serpentine":
         return _serpentine3d(12, 24, 40)[None] * 2, 3
     if name == "diagonals":
@@ -248,16 +316,20 @@ def _k2_case_3d(name):
 
 K2_3D_CASES = ["ragged_23x29x17", "serpentine", "diagonals",
                "ties_across_tiles", "percolating_c2", "all_foreground",
-               "all_background"]
+               "all_background", "ragged_11x35x50", "serpentine_8x16x16",
+               "tile_contacts", "interleaved_combs", "percolating_c3"]
 
 
 @pytest.mark.parametrize("name", K2_3D_CASES)
 def test_k2_plain_3d_matches_chap_tpu(name):
     """K2's 3D plain version (max_pool3d propagation) exactly equal to
-    chap_tpu's largest_cc_batch on [B, X, Y, Z] maps: ragged maps, a
-    serpentine through every tile, chains joined only through corners or
-    edge diagonals, ties across tiles, all foreground / background, C = 2
-    and 3."""
+    chap_tpu's largest_cc_batch on [B, X, Y, Z] maps: ragged maps (against
+    the 4x8x16 and the 8x16x16 tile in every axis), serpentines through
+    every tile, chains joined only through corners or edge diagonals,
+    pairs joined only across an 8x16x16 tile's corner or edge, two combs
+    interleaved across a tile face that must stay two components, ties
+    across tiles, all foreground / background, percolating at C = 2 and
+    3."""
     seg, c = _k2_case_3d(name)
     seg = np.asarray(seg, np.int32)
     want = np.asarray(jax_largest_cc_batch(jnp.asarray(seg), c))
@@ -271,6 +343,15 @@ def test_k2_plain_3d_matches_chap_tpu(name):
         n = 20
         assert all(kept[t, t, t] == 1 for t in range(n))
         assert kept[3, 7, 15] == kept[4, 8, 16] == 2     # a corner joins them
+    if name == "serpentine_8x16x16":
+        assert (got.numpy() == seg).all()               # one component
+    if name == "tile_contacts":
+        want_kept = seg.copy()
+        want_kept[1:, 0, 0, 0] = 0                      # the lone voxels lose
+        np.testing.assert_array_equal(got.numpy(), want_kept)
+    if name == "interleaved_combs":
+        kept = got.numpy()
+        assert all(kept[i].sum() == 130 for i in range(3))   # comb B alone
     assert nms.ccl3d_kernel.launches == 0
 
 
