@@ -159,9 +159,10 @@ def state_dict_from_flax(params: Mapping[str, Any], batch_stats: Mapping[str, An
                          normalization: str = "batchnorm"
                          ) -> Dict[str, torch.Tensor]:
     """Flax variables (numpy trees) -> the port's state_dict. ``family``:
-    ``dualdecoder`` (2D, with ``decoder_type``), ``vnet`` or
-    ``dualdecoder3d`` (with ``normalization``)."""
-    if family == "dualdecoder":
+    ``dualdecoder`` or ``acalnet`` (2D, the same model, with
+    ``decoder_type``), ``vnet`` or ``dualdecoder3d`` (with
+    ``normalization``)."""
+    if family in ("dualdecoder", "acalnet"):
         rules = dualdecoder_rules(decoder_type)
     elif family == "vnet":
         rules = vnet_rules(normalization)

@@ -1,6 +1,6 @@
 """Model factories (port of chap_tpu/models/factory.py): ``net_factory``
-with the 2D ``dualdecoder`` key and ``net_factory_3d`` with ``vnet`` and
-``dualdecoder``; the rest of the zoo comes in later slices."""
+with the 2D ``dualdecoder`` and ``acalnet`` keys and ``net_factory_3d`` with
+``vnet`` and ``dualdecoder``; the rest of the zoo comes in later slices."""
 from __future__ import annotations
 
 import logging
@@ -36,12 +36,15 @@ def net_factory(net_type: str, in_chns: int, class_num: int,
     cfg = cfg or ModelConfig()
     _check_dtype(cfg)
     dev = resolve_device(device)
-    if net_type == "dualdecoder":
+    if net_type in ("dualdecoder", "acalnet"):
+        # acalnet: the ACAL trainer's shared-encoder model, the same
+        # DualDecoder (chap_tpu/models/factory.py:43-44)
         model = DualDecoder(in_chns, class_num, cfg.decoder_type,
                             tuple(cfg.feature_chns), tuple(cfg.dropout))
         return model.to(dev)
-    raise ValueError(f"2D net_type {net_type!r} is not ported yet "
-                     f"(available: dualdecoder)")
+    raise ValueError(f"2D net_type {net_type!r} is not ported yet (available: "
+                     f"dualdecoder, acalnet); the rest of the 2D zoo is "
+                     f"ROADMAP item 18")
 
 
 def net_factory_3d(net_type: str, in_chns: int, class_num: int,

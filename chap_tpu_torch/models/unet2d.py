@@ -108,17 +108,31 @@ class DualDecoder(nn.Module):
                 scores: Optional[Sequence[Optional[torch.Tensor]]] = None,
                 comp_dropout: bool = False,
                 perturb_draws=None,
+                stop_encoder_grad: bool = False,
                 stats: Optional[Stats] = None):
         """x: [B, Cin, H, W]. Train mode (``model.train()``) normalises with
         batch statistics and writes them into ``stats`` (layers.FlaxBatchNorm).
+        ``stop_encoder_grad`` detaches every pyramid level before the
+        decoders (the ACAL decoder max-step); the encoder still runs as
+        asked, its dropout draws and batch statistics included.
         Returns (logits1, logits2)."""
-        feature = self.encoder(x, drop_u, stats)
+        feature = self.forward_encoder(x, drop_u, stats)
+        if stop_encoder_grad:
+            feature = [f.detach() for f in feature]
         if dropout_level is not None:
             f1, f2 = perform_dropout(feature, dropout_level, scores,
                                      comp_dropout, draws=perturb_draws)
-            out1 = self.decoder1(f1, stats)
-            out2 = self.decoder2(f2, stats)
-        else:
-            out1 = self.decoder1(feature, stats)
-            out2 = self.decoder2(feature, stats)
-        return out1, out2
+            return self.decoder1(f1, stats), self.decoder2(f2, stats)
+        return self.forward_decoders(feature, stats)
+
+    def forward_encoder(self, x: torch.Tensor,
+                        drop_u: Optional[Sequence[Optional[torch.Tensor]]] = None,
+                        stats: Optional[Stats] = None) -> List[torch.Tensor]:
+        """The encoder pyramid alone (chap_tpu's ``forward_encoder``)."""
+        return self.encoder(x, drop_u, stats)
+
+    def forward_decoders(self, feature: Sequence[torch.Tensor],
+                         stats: Optional[Stats] = None):
+        """Both decoders over a precomputed pyramid (chap_tpu's
+        ``forward_decoders``): (logits1, logits2)."""
+        return self.decoder1(feature, stats), self.decoder2(feature, stats)

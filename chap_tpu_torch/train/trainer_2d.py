@@ -20,8 +20,10 @@ Orchestration only; the maths lives in the step:
     (device synchronised at both ends of the stretch), ``eval_s`` and
     ``checkpoint_ms``, and the device path writes ``pool_build_s`` once.
 
-Modes: ``chap`` and ``supervised``; ``ablation`` is not ported yet. One
-device: ``parallel.num_devices`` 0 (the default device) or 1.
+Modes: ``chap``, ``supervised`` and ``ablation`` (train/step_ablation.py;
+at each log step its disagreement ratio is appended to
+``<snapshot>/disagreement.csv``, as chap_tpu's trainer_2d.py:174-178 does).
+One device: ``parallel.num_devices`` 0 (the default device) or 1.
 """
 from __future__ import annotations
 
@@ -42,6 +44,7 @@ from chap_tpu_torch.device import resolve_device
 from chap_tpu_torch.eval.eval2d import evaluate_volumes, make_predictor
 from chap_tpu_torch.models.factory import net_factory
 from chap_tpu_torch.train.state import create_train_state, make_optimizer
+from chap_tpu_torch.train.step_ablation import build_ablation_train_step
 from chap_tpu_torch.train.step_chap import build_chap_train_step
 from chap_tpu_torch.train.step_supervised import build_supervised_train_step
 from chap_tpu_torch.utils.checkpoint import CheckpointManager
@@ -68,11 +71,8 @@ def train(cfg: Config, snapshot_path: str, mode: str = "chap",
     """Returns {'best_dice': float, 'steps': int}. ``device`` is the card
     unless ``device="cpu"``."""
     device = resolve_device(device)
-    if mode == "ablation":
-        raise NotImplementedError("mode 'ablation' (train/step_ablation.py) is "
-                                  "not ported yet: ROADMAP item 13")
-    if mode not in ("chap", "supervised"):
-        raise ValueError(f"unknown mode {mode!r} (chap | supervised)")
+    if mode not in ("chap", "supervised", "ablation"):
+        raise ValueError(f"unknown mode {mode!r} (chap | supervised | ablation)")
     if cfg.parallel.num_devices not in (0, 1):
         raise NotImplementedError(
             f"parallel.num_devices={cfg.parallel.num_devices}: the port trains "
@@ -102,6 +102,9 @@ def train(cfg: Config, snapshot_path: str, mode: str = "chap",
     if mode == "chap":
         step_fn = build_chap_train_step(model, optimizer, cfg, use_nms=True,
                                         device=device)
+    elif mode == "ablation":
+        step_fn = build_ablation_train_step(model, optimizer, cfg,
+                                            device=device)
     else:
         step_fn = build_supervised_train_step(model, optimizer, cfg,
                                               device=device)
@@ -171,6 +174,11 @@ def train(cfg: Config, snapshot_path: str, mode: str = "chap",
                 scalars["steps_per_sec"] = (
                     (iter_num - start_iter) / (time.time() - t_start))
                 writer.write(iter_num, scalars)
+                if "disagreement_ratio" in scalars:
+                    # per-iteration CSV like train_ablation_2D.py:183-190
+                    writer.append_csv(f"{snapshot_path}/disagreement.csv",
+                                      {"iteration": iter_num,
+                                       "ratio": scalars["disagreement_ratio"]})
                 logger.info("iteration %d : loss : %.4f", iter_num,
                             scalars["loss"])
 

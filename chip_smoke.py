@@ -16,7 +16,8 @@ Phases (any failure raises and the script exits non-zero):
                [1, 4, 23, 29] and [2, 3, 23, 29] with labels outside
                [0, C) that match a padded class index, and the 3D step's
                [1, 2, 112, 112, 80] (R = 2) and [2, 2, 112, 112, 80]
-               (R = 1) and a ragged [2, 3, 23, 29, 17]: statistics, dice,
+               (R = 1) and a ragged [2, 3, 23, 29, 17], and the ACAL
+               steps' labeled half [12, 4, 256, 256] (R = 1): statistics, dice,
                ce and d/dlogits (also with one region's grads None) at
                rtol 2e-3, two calls bit-identical; at the timed shapes
                torch.profiler counts the device kernels of 3 forward calls
@@ -104,11 +105,38 @@ Phases (any failure raises and the script exits non-zero):
                launches equal to the patch batches; cli.test_3d on the card.
                Prints the ``trainer3d`` line (steps/s, eval s per volume,
                checkpoint ms, peak bytes)
- 14. report    the kernels line (JSON), the card line, and the last line
+ 14. parity    one ACAL joint step, decoder max-step and encoder min-step
+     ACAL      on the card and on the CPU from the same weights and draws,
+               with the mse and the softdice discrepancy, and one ablation
+               step with the channel dropout and VAT on (feature_chns (4, 8,
+               16, 16, 32), batch 8 at 32^2, TF32 off): metrics at rtol
+               2e-3, the card's K1 launches 2 / 2 (joint, max), 0 / 0
+               (min), 2 / 2 / 0 K2 (ablation)
+ 15. slice     the ACAL iteration at configs/acdc_share_acal.yml's values
+     ACAL      (widths 16-256, batch 24 = 12 + 12 at 256^2, fp32, random
+               weights from a seed) on phantom batches, the memory bank fed
+               from the knowledge map: 1 warm-up and 5 timed iterations of
+               joint step, bank feed and replay pair, each part timed to a
+               sync, launches asserted per step, peak memory; torch.profiler
+               over 1 iteration by kernel class; then the ablation step at
+               configs/acdc_chap.yml's values, 1 warm-up and 3 timed steps
+ 16. trainer   chap_tpu_torch.cli.train_share_2d.main --cfg
+     ACAL      configs/acdc_share_acal.yml --acal --dataset synthetic
+               semi.acal_start_iter=10: 20 iterations, an eval of both
+               decoders every 10 on 2 val volumes; 60 / 60 K1 launches (20
+               joint steps and 10 replay pairs); the best_model1,
+               best_model2 and latest slots. Prints the ``trainer_share``
+               line (iterations/s, bank feed ms, eval s per decoder,
+               checkpoint ms, peak memory)
+ 17. trainer   cli.train_2d.main --mode ablation at configs/acdc_chap.yml's
+     ablation  values on synthetic data: 10 steps, 2 / 2 / 0 a step, one
+               disagreement.csv row per log step; the ``trainer_ablation``
+               line
+ 18. report    the kernels line (JSON), the card line, and the last line
                {"ok": true, "device": {...}}
 
-The 2D phases keep the counts and depths they had before the 3D path was
-added; the whole script takes about 2.5 minutes on one H100.
+The 2D and 3D phases keep the counts and depths they had before the ACAL
+path was added.
 
 Two diagnostics run only by hand, each from the repository root:
 
@@ -147,20 +175,28 @@ from chap_tpu_torch.cli import test_2d as cli_test
 from chap_tpu_torch.cli import test_3d as cli_test3d
 from chap_tpu_torch.cli import train_2d as cli_train
 from chap_tpu_torch.cli import train_3d as cli_train3d
+from chap_tpu_torch.cli import train_share_2d as cli_share
 from chap_tpu_torch.config import acdc_chap_config, load_config
 from chap_tpu_torch.data.datasets import (SyntheticSliceDataset, SyntheticVolumeDataset,
                                           patients_to_slices, phantom_batch)
 from chap_tpu_torch.data.device_data import build_device_batch_fn, build_device_pool
+from chap_tpu_torch.data.pipeline import to_device
 from chap_tpu_torch.eval import sliding_window as sw
 from chap_tpu_torch.eval.eval2d import evaluate_volumes, make_predictor, predict_volume
 from chap_tpu_torch.models.factory import net_factory, net_factory_3d
 from chap_tpu_torch.ops import cuda_build, fused_losses
 from chap_tpu_torch.semi import nms
 from chap_tpu_torch.semi.gradsim import VNET_LEVEL_PATHS
+from chap_tpu_torch.semi.memory_bank import ImageMemoryBank
 from chap_tpu_torch.train.state import create_train_state, make_optimizer
 from chap_tpu_torch.train.step_chap import (build_chap_train_step, draw_step_uniforms,
                                             level_channels)
-from chap_tpu_torch.train.step_supervised import build_supervised_train_step
+from chap_tpu_torch.train.step_ablation import (build_ablation_train_step,
+                                                draw_ablation_uniforms)
+from chap_tpu_torch.train.step_share import (build_acal_steps, build_share_joint_step,
+                                             create_share_state)
+from chap_tpu_torch.train.step_supervised import (build_supervised_train_step,
+                                                  draw_supervised_uniforms)
 from chap_tpu_torch.train.trainer_3d import build_supervised3d_train_step
 from chap_tpu_torch.utils.checkpoint import CheckpointManager
 
@@ -691,26 +727,30 @@ def phase_profile(state, step, batches, gen, tag="profile") -> dict:
     (torch.profiler), and the device's busy share of the wall time."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for batch in batches:
-            step(state, batch, gen)
+    for _ in range(2):     # a session that saw no device kernel is taken again
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    by_class, top, ported = {}, [], {}
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(ev, "self_cuda_time_total", 0.0)
-        if dev_us <= 0 or getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA:
-            continue
-        cls = _kernel_class(ev.key)
-        by_class[cls] = by_class.get(cls, 0.0) + dev_us / 1e3 / len(batches)
-        top.append((dev_us / 1e3 / len(batches), ev.count // len(batches), ev.key[:70]))
-        if cls.startswith(("K1", "K2", "K3")):
-            ported[ev.key[:70]] = [dev_us / 1e3 / len(batches),
-                                   ev.count / len(batches)]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for batch in batches:
+                step(state, batch, gen)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        by_class, top, ported = {}, [], {}
+        for ev in prof.key_averages():
+            dev_us = getattr(ev, "self_device_time_total", None)
+            if dev_us is None:
+                dev_us = getattr(ev, "self_cuda_time_total", 0.0)
+            if dev_us <= 0 or getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA:
+                continue
+            cls = _kernel_class(ev.key)
+            by_class[cls] = by_class.get(cls, 0.0) + dev_us / 1e3 / len(batches)
+            top.append((dev_us / 1e3 / len(batches), ev.count // len(batches),
+                        ev.key[:70]))
+            if cls.startswith(("K1", "K2", "K3")):
+                ported[ev.key[:70]] = [dev_us / 1e3 / len(batches),
+                                       ev.count / len(batches)]
+        if by_class:
+            break
     device_ms = sum(by_class.values())
     top.sort(reverse=True)
     res = {
@@ -1482,6 +1522,358 @@ def phase_trainer_3d(bare_step_ms: float) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phases 14-17: the ACAL shared-encoder trainer and the ablation step
+# ---------------------------------------------------------------------------
+
+ACAL_CFG = "configs/acdc_share_acal.yml"
+# K1 launches of each ACAL step: the joint step and the decoder max-step run
+# dice_ce_supervised on both outputs' labeled half (R = 1), the encoder
+# min-step none; the ablation step as the supervised step
+ACAL_LAUNCHES = {"joint": SUPERVISED_LAUNCHES_PER_STEP,
+                 "max": SUPERVISED_LAUNCHES_PER_STEP,
+                 "min": {k: 0 for k in SUPERVISED_LAUNCHES_PER_STEP}}
+ABLATION_LAUNCHES_PER_STEP = SUPERVISED_LAUNCHES_PER_STEP
+SHARE_METRICS = {"joint": ("loss", "model1_loss", "model2_loss"),
+                 "max": ("dis_loss", "acal_f_loss"), "min": ("dis_loss_g",)}
+ABLATION_METRICS = ("loss", "sup_loss", "fp_loss", "vat_loss",
+                    "disagreement_ratio", "consistency_weight")
+
+
+def acal_config():
+    """configs/acdc_share_acal.yml with semi.acal on, as ``--acal`` sets it."""
+    cfg = load_config(ACAL_CFG)
+    cfg.semi.acal = True
+    return cfg
+
+
+def make_share(cfg, device, seed=0, state_dict=None):
+    """(ShareTrainState, joint step, decoder max-step, encoder min-step)."""
+    torch.manual_seed(seed)
+    model = net_factory("acalnet", cfg.data.in_chns, cfg.data.num_classes,
+                        cfg.model, device=device)
+    if state_dict is not None:
+        model.load_state_dict(state_dict)
+    state = create_share_state(model, cfg)
+    joint = build_share_joint_step(model, state.optimizer_g, state.optimizer_f,
+                                   cfg, device=device)
+    dec, enc = build_acal_steps(model, state.optimizer_g, state.optimizer_f,
+                                cfg, device=device)
+    return state, joint, dec, enc
+
+
+def launches_since(before: dict) -> dict:
+    now = launch_counts()
+    return {k: now[k] - before[k] for k in now}
+
+
+def phase_parity_share() -> dict:
+    """One joint step, one decoder max-step and one encoder min-step on the
+    card and on the CPU from the same weights and draws, with the mse and
+    the softdice discrepancy; then one ablation step with the channel
+    dropout and VAT on. Feature_chns (4, 8, 16, 16, 32), batch 8 = 4 + 4 at
+    32^2, TF32 off: metrics at rtol 2e-3, the card's K1 launches per step."""
+    set_tf32(False)
+    res = {}
+    for adv in ("mse", "softdice"):
+        cfg = acal_config()
+        cfg.semi.adv_losstype = adv
+        cfg.model.feature_chns = (4, 8, 16, 16, 32)
+        cfg.data.batch_size, cfg.data.labeled_bs = 8, 4
+        cfg.data.image_size = (32, 32)
+        cpu = make_share(cfg, "cpu")
+        card = make_share(cfg, "cuda", state_dict=cpu[0].model.state_dict())
+        on_card = {"cpu": False, "card": True}
+        batch = phantom_inputs(cfg, 1, "cpu")
+        mask = torch.zeros(4, 32, 32)
+        mask[:, 8:24, 4:20] = 1.0
+        draws = [draw_supervised_uniforms(cfg, batch["image"].shape,
+                                          torch.Generator().manual_seed(s), "cpu")
+                 for s in (2, 3, 4)]
+        out = {}
+        for (state, joint, dec, enc), where in ((cpu, "cpu"), (card, "card")):
+            b = to_cuda(batch) if on_card[where] else batch
+            m = to_cuda(mask) if on_card[where] else mask
+            d = [to_cuda(x) for x in draws] if on_card[where] else draws
+            steps = {
+                "joint": lambda: joint(state, b, draws=d[0])[1],
+                "max": lambda: dec(state, b["image"], b["label"], m, draws=d[1])[1],
+                "min": lambda: enc(state, b["image"], m, draws=d[2])[1]}
+            for name, run in steps.items():
+                before = launch_counts()
+                metrics = run()
+                ran = launches_since(before)
+                if on_card[where]:
+                    check(ran == ACAL_LAUNCHES[name],
+                          f"ACAL {name} step on the card: {ran} launches, "
+                          f"expected {ACAL_LAUNCHES[name]}")
+                out[(name, where)] = {k: float(metrics[k])
+                                      for k in SHARE_METRICS[name]}
+        for name, keys in SHARE_METRICS.items():
+            for k in keys:
+                a, b = out[(name, "card")][k], out[(name, "cpu")][k]
+                check(math.isclose(a, b, rel_tol=RTOL, abs_tol=1e-6),
+                      f"ACAL {name} ({adv}) parity {k}: card {a} vs cpu {b}")
+                res[f"{adv}/{name}/{k}"] = [a, b]
+    # the ablation step, channel dropout and VAT on
+    cfg = acdc_chap_config()
+    cfg.model.feature_chns = (4, 8, 16, 16, 32)
+    cfg.data.batch_size, cfg.data.labeled_bs = 8, 4
+    cfg.data.image_size = (32, 32)
+    torch.manual_seed(0)
+    metrics = {}
+    batch = phantom_inputs(cfg, 1, "cpu")
+    draws = draw_ablation_uniforms(cfg, batch["image"].shape,
+                                   torch.Generator().manual_seed(5), "cpu")
+    state_dict = None
+    for where, device in (("cpu", "cpu"), ("card", "cuda")):
+        model = net_factory(cfg.model.name, 1, cfg.data.num_classes, cfg.model,
+                            device=device)
+        if state_dict is None:      # the CPU's initial weights, for both
+            state_dict = {k: v.clone() for k, v in model.state_dict().items()}
+        model.load_state_dict(state_dict)
+        opt = make_optimizer(model, cfg.optim.base_lr, cfg.optim.momentum,
+                             cfg.optim.weight_decay)
+        state = create_train_state(model, opt, cfg.model.feature_chns)
+        step = build_ablation_train_step(model, opt, cfg, device=device)
+        b, d = (to_cuda(batch), to_cuda(draws)) if where == "card" else (batch, draws)
+        before = launch_counts()
+        metrics[where] = {k: float(v) for k, v in step(state, b, draws=d).metrics.items()}
+        ran = launches_since(before)
+        if where == "card":
+            check(ran == ABLATION_LAUNCHES_PER_STEP,
+                  f"ablation step on the card: {ran} launches, expected "
+                  f"{ABLATION_LAUNCHES_PER_STEP}")
+    for k in ABLATION_METRICS:
+        a, b = metrics["card"][k], metrics["cpu"][k]
+        check(math.isclose(a, b, rel_tol=RTOL, abs_tol=1e-6),
+              f"ablation parity {k}: card {a} vs cpu {b}")
+        res[f"ablation/{k}"] = [a, b]
+    check(metrics["card"]["fp_loss"] > 0 and metrics["card"]["vat_loss"] > 0,
+          f"the ablation step ran its dropout and VAT passes: {metrics['card']}")
+    print("parity_share", tf32_settings(), json.dumps(res), flush=True)
+    return res
+
+
+def phase_slice_share() -> dict:
+    """The ACAL iteration at configs/acdc_share_acal.yml's values (widths
+    16-256, batch 24 = 12 + 12 at 256^2, fp32, random weights from a seed)
+    on phantom batches, with a memory bank fed from the knowledge map: 1
+    warm-up and 5 timed iterations of joint step, bank feed (the knowledge
+    map's copy plus the host ranking) and replay pair (decoder max-step +
+    encoder min-step), each part timed to a sync; launches per step
+    asserted; then torch.profiler over 1 iteration by kernel class. Then
+    the ablation step at configs/acdc_chap.yml's values: 1 warm-up and 3
+    timed steps."""
+    set_tf32(True)     # PyTorch's defaults, as in phase 6
+    cfg = acal_config()
+    lbs = cfg.data.labeled_bs
+    state, joint, dec, enc = make_share(cfg, "cuda", seed=1337)
+    bank = ImageMemoryBank(cfg.semi.mb_capacity, cfg.data.image_size,
+                           cfg.semi.mb_patch_size, seed=cfg.run.seed)
+    host = [phantom_batch(np.random.RandomState(30 + i), cfg.data.batch_size,
+                          cfg.data.image_size[0], cfg.data.num_classes)
+            for i in range(7)]
+    batches = [{"image": torch.from_numpy(im).cuda(),
+                "label": torch.from_numpy(lab).cuda()} for im, lab in host]
+    gen = torch.Generator(device="cuda").manual_seed(1337)
+    parts = {"joint": [], "feed": [], "replay": []}
+    per_step = {"joint": [], "max": [], "min": []}
+
+    def iteration(state, i, gen, timed=False):
+        t0 = time.perf_counter()
+        before = launch_counts()
+        state, m, knowledge = joint(state, batches[i], gen)
+        ran_joint = launches_since(before)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        bank.add(host[i][0][lbs:], knowledge.cpu().numpy(), 8)
+        t2 = time.perf_counter()
+        replay = to_device(bank.get_samples(cfg.data.batch_size - lbs),
+                           torch.device("cuda"))
+        image = torch.cat([batches[i]["image"][:lbs], replay["image"]])
+        before = launch_counts()
+        state, f = dec(state, image, batches[i]["label"], replay["mask"], gen)
+        ran_max = launches_since(before)
+        before = launch_counts()
+        state, g = enc(state, image, replay["mask"], gen)
+        ran_min = launches_since(before)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        if timed:
+            parts["joint"].append((t1 - t0) * 1e3)
+            parts["feed"].append((t2 - t1) * 1e3)
+            parts["replay"].append((t3 - t2) * 1e3)
+            for name, ran in (("joint", ran_joint), ("max", ran_max),
+                              ("min", ran_min)):
+                per_step[name].append(ran)
+        return {k: float(v) for k, v in {**m, **f, **g}.items()}
+
+    iteration(state, 0, gen)                    # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts()
+    metrics = [iteration(state, i, gen, timed=True) for i in range(1, 6)]
+    launches = launch_counts()
+    n = len(metrics)
+    for m in metrics:
+        check(all(math.isfinite(v) for v in m.values()), f"finite ACAL metrics {m}")
+    for name, runs in per_step.items():
+        check(all(r == ACAL_LAUNCHES[name] for r in runs),
+              f"ACAL {name} step launches {runs}, expected {ACAL_LAUNCHES[name]}")
+    want = {k: sum(ACAL_LAUNCHES[s][k] for s in ACAL_LAUNCHES) * n for k in launches}
+    check(launches == want, f"ACAL launches over {n} iterations: {launches}, "
+                            f"expected {want}")
+    res = {"joint_ms": parts["joint"], "feed_ms": parts["feed"],
+           "replay_pair_ms": parts["replay"],
+           "median_ms": {k: statistics.median(v) for k, v in parts.items()},
+           "median_iteration_ms": statistics.median(
+               [a + b + c for a, b, c in zip(*parts.values())]),
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "launches_per_iteration": {k: v / n for k, v in launches.items()},
+           "launches_per_step": {k: v[0] for k, v in per_step.items()},
+           "bank_entries": len(bank), "counts": [state.count_g, state.count_f],
+           "last_metrics": metrics[-1], "settings": tf32_settings(),
+           "batch": cfg.data.batch_size, "image_size": list(cfg.data.image_size),
+           "feature_chns": list(cfg.model.feature_chns),
+           "adv_losstype": cfg.semi.adv_losstype}
+    print("slice_share", json.dumps(res), flush=True)
+    profile = phase_profile(state, iteration, [6], gen, tag="profile_share")
+    del state, joint, dec, enc, batches
+    torch.cuda.empty_cache()
+
+    # the ablation step at configs/acdc_chap.yml's values (dropout and VAT on)
+    cfg = acdc_chap_config()
+    torch.manual_seed(1337)
+    model = net_factory(cfg.model.name, cfg.data.in_chns, cfg.data.num_classes,
+                        cfg.model, device="cuda")
+    opt = make_optimizer(model, cfg.optim.base_lr, cfg.optim.momentum,
+                         cfg.optim.weight_decay)
+    astate = create_train_state(model, opt, cfg.model.feature_chns)
+    step = build_ablation_train_step(model, opt, cfg, device="cuda")
+    abatches = [phantom_inputs(cfg, 50 + i, "cuda") for i in range(4)]
+    step(astate, abatches[0], gen)                # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts()
+    times, ametrics = [], []
+    for batch in abatches[1:]:
+        t0 = time.perf_counter()
+        out = step(astate, batch, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        ametrics.append({k: float(v) for k, v in out.metrics.items()})
+    alaunches = launch_counts()
+    want = {k: v * len(times) for k, v in ABLATION_LAUNCHES_PER_STEP.items()}
+    check(alaunches == want, f"ablation launches {alaunches}, expected {want}")
+    for m in ametrics:
+        check(all(math.isfinite(v) for v in m.values()), f"finite ablation {m}")
+    ablation = {"step_ms": times, "median_step_ms": statistics.median(times),
+                "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                "launches_per_step": {k: v / len(times) for k, v in alaunches.items()},
+                "last_metrics": ametrics[-1], "settings": tf32_settings()}
+    print("slice_ablation", json.dumps(ablation), flush=True)
+    del astate, step, model, opt, abatches
+    torch.cuda.empty_cache()
+    return {**res, "launches": launches, "profile": profile,
+            "ablation": ablation, "ablation_launches": alaunches}
+
+
+def phase_trainer_share() -> dict:
+    """chap_tpu_torch.cli.train_share_2d.main in process at
+    configs/acdc_share_acal.yml's values with --acal --dataset synthetic and
+    semi.acal_start_iter=10: 20 iterations with an eval of both decoders
+    every 10 on 2 val volumes of 10 x 256^2. Launch counters set to 0 just
+    before and read just after: 20 joint steps and 10 replay pairs, 2 + 2 K1
+    each, so 60 / 60. The three slots are written."""
+    set_tf32(True)
+    shutil.rmtree(RUNS_DIR, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    out = cli_share.main(["--cfg", ACAL_CFG, "--acal", "--dataset", "synthetic",
+                          "--max_iterations", "20", "--device", "cuda",
+                          "semi.acal_start_iter=10", "eval.eval_every=10",
+                          "data.synthetic_val_volumes=2", "run.log_every=10",
+                          f"run.snapshot_root={RUNS_DIR}"])
+    wall_s = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {**{k: 0 for k in launches}, "K1_fwd": 60, "K1_bwd": 60}
+    check(out["steps"] == 20, f"20 ACAL iterations, ran {out['steps']}")
+    check(launches == want, f"ACAL trainer launches {launches}, expected {want}")
+    save_dir = out["save_dir"]
+    for slot in ("best_model1", "best_model2", "latest"):
+        check(os.path.isfile(os.path.join(save_dir, "checkpoints", slot, "state.pt")),
+              f"ACAL trainer wrote the {slot} slot")
+    records = _records(save_dir)
+    logged = [r for r in records if "loss" in r]
+    evals = [r for r in records if "model1_val_mean_dice" in r]
+    check([r["step"] for r in logged] == [10, 20] and
+          ["dis_loss" in r for r in logged] == [False, True],
+          f"ACAL log steps and replay metrics: {logged}")
+    check([r["step"] for r in evals] == [10, 20], f"ACAL evals at 10, 20: {evals}")
+    for r in logged:
+        check(all(math.isfinite(v) for v in r.values()), f"finite ACAL log {r}")
+    with open(os.path.join(save_dir, "config.json")) as f:
+        cfg = json.load(f)
+    res = {"card": card_line(), "batch": cfg["data"]["batch_size"],
+           "labeled_bs": cfg["data"]["labeled_bs"],
+           "image_size": cfg["data"]["image_size"], "acal": cfg["semi"]["acal"],
+           "acal_start_iter": cfg["semi"]["acal_start_iter"],
+           "window_iterations_per_s": [r["steps_per_sec"] for r in logged],
+           "mb_feed_ms": [r["mb_feed_ms"] for r in logged],
+           "eval_s": {k: [r[f"{k}_eval_s"] for r in evals]
+                      for k in ("model1", "model2")},
+           "checkpoint_ms": [r["checkpoint_ms"] for r in evals],
+           "val_dice": {k: [r[f"{k}_val_mean_dice"] for r in evals]
+                        for k in ("model1", "model2")},
+           "best": {k: out[f"best_dice_{k}"] for k in ("model1", "model2")},
+           "peak_mem_bytes": peak, "wall_s": wall_s,
+           "launches": {"acal_20": launches}, "settings": tf32_settings()}
+    print("trainer_share", json.dumps(res), flush=True)
+    shutil.rmtree(RUNS_DIR, ignore_errors=True)
+    return res
+
+
+def phase_trainer_ablation() -> dict:
+    """cli.train_2d.main --mode ablation at configs/acdc_chap.yml's values
+    (channel dropout and VAT on) on synthetic data: 10 steps, a log every 2
+    and an eval at 10; 2 / 2 / 0 K1 forward / K1 backward / K2 a step, one
+    disagreement.csv row a log step; the step ms between the log steps."""
+    set_tf32(True)
+    shutil.rmtree(RUNS_DIR, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    run = trainer_run(["--max_iterations", "10", "--mode", "ablation",
+                       "--exp", "ablation"], ["run.log_every=2"], 10,
+                      ABLATION_LAUNCHES_PER_STEP)
+    peak = torch.cuda.max_memory_allocated()
+    check(run["steps"] == 10, f"10 ablation steps, ran {run['steps']}")
+    logged = [r for r in run["records"] if "disagreement_ratio" in r]
+    with open(os.path.join(run["save_dir"], "disagreement.csv")) as f:
+        rows = [line.strip().split(",") for line in f][1:]
+    check([int(r[0]) for r in rows] == [r["step"] for r in logged] == [2, 4, 6, 8, 10],
+          f"disagreement.csv rows {rows} against log steps "
+          f"{[r['step'] for r in logged]}")
+    for r in logged:
+        check(all(math.isfinite(v) for v in r.values()), f"finite ablation log {r}")
+    # wall time between the log records at steps 2 and 10 (each log reads
+    # the metrics off the card, a sync), over the 8 steps between
+    step_ms = (logged[-1]["time"] - logged[0]["time"]) * 1e3 / 8
+    res = {"card": card_line(), "step_ms_between_logs": step_ms,
+           "steps_per_s": [r["steps_per_sec"] for r in logged],
+           "disagreement_ratio": [float(r[1]) for r in rows],
+           "val_dice": [r["val_mean_dice"] for r in run["records"]
+                        if "val_mean_dice" in r],
+           "peak_mem_bytes": peak, "wall_s": run["wall_s"],
+           "launches": {"ablation_10": run["launches"]},
+           "settings": tf32_settings()}
+    print("trainer_ablation", json.dumps(res), flush=True)
+    shutil.rmtree(RUNS_DIR, ignore_errors=True)
+    return res
+
+
+
 def loop_breakdown(when: str, rounds: int = 2, n: int = 5) -> dict:
     """What the trainer's loop adds to the bare step, in one process at one
     moment: ms per step on phase 6's phantom batches and on batches the
@@ -1574,6 +1966,9 @@ def main() -> int:
     k1_3d = phase_k1((1, 2) + LA_PATCH, 4, 2, timed=True)
     k1_3d_r1 = phase_k1((2, 2) + LA_PATCH, 4, 1, timed=True)
     phase_k1((2, 3, 23, 29, 17), 5, 2, label_values=5)
+    # the ACAL joint step's and max-step's dice_ce_supervised on the labeled
+    # half (R = 1)
+    k1_acal = phase_k1((12, 4, 256, 256), 6, 1, timed=True)
     # phase 4: K2
     k2 = phase_k2()
     # phase 5: CUDA-against-CPU step parity
@@ -1591,17 +1986,32 @@ def main() -> int:
     phase_parity_3d()
     launches_3d, slice_3d, profile_3d = phase_slice_3d()
     trainer_3d = phase_trainer_3d(slice_3d["median_step_ms"])
+    torch.cuda.empty_cache()
+    # phases 14-17: the ACAL trainer and the ablation step
+    phase_parity_share()
+    slice_share = phase_slice_share()
+    trainer_share = phase_trainer_share()
+    trainer_ablation = phase_trainer_ablation()
 
-    # phase 14: report
+    # phase 18: report
     def trainer_launches(run, name):
         """A kernel's launches over a trainer phase's runs."""
         return sum(r[name] for r in run["launches"].values() if isinstance(r, dict))
+
+    # the K1 launches of the ACAL and ablation paths, by run
+    k1_new_paths = {
+        key: {"acal_slice_5_iterations": slice_share["launches"][key],
+              "acal_trainer_20": trainer_launches(trainer_share, key),
+              "ablation_slice_3_steps": slice_share["ablation_launches"][key],
+              "ablation_trainer_10": trainer_launches(trainer_ablation, key)}
+        for key in ("K1_fwd", "K1_bwd")}
 
     def k1_row(name, replaces, key, res, res_r1, launches_of, run):
         return {"name": name, "route": "triton",
                 "source": "chap_tpu_torch/ops/fused_losses.py",
                 "replaces": replaces, "launches": launches_of[key],
                 "trainer_launches": trainer_launches(run, key),
+                "acal_ablation_launches": k1_new_paths[key],
                 "shape": res["shape"], "regions": res["regions"],
                 "max_abs_err": max(res[f"{name[3:6]}_max_abs_err"],
                                    res_r1[f"{name[3:6]}_max_abs_err"]),
@@ -1636,6 +2046,10 @@ def main() -> int:
                k1_3d_r1, launches_3d, trainer_3d),
         k1_row("K1_bwd_3d", "chap_tpu/ops/fused_losses.py:159", "K1_bwd", k1_3d,
                k1_3d_r1, launches_3d, trainer_3d),
+        k1_row("K1_fwd_acal", "chap_tpu/ops/fused_losses.py:99", "K1_fwd",
+               k1_acal, k1_acal, slice_share["launches"], trainer_share),
+        k1_row("K1_bwd_acal", "chap_tpu/ops/fused_losses.py:159", "K1_bwd",
+               k1_acal, k1_acal, slice_share["launches"], trainer_share),
         k2_row("K2_ccl", k2, launches, "K2_ccl", trainer),
         k2_row("K2_ccl3d", k2_3d, launches_3d, "K2_ccl3d", trainer_3d),
         {"name": "K3_sw", "route": "cuda",

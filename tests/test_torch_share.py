@@ -1,0 +1,593 @@
+"""The port's ACAL shared-encoder trainer against chap_tpu's (CPU): the joint
+step, the decoder max-step and the encoder min-step, three joint + replay
+iterations (each optimizer's schedule count), sharpening, the memory bank,
+the worst-case loss, the DualDecoder's encoder / decoder passes, the
+ShareTrainState checkpoint slots, trainer_share end to end and the CLI's flag
+mapping. Same weights (carried by state_dict_from_flax) and numpy-seeded
+inputs into both; encoder dropout 0, so no draw is needed."""
+import copy
+import dataclasses
+import json
+import os
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+import chap_tpu.cli.train_share_2d as jax_cli
+import chap_tpu.train.trainer_share as jax_trainer_share
+from chap_tpu.config import Config as JaxConfig
+from chap_tpu.losses.worst_case import worst_case_estimation_loss as jax_worst_case
+from chap_tpu.models import net_factory as jax_net_factory
+from chap_tpu.semi.memory_bank import ImageMemoryBank as JaxBank
+from chap_tpu.train.state import make_lr_schedule as jax_lr_schedule
+from chap_tpu.train.step_share import build_acal_steps as jax_acal_steps
+from chap_tpu.train.step_share import build_share_joint_step as jax_joint_step
+from chap_tpu.train.step_share import create_share_state as jax_create_state
+from chap_tpu.train.step_share import sharpening as jax_sharpening
+from chap_tpu_torch.cli import train_share_2d as cli_share
+from chap_tpu_torch.config import Config, update_values
+from chap_tpu_torch.convert.from_jax import state_dict_from_flax
+from chap_tpu_torch.data.datasets import phantom_batch
+from chap_tpu_torch.losses.worst_case import (WorstCaseEstimationLoss,
+                                              worst_case_estimation_loss)
+from chap_tpu_torch.models.factory import net_factory
+from chap_tpu_torch.semi.memory_bank import ImageMemoryBank
+from chap_tpu_torch.train import trainer_share
+from chap_tpu_torch.train.step_share import (ShareTrainState, build_acal_steps,
+                                             build_share_joint_step,
+                                             create_share_state, sharpening)
+from chap_tpu_torch.utils.checkpoint import CheckpointManager
+from test_trainer_e2e import tiny_cfg as jax_tiny_cfg
+
+torch.set_num_threads(1)
+
+CHNS = (4, 8, 16, 16, 32)
+B, LB, HW, C = 8, 4, 32, 4
+ACAL_YML = os.path.join(os.path.dirname(__file__), "..", "configs",
+                        "acdc_share_acal.yml")
+# the ROADMAP's parity bar (rtol 2e-3); parameters also get an absolute
+# 1e-5, 1% of a typical update (lr 0.01 x gradient), for weights near 0
+# whose updates differ by float32 rounding
+METRIC_RTOL, PARAM_RTOL, PARAM_ATOL = 2e-3, 2e-3, 1e-5
+# Over three iterations (9 updates) chap_tpu's float32 rounding grows: its
+# update of a leaf (after minus before) is up to 0.89% off the port's
+# float64 run (a BN scale of decoder2, from the second max-step on), all
+# parameters' updates together 0.25%; the port's float32 run is 0.04% and
+# 0.0008% off (test_three_iterations_float32_matches_float64). So after
+# three iterations the values are held at 1e-4 absolute (as
+# tests/test_torch_step.py does) and each leaf's update relative to its
+# norm: 5% a leaf, 2% for all parameters together (tests/test_torch_step3d.py's
+# bars).
+# A conv bias in front of a BatchNorm has no gradient; its update is
+# rounding noise, held to NOISE_UPDATE absolute.
+ITER_ATOL, LEAF_UPDATE_RTOL, UPDATE_RTOL, NOISE_UPDATE = 1e-4, 5e-2, 2e-2, 1e-6
+
+
+def _configure(cfg, consistency_type="ce", adv_losstype="mse"):
+    """tests/test_share_steps.py's small_cfg, encoder dropout 0."""
+    cfg.data.num_classes = C
+    cfg.data.batch_size = B
+    cfg.data.labeled_bs = LB
+    cfg.data.image_size = (HW, HW)
+    cfg.model.feature_chns = CHNS
+    cfg.model.dropout = (0.0,) * 5
+    cfg.model.decoder_type = "same"
+    cfg.optim.max_iterations = 10       # the LR moves visibly in 6 updates
+    cfg.semi.consistency = 0.5
+    cfg.semi.consistency_type = consistency_type
+    cfg.semi.adv_losstype = adv_losstype
+    return cfg
+
+
+def _batch(seed):
+    images, labels = phantom_batch(np.random.RandomState(seed), B, HW, C)
+    return images, labels
+
+
+def _replay_mask():
+    mask = np.zeros((B - LB, HW, HW), np.float32)
+    mask[:, 8:24, 4:20] = 1.0
+    mask[1] = 0.0
+    mask[1, 0:16, 16:32] = 1.0
+    return mask
+
+
+def _jax_batch(images, labels):
+    return {"image": jnp.asarray(images.transpose(0, 2, 3, 1)),
+            "label": jnp.asarray(labels.astype(np.int32))}
+
+
+def _port_batch(images, labels):
+    return {"image": torch.from_numpy(images),
+            "label": torch.from_numpy(labels.astype(np.uint8))}
+
+
+def _copy(tree):
+    return jax.tree.map(lambda x: jnp.array(x, copy=True), tree)
+
+
+def _counts(opt_state):
+    """The ScaleByScheduleState counts inside an optax.masked chain."""
+    found = [int(s.count) for s in jax.tree_util.tree_leaves(
+        opt_state, is_leaf=lambda x: isinstance(x, optax.ScaleByScheduleState))
+             if isinstance(s, optax.ScaleByScheduleState)]
+    assert len(found) == 1, found
+    return found[0]
+
+
+def _flax_sd(state):
+    return state_dict_from_flax(jax.device_get(state.params),
+                                jax.device_get(state.batch_stats), "same",
+                                family="acalnet")
+
+
+def _assert_model_matches(model, jax_state, rtol=PARAM_RTOL, atol=PARAM_ATOL):
+    """Every parameter and BN running stat against chap_tpu's."""
+    ours = model.state_dict()
+    for key, value in _flax_sd(jax_state).items():
+        if not key.endswith("num_batches_tracked"):
+            np.testing.assert_allclose(ours[key].numpy(), value.numpy(),
+                                       rtol=rtol, atol=atol, err_msg=key)
+
+
+def _update_errors(before, model, want):
+    """{leaf: (|update - want's update|, |want's update|)} over the port
+    state dict ``before`` -> ``model`` and ``want`` (a state dict)."""
+    got = model.state_dict()
+    out = {}
+    for key, value in want.items():
+        if not key.endswith("num_batches_tracked"):
+            want_d = (value - before[key]).double()
+            err = ((got[key] - before[key]).double() - want_d).norm().item()
+            out[key] = (err, want_d.norm().item())
+    return out
+
+
+def _check_updates(errors, leaf_rtol=LEAF_UPDATE_RTOL, rtol=UPDATE_RTOL):
+    err2 = norm2 = 0.0
+    for key, (err, norm) in errors.items():
+        if norm > NOISE_UPDATE:
+            assert err <= leaf_rtol * norm, (
+                f"{key}: update off by {err:.3e}, its norm {norm:.3e}")
+        else:
+            assert err <= NOISE_UPDATE, f"{key}: update off by {err:.3e}"
+        if not key.endswith(("running_mean", "running_var")):
+            err2, norm2 = err2 + err ** 2, norm2 + norm ** 2
+    assert err2 ** 0.5 <= rtol * norm2 ** 0.5, (
+        f"parameters' update off by {err2 ** 0.5:.3e}, its norm {norm2 ** 0.5:.3e}")
+
+
+def _assert_metrics(got, want, keys):
+    for k in keys:
+        np.testing.assert_allclose(float(got[k]), float(want[k]),
+                                   rtol=METRIC_RTOL, atol=1e-6, err_msg=k)
+
+
+@pytest.fixture(scope="module")
+def jax_init():
+    """chap_tpu's initial share state (one init) and its variables."""
+    cfg = _configure(JaxConfig())
+    model = jax_net_factory("acalnet", 1, C, cfg.model)
+    state, _, _ = jax_create_state(model, jax.random.PRNGKey(0),
+                                   jnp.zeros((B, HW, HW, 1)), cfg)
+    variables = jax.device_get({"params": state.params,
+                                "batch_stats": state.batch_stats})
+    return model, state, variables
+
+
+def _jax_steps(model, cfg):
+    from chap_tpu.train.step_share import make_group_optimizers
+    opt_g, opt_f = make_group_optimizers(cfg)
+    return (jax_joint_step(model, opt_g, opt_f, cfg),
+            *jax_acal_steps(model, opt_g, opt_f, cfg))
+
+
+def _port(variables, cfg):
+    model = net_factory("acalnet", 1, C, cfg.model, device="cpu")
+    model.load_state_dict(state_dict_from_flax(
+        variables["params"], variables["batch_stats"], "same", family="acalnet"))
+    state = create_share_state(model, cfg)
+    joint = build_share_joint_step(model, state.optimizer_g, state.optimizer_f,
+                                   cfg, device="cpu")
+    dec, enc = build_acal_steps(model, state.optimizer_g, state.optimizer_f,
+                                cfg, device="cpu")
+    return state, joint, dec, enc
+
+
+# ---------------------------------------------------------------------------
+# the three steps against chap_tpu's
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("consistency_type", ["ce", "mse"])
+def test_joint_step_matches_chap_tpu(jax_init, consistency_type):
+    model, init, variables = jax_init
+    images, labels = _batch(1)
+    jcfg = _configure(JaxConfig(), consistency_type)
+    joint, _, _ = _jax_steps(model, jcfg)
+    want_state, want, want_k = joint(_copy(init), _jax_batch(images, labels),
+                                     jax.random.PRNGKey(1))
+    cfg = _configure(Config(), consistency_type)
+    state, step, _, _ = _port(variables, cfg)
+    state, got, knowledge = step(state, _port_batch(images, labels))
+    _assert_metrics(got, want, ("loss", "model1_loss", "model2_loss"))
+    assert knowledge.shape == (B - LB, HW, HW) and not knowledge.requires_grad
+    np.testing.assert_allclose(knowledge.numpy(), np.asarray(want_k),
+                               rtol=METRIC_RTOL, atol=5e-4)
+    _assert_model_matches(state.model, want_state)
+    assert state.step == int(want_state.step) == 1
+    assert (state.count_g, state.count_f) == (
+        _counts(want_state.opt_state_g), _counts(want_state.opt_state_f)) == (1, 1)
+
+
+@pytest.mark.parametrize("adv_losstype", ["mse", "softdice"])
+@pytest.mark.parametrize("phase", ["decoder_max", "encoder_min"])
+def test_replay_step_matches_chap_tpu(jax_init, phase, adv_losstype):
+    """One replay step from the initial weights: metrics, every parameter
+    and BN running stat; the max-step leaves the encoder as it was and the
+    min-step the decoders (tests/test_share_steps.py:50-102)."""
+    model, init, variables = jax_init
+    images, labels = _batch(2)
+    mask = _replay_mask()
+    jcfg = _configure(JaxConfig(), adv_losstype=adv_losstype)
+    _, dec, enc = _jax_steps(model, jcfg)
+    jb = _jax_batch(images, labels)
+    cfg = _configure(Config(), adv_losstype=adv_losstype)
+    state, _, pdec, penc = _port(variables, cfg)
+    before = {k: v.clone() for k, v in state.model.state_dict().items()}
+    image = torch.from_numpy(images)
+    if phase == "decoder_max":
+        want_state, want = dec(_copy(init), jb["image"], jb["label"],
+                               jnp.asarray(mask), jax.random.PRNGKey(2))
+        state, got = pdec(state, image, torch.from_numpy(labels),
+                          torch.from_numpy(mask))
+        keys, frozen, moved = ("dis_loss", "acal_f_loss"), "encoder.", "decoder"
+        counts = (0, 1)
+    else:
+        want_state, want = enc(_copy(init), jb["image"], jnp.asarray(mask),
+                               jax.random.PRNGKey(3))
+        state, got = penc(state, image, torch.from_numpy(mask))
+        keys, frozen, moved = ("dis_loss_g",), "decoder", "encoder."
+        counts = (1, 0)
+    _assert_metrics(got, want, keys)
+    _assert_model_matches(state.model, want_state)
+    params = dict(state.model.named_parameters())
+    assert all(torch.equal(p, before[k]) for k, p in params.items()
+               if k.startswith(frozen))
+    assert any(not torch.equal(p, before[k]) for k, p in params.items()
+               if k.startswith(moved))
+    assert (state.count_g, state.count_f) == counts == (
+        _counts(want_state.opt_state_g), _counts(want_state.opt_state_f))
+    assert state.step == int(want_state.step) == 0
+
+
+def _three_iterations(state, joint, dec, enc, dtype=torch.float32):
+    """Three iterations of joint + max + min on the port; their metrics."""
+    mask = torch.from_numpy(_replay_mask()).to(dtype)
+    metrics = []
+    for i in range(3):
+        images, labels = _batch(10 + i)
+        image = torch.from_numpy(images).to(dtype)
+        state, m, _ = joint(state, {"image": image,
+                                    "label": torch.from_numpy(labels)})
+        state, f = dec(state, image, torch.from_numpy(labels), mask)
+        state, g = enc(state, image, mask)
+        metrics.append({**m, **f, **g})
+    return state, metrics
+
+
+def test_three_joint_and_replay_iterations_match_chap_tpu(jax_init):
+    """Three iterations of joint + max + min: each optimizer's schedule count
+    grows on each of its updates, so both reach 6 (chap_tpu's
+    ScaleByScheduleState.count; ROADMAP §3), the last LR is the schedule's
+    at 5, and the weights after the third iteration match."""
+    model, init, variables = jax_init
+    jcfg = _configure(JaxConfig())
+    joint, dec, enc = _jax_steps(model, jcfg)
+    mask = jnp.asarray(_replay_mask())
+    jstate, want = _copy(init), []
+    for i in range(3):
+        jb = _jax_batch(*_batch(10 + i))
+        jstate, jm, _ = joint(jstate, jb, jax.random.PRNGKey(i))
+        jstate, jf = dec(jstate, jb["image"], jb["label"], mask,
+                         jax.random.PRNGKey(i))
+        jstate, jg = enc(jstate, jb["image"], mask, jax.random.PRNGKey(i))
+        want.append({**jm, **jf, **jg})
+    state, *steps = _port(variables, _configure(Config()))
+    before = copy.deepcopy(state.model.state_dict())
+    state, got = _three_iterations(state, *steps)
+    for g, w in zip(got, want):
+        _assert_metrics(g, w, ("loss", "model1_loss", "model2_loss",
+                               "dis_loss", "acal_f_loss", "dis_loss_g"))
+    assert (state.count_g, state.count_f) == (6, 6) == (
+        _counts(jstate.opt_state_g), _counts(jstate.opt_state_f))
+    assert state.step == int(jstate.step) == 3
+    lr = jax_lr_schedule(jcfg.optim.base_lr, jcfg.optim.max_iterations,
+                         jcfg.optim.poly_power)(5)
+    for opt in (state.optimizer_g, state.optimizer_f):
+        assert opt.param_groups[0]["lr"] == pytest.approx(float(lr), rel=1e-6)
+    _assert_model_matches(state.model, jstate, atol=ITER_ATOL)
+    _check_updates(_update_errors(before, state.model, _flax_sd(jstate)))
+
+
+def test_three_iterations_float32_matches_float64(jax_init):
+    """The port's three iterations in float32 against the same in float64:
+    each leaf's update within 0.5%, all together within 0.1%."""
+    variables = jax_init[2]
+    runs = {}
+    for dtype in (torch.float32, torch.float64):
+        state, *steps = _port(variables, _configure(Config()))
+        before = copy.deepcopy(state.model.state_dict())
+        state.model.to(dtype)
+        runs[dtype] = _three_iterations(state, *steps, dtype=dtype)[0].model
+    want = {k: v.float() for k, v in runs[torch.float64].state_dict().items()}
+    _check_updates(_update_errors(before, runs[torch.float32], want),
+                   leaf_rtol=5e-3, rtol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# the pieces
+# ---------------------------------------------------------------------------
+
+def test_sharpening_matches_chap_tpu():
+    p = np.random.RandomState(4).rand(3, 4, 8, 8).astype(np.float32)
+    p[0, 0, 0, :3] = (0.0, 0.5, 1.0)
+    for t in (0.1, 0.5):
+        np.testing.assert_allclose(sharpening(torch.from_numpy(p), t).numpy(),
+                                   np.asarray(jax_sharpening(jnp.asarray(p), t)),
+                                   rtol=1e-5, atol=1e-7)
+
+
+def test_memory_bank_matches_chap_tpu():
+    """The same adds and draws give the same arrays, bit for bit: fewer
+    entries than a batch, tied scores, eviction past capacity."""
+    rs = np.random.RandomState(5)
+    ours = ImageMemoryBank(capacity=5, image_size=(16, 16), patch_size=4, seed=3)
+    ref = JaxBank(capacity=5, image_size=(16, 16), patch_size=4, seed=3)
+
+    def add(images, knowledge, n):
+        ours.add(images[:, None], knowledge, n)
+        ref.add(images[..., None], knowledge, n)
+
+    def draw(n):
+        a, b = ours.get_samples(n), ref.get_samples(n)
+        np.testing.assert_array_equal(a["image"][:, 0], b["image"][..., 0])
+        np.testing.assert_array_equal(a["mask"], b["mask"])
+        return a
+
+    with pytest.raises(RuntimeError):
+        ours.get_samples(2)
+    images = rs.rand(4, 16, 16).astype(np.float32)
+    add(images, rs.rand(4, 16, 16).astype(np.float32), 3)
+    assert len(ours) == len(ref) == 3
+    out = draw(4)                        # fewer entries than the batch
+    assert out["image"].shape == (3, 1, 16, 16)
+    add(rs.rand(4, 16, 16).astype(np.float32),
+        np.ones((4, 16, 16), np.float32), 3)    # tied scores; evicts to 5
+    assert len(ours) == len(ref) == 5
+    for n in (2, 5, 3):
+        draw(n)
+    knowledge = np.zeros((4, 16, 16), np.float32)
+    knowledge[2, 9:13, 1:5] = 7.0
+    add(rs.rand(4, 16, 16).astype(np.float32), knowledge, 4)
+    assert ours._scores == ref._scores
+    assert draw(2)["mask"].sum(axis=(1, 2)).tolist() == [16.0, 16.0]
+
+
+@pytest.mark.parametrize("loss_type", ["ce", "mse"])
+def test_worst_case_loss_matches_chap_tpu(loss_type):
+    rs = np.random.RandomState(6)
+    y = [rs.randn(2, 4, 8, 8).astype(np.float32) * 2 for _ in range(4)]
+    nhwc = [jnp.asarray(a.transpose(0, 2, 3, 1)) for a in y]
+    want, (g_l, g_u) = jax.value_and_grad(
+        lambda a, b: jax_worst_case(nhwc[0], a, nhwc[2], b, loss_type),
+        argnums=(0, 1))(nhwc[1], nhwc[3])
+    t = [torch.from_numpy(a).requires_grad_(i in (1, 3)) for i, a in enumerate(y)]
+    got = WorstCaseEstimationLoss(loss_type)(*t)
+    got.backward()
+    np.testing.assert_allclose(got.item(), float(want), rtol=METRIC_RTOL)
+    for grad, ref in ((t[1].grad, g_l), (t[3].grad, g_u)):
+        np.testing.assert_allclose(grad.numpy(),
+                                   np.asarray(ref).transpose(0, 3, 1, 2),
+                                   rtol=METRIC_RTOL, atol=1e-7)
+    assert t[0].grad is None and t[2].grad is None
+    assert worst_case_estimation_loss(*t, loss_type, eta_prime=0.0).item() < got.item()
+    with pytest.raises(ValueError):
+        WorstCaseEstimationLoss("kl")
+
+
+def _dual(seed=0):
+    torch.manual_seed(seed)
+    cfg = _configure(Config())
+    cfg.model.dropout = (0.05, 0.1, 0.2, 0.3, 0.5)
+    return net_factory("acalnet", 1, C, cfg.model, device="cpu")
+
+
+def test_stop_encoder_grad_detaches_the_encoder_only():
+    model = _dual().train()
+    x = torch.from_numpy(_batch(7)[0])
+    drop = [torch.rand(B, c, HW >> i, HW >> i, generator=torch.Generator().manual_seed(i))
+            for i, c in enumerate(CHNS)]
+    stats = {}
+    o1, o2 = model(x, drop_u=drop, stats=stats, stop_encoder_grad=True)
+    (o1.square().mean() + o2.square().mean()).backward()
+    enc = [p.grad for p in model.encoder.parameters()]
+    assert all(g is None or not g.any() for g in enc)
+    assert all(p.grad is not None and p.grad.any()
+               for n, p in model.named_parameters() if n.startswith("decoder"))
+    enc_keys = [k for k in stats if k.startswith("encoder.")]
+    assert len(enc_keys) == 10 and len(stats) == 10 + 2 * 8
+    # the same pass without the stop: same outputs and statistics
+    stats2 = {}
+    p1, p2 = model(x, drop_u=drop, stats=stats2)
+    assert torch.equal(p1, o1) and torch.equal(p2, o2)
+    for k in stats:
+        assert torch.equal(stats[k][0], stats2[k][0]), k
+
+
+@pytest.mark.parametrize("train", [True, False])
+def test_forward_encoder_then_decoders_equals_forward(train):
+    model = _dual(1).train(train)
+    x = torch.from_numpy(_batch(8)[0])
+    drop = [torch.rand(B, c, HW >> i, HW >> i, generator=torch.Generator().manual_seed(i))
+            for i, c in enumerate(CHNS)]
+    with torch.no_grad():
+        a = model(x, drop_u=drop)
+        b = model.forward_decoders(model.forward_encoder(x, drop))
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_factory_and_converter_know_acalnet(jax_init):
+    _, _, variables = jax_init
+    sd = state_dict_from_flax(variables["params"], variables["batch_stats"], "same",
+                              family="acalnet")
+    assert sd.keys() == state_dict_from_flax(
+        variables["params"], variables["batch_stats"], "same").keys()
+    model = net_factory("acalnet", 1, C, _configure(Config()).model, device="cpu")
+    model.load_state_dict(sd)
+
+
+# ---------------------------------------------------------------------------
+# checkpoints, the trainer and the CLI
+# ---------------------------------------------------------------------------
+
+def _trained_share_state(seed):
+    cfg = _configure(Config())
+    torch.manual_seed(seed)
+    model = net_factory("acalnet", 1, C, cfg.model, device="cpu")
+    state = create_share_state(model, cfg)
+    joint = build_share_joint_step(model, state.optimizer_g, state.optimizer_f,
+                                   cfg, device="cpu")
+    dec, enc = build_acal_steps(model, state.optimizer_g, state.optimizer_f,
+                                cfg, device="cpu")
+    images, labels = _batch(seed)
+    mask = torch.from_numpy(_replay_mask())
+    state, _, _ = joint(state, _port_batch(images, labels))
+    state, _ = dec(state, torch.from_numpy(images), torch.from_numpy(labels), mask)
+    state, _ = enc(state, torch.from_numpy(images), mask)
+    state, _ = enc(state, torch.from_numpy(images), mask)
+    return state
+
+
+def test_share_state_roundtrip_is_exact(tmp_path):
+    state = _trained_share_state(0)
+    assert (state.step, state.count_g, state.count_f) == (1, 3, 2)
+    ckpt = CheckpointManager(str(tmp_path))
+    for slot in ("best_model1", "best_model2", "latest"):
+        ckpt.save(slot, state)
+    other = _trained_share_state(1)
+    other.step, other.count_g, other.count_f = 9, 9, 9
+    assert ckpt.restore("best_model2", other) is other
+    assert (other.step, other.count_g, other.count_f) == (1, 3, 2)
+    for (k, a), (_, b) in zip(state.model.state_dict().items(),
+                              other.model.state_dict().items()):
+        torch.testing.assert_close(b, a, rtol=0, atol=0, msg=k)
+    for name in ("optimizer_g", "optimizer_f"):
+        opt_a, opt_b = getattr(state, name), getattr(other, name)
+        params_a = [p for g in opt_a.param_groups for p in g["params"]]
+        params_b = [p for g in opt_b.param_groups for p in g["params"]]
+        assert len(params_a) == len(params_b) > 0
+        for pa, pb in zip(params_a, params_b):
+            torch.testing.assert_close(opt_b.state[pb]["momentum_buffer"],
+                                       opt_a.state[pa]["momentum_buffer"],
+                                       rtol=0, atol=0)
+    files = os.listdir(tmp_path / "checkpoints" / "latest")
+    assert files == ["state.pt"]
+
+
+def _share_cfg(tmp_path):
+    cfg = update_values(dataclasses.asdict(jax_tiny_cfg(tmp_path)), Config())
+    cfg.model.name = "acalnet"
+    cfg.model.decoder_type = "same"
+    cfg.data.image_size = (32, 32)
+    cfg.semi.acal = True
+    cfg.semi.acal_start_iter = 4
+    cfg.semi.adv_losstype = "mse"
+    cfg.semi.mb_patch_size = 8
+    cfg.optim.max_iterations = 8
+    cfg.eval.eval_every = 4
+    cfg.run.log_every = 2
+    return cfg
+
+
+def _records(path):
+    with open(os.path.join(path, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def test_trainer_share_e2e(tmp_path):
+    """8 iterations, replay from iteration 5: the three slots, the replay
+    metrics at the log steps after the start, and the schedule counts in
+    the latest slot (8 joint updates plus 4 replay updates each)."""
+    cfg = _share_cfg(tmp_path)
+    result = trainer_share.train(cfg, str(tmp_path), device="cpu")
+    assert result["steps"] == 8
+    assert 0 <= result["best_dice_model1"] <= 1 and 0 <= result["best_dice_model2"] <= 1
+    for slot in ("best_model1", "best_model2", "latest"):
+        assert os.path.isfile(tmp_path / "checkpoints" / slot / "state.pt"), slot
+    records = _records(tmp_path)
+    logged = [r for r in records if "loss" in r]
+    assert [r["step"] for r in logged] == [2, 4, 6, 8]
+    assert all("mb_feed_ms" in r and np.isfinite(r["loss"]) for r in logged)
+    assert ["dis_loss" in r for r in logged] == [False, False, True, True]
+    evals = [r for r in records if "model1_val_mean_dice" in r]
+    assert [r["step"] for r in evals] == [4, 8]
+    assert all("model2_val_mean_hd95" in r and r["checkpoint_ms"] > 0 for r in evals)
+    model = net_factory("acalnet", 1, C, cfg.model, device="cpu")
+    state = CheckpointManager(str(tmp_path)).restore_latest(
+        create_share_state(model, cfg))
+    assert (state.step, state.count_g, state.count_f) == (8, 12, 12)
+
+
+def test_trainer_share_refuses_several_devices(tmp_path):
+    cfg = _share_cfg(tmp_path)
+    cfg.parallel.num_devices = 2
+    with pytest.raises(NotImplementedError, match="ROADMAP item 16"):
+        trainer_share.train(cfg, str(tmp_path), device="cpu")
+
+
+@pytest.mark.parametrize("argv", [
+    ["--cfg", ACAL_YML],
+    ["--cfg", ACAL_YML, "--acal", "--labeled_num", "7",
+     "--adv_losstype", "softdice", "--patch_size", "32", "--consistency_type",
+     "mse", "--exp", "x", "semi.acal_start_iter=10", "data.batch_size=8"],
+    ["--acal", "--consistency", "0.3", "--decoder_type", "plus", "--seed", "4",
+     "--batch_size", "6", "--labeled_bs", "2", "--max_iterations", "9"]])
+def test_cli_maps_flags_as_chap_tpu(tmp_path, monkeypatch, argv):
+    """The whole config each CLI hands its trainer, the --acal override of
+    the YAML's semi.acal: true included."""
+    argv = ["--text", "t"] + argv + [f"run.snapshot_root={tmp_path}"]
+    captured = {}
+
+    def fake_train(cfg, save_dir, max_steps=None):
+        captured["cfg"] = cfg
+        return {}
+    monkeypatch.setattr(jax_trainer_share, "train", fake_train)
+    monkeypatch.setattr(sys, "argv", ["train_share_2d"] + argv)
+    jax_cli.main()
+    want = update_values(dataclasses.asdict(captured["cfg"]), Config())
+    got = cli_share.build_config(cli_share.parse_args(argv))
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert got.model.name == "acalnet"
+    assert got.semi.acal == ("--acal" in argv)
+
+
+def test_cli_trains_on_the_cpu(tmp_path):
+    out = cli_share.main([
+        "--device", "cpu", "--cfg", ACAL_YML, "--acal",
+        "--dataset", "synthetic", "--batch_size", "8", "--labeled_bs", "4",
+        "--max_iterations", "4", "--patch_size", "8", "--exp", "t",
+        "semi.acal_start_iter=2", "data.image_size=[32,32]",
+        "data.synthetic_train_size=80", "data.synthetic_val_volumes=2",
+        "eval.eval_every=2", "run.log_every=2", f"run.snapshot_root={tmp_path}",
+        "model.feature_chns=[4,8,16,16,32]"])
+    assert out["steps"] == 4 and out["save_dir"].endswith(os.path.join(
+        "synthetic", "t_3_labeled", "acalnet", "run_0"))
+    for name in ("config.json", "doc.txt", "log.txt", "metrics.jsonl",
+                 "checkpoints/best_model1/state.pt",
+                 "checkpoints/best_model2/state.pt", "checkpoints/latest/state.pt"):
+        assert os.path.exists(os.path.join(out["save_dir"], name)), name

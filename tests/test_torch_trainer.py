@@ -313,7 +313,7 @@ def test_host_batches_equal_chap_tpu_loader(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("mode,cfg_change,match", [
-    ("ablation", None, "ROADMAP item 13"),
+    ("chap", ("model", "name", "unet"), "ROADMAP item 18"),
     ("chap", ("parallel", "num_devices", 2), "ROADMAP item 16"),
     ("fixmatch", None, "unknown mode")])
 def test_trainer_refuses_what_is_not_ported(tmp_path, mode, cfg_change, match):
