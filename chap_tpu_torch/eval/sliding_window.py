@@ -169,6 +169,21 @@ def sw_accumulate(logits1: torch.Tensor, logits2: Optional[torch.Tensor],
 # the engine
 # ---------------------------------------------------------------------------
 
+def _two_logits(out) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The logits K3 averages: a model with several outputs gives its first
+    two, (out[0] + out[1]) / 2 as chap_tpu's sliding_window.py:144-146 (for
+    unet_3D_dv_semi that is dsv1 and dsv2 of its four); one output gives
+    (out, None)."""
+    if not isinstance(out, (tuple, list)):
+        return out, None
+    o1, o2 = out[0], out[1]
+    if not isinstance(o2, torch.Tensor) or o2.shape != o1.shape:
+        raise ValueError("the model's second output is no segmentation of the "
+                         "patch (vnet_ds gives side logits, resvnet features); "
+                         "chap_tpu's engine fails on it too")
+    return o1, o2
+
+
 class SlidingWindowEngine:
     """Sliding-window inference of one model at one patch size and batch;
     reuse it across cases. The model runs in eval mode (its mode is restored
@@ -238,7 +253,7 @@ class SlidingWindowEngine:
                     patches = torch.stack([vol[x:x + px, y:y + py, z:z + pz]
                                            for x, y, z in batch.tolist()])
                     out = self.model(patches.unsqueeze(1))
-                    o1, o2 = out if isinstance(out, (tuple, list)) else (out, None)
+                    o1, o2 = _two_logits(out)
                     if o1.shape[1] != num_classes:
                         raise ValueError(f"the model gives {o1.shape[1]} classes, "
                                          f"expected {num_classes}")

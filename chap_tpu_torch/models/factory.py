@@ -1,6 +1,6 @@
 """Model factories (port of chap_tpu/models/factory.py): ``net_factory``
-with the 2D ``dualdecoder`` and ``acalnet`` keys and ``net_factory_3d`` with
-``vnet`` and ``dualdecoder``; the rest of the zoo comes in later slices."""
+with the 2D ``dualdecoder`` and ``acalnet`` keys (the rest of the 2D zoo is
+ROADMAP item 18) and ``net_factory_3d`` with every 3D key."""
 from __future__ import annotations
 
 import logging
@@ -11,8 +11,13 @@ import torch.nn as nn
 
 from chap_tpu_torch.config import ModelConfig
 from chap_tpu_torch.device import resolve_device
+from chap_tpu_torch.models.attention3d import AttentionUNet3D
+from chap_tpu_torch.models.resvnet import ResVNet
 from chap_tpu_torch.models.unet2d import DualDecoder
-from chap_tpu_torch.models.vnet3d import DualDecoder3d, VNet
+from chap_tpu_torch.models.unet3d import UNet3D
+from chap_tpu_torch.models.unet3d_dv import UNet3DDvSemi
+from chap_tpu_torch.models.vnet3d import DualDecoder3d, VNet, VNetDS
+from chap_tpu_torch.models.voxresnet import VoxResNet
 
 logger = logging.getLogger(__name__)
 
@@ -50,27 +55,41 @@ def net_factory(net_type: str, in_chns: int, class_num: int,
 def net_factory_3d(net_type: str, in_chns: int, class_num: int,
                    mode: str = "train", cfg: Optional[ModelConfig] = None,
                    device: Optional[Union[str, torch.device]] = None) -> nn.Module:
-    """3D factory: ``vnet`` | ``dualdecoder``, with dropout in train mode
-    only (net_factory_3d.py:16-27), built on ``device`` (the card unless
+    """3D factory, every key of chap_tpu/models/factory.py:70-109 with its
+    constructor arguments: ``unet_3D``, ``attention_unet`` and
+    ``unet_3D_dv_semi`` (feature_scale 4), ``voxresnet`` (64 channels),
+    ``vnet``, ``vnet_ds`` and ``dualdecoder`` (``model.n_filters_3d``,
+    ``model.normalization_3d``, dropout in train mode only,
+    net_factory_3d.py:16-27) and ``resvnet`` (16 filters, instance norm,
+    dropout in train mode). Built on ``device`` (the card unless
     ``device="cpu"``). chap_tpu's s2d / z-pack flags are accepted and change
     nothing (logged once each)."""
     cfg = cfg or ModelConfig()
     _check_dtype(cfg)
     dev = resolve_device(device)
+    vnet_family = net_type in ("vnet", "vnet_ds", "dualdecoder")
     for flag in _TPU_LAYOUT_FLAGS:
-        if getattr(cfg, flag, False) and flag not in _logged_flags:
+        if vnet_family and getattr(cfg, flag, False) and flag not in _logged_flags:
             _logged_flags.add(flag)
             logger.info("model.%s=True: an exact TPU relayout of the VNet "
                         "convolutions in chap_tpu; it changes nothing here "
                         "(plain NCDHW convolutions)", flag)
-    kwargs = dict(in_chns=in_chns, num_classes=class_num,
-                  n_filters=cfg.n_filters_3d,
-                  normalization=cfg.normalization_3d,
-                  has_dropout=mode == "train")
-    if net_type == "vnet":
-        return VNet(**kwargs).to(dev)
-    if net_type == "dualdecoder":
-        return DualDecoder3d(**kwargs).to(dev)
-    raise ValueError(f"3D net_type {net_type!r} is not ported yet (available: "
-                     f"vnet, dualdecoder); the rest of the 3D zoo is ROADMAP "
-                     f"item 17")
+    has_dropout = mode == "train"
+    vnet_kwargs = dict(in_chns=in_chns, num_classes=class_num,
+                       n_filters=cfg.n_filters_3d,
+                       normalization=cfg.normalization_3d,
+                       has_dropout=has_dropout)
+    builders = {
+        "unet_3D": lambda: UNet3D(in_chns, class_num),
+        "attention_unet": lambda: AttentionUNet3D(in_chns, class_num),
+        "voxresnet": lambda: VoxResNet(in_chns, class_num, feature_chns=64),
+        "vnet": lambda: VNet(**vnet_kwargs),
+        "vnet_ds": lambda: VNetDS(**vnet_kwargs),
+        "dualdecoder": lambda: DualDecoder3d(**vnet_kwargs),
+        "resvnet": lambda: ResVNet(in_chns, class_num, has_dropout=has_dropout),
+        "unet_3D_dv_semi": lambda: UNet3DDvSemi(in_chns, class_num),
+    }
+    if net_type not in builders:
+        raise ValueError(f"unknown 3D net_type {net_type!r} (one of "
+                         f"{', '.join(builders)})")
+    return builders[net_type]().to(dev)

@@ -14,8 +14,9 @@ whose updates are discarded (VAT) and re-run forwards (checkpointing) safe.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -38,6 +39,66 @@ def upsample2x_trilinear(x: torch.Tensor) -> torch.Tensor:
     return F.interpolate(x, scale_factor=2, mode="trilinear", align_corners=True)
 
 
+def _resize_weights(n_in: int, n_out: int) -> np.ndarray:
+    """[n_out, n_in] weights of jax.image.resize's 'linear' method along one
+    axis (jax/_src/image/scale.py compute_weight_mat, antialias on): a
+    triangle kernel at the half-pixel sample points, widened by n_in / n_out
+    when downsampling, renormalised where it reaches past the edges."""
+    inv_scale = n_in / n_out
+    kernel_scale = max(inv_scale, 1.0)
+    sample = (np.arange(n_out) + 0.5) * inv_scale - 0.5
+    w = np.maximum(0.0, 1.0 - np.abs(sample[:, None] - np.arange(n_in)[None, :])
+                   / kernel_scale)
+    total = w.sum(axis=1, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
+                 w / np.where(total != 0, total, 1), 0.0)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return np.where(inside[:, None], w, 0.0).astype(np.float32)
+
+
+def resize_linear(x: torch.Tensor, size: Sequence[int]) -> torch.Tensor:
+    """jax.image.resize(x, ..., method="linear") over the spatial axes of an
+    NC... tensor: half-pixel centred, edge weights renormalised. Where no
+    axis shrinks this is F.interpolate(align_corners=False) (the same
+    weights); an axis that shrinks gets JAX's antialiased (widened) kernel,
+    which F.interpolate lacks, applied as a [out, in] matrix."""
+    size = tuple(int(s) for s in size)
+    spatial = tuple(x.shape[2:])
+    if size == spatial:
+        return x
+    if all(o >= i for o, i in zip(size, spatial)):
+        mode = {1: "linear", 2: "bilinear", 3: "trilinear"}[len(size)]
+        return F.interpolate(x, size=size, mode=mode, align_corners=False)
+    for axis, (n_in, n_out) in enumerate(zip(spatial, size)):
+        if n_in == n_out:
+            continue
+        w = torch.from_numpy(_resize_weights(n_in, n_out)).to(x.device, x.dtype)
+        x = torch.movedim(torch.movedim(x, axis + 2, -1) @ w.T, -1, axis + 2)
+    return x
+
+
+def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Affine-free per-sample, per-channel normalisation with the biased
+    variance: chap_tpu's ``_instance_norm`` (voxresnet.py:12-16) and
+    UnetConv3 norm (unet3d.py:29-33). A map of one voxel normalises to 0, as
+    there, where F.instance_norm refuses it."""
+    if x[0, 0].numel() == 1:
+        return torch.zeros_like(x)
+    return F.instance_norm(x, eps=eps)
+
+
+class InstanceNorm(nn.Module):
+    """``instance_norm`` as a module without parameters or buffers (the
+    reference's affine-free nn.InstanceNorm3d)."""
+
+    def __init__(self, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return instance_norm(x, self.eps)
+
+
 def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:
     """Repeat every spatial axis of an NC... tensor twice (chap_tpu's
     upsample2x_nearest over the spatial dims)."""
@@ -56,6 +117,18 @@ def dropout_from_uniform(x: torch.Tensor, p: float,
     keep = 1.0 - p
     return torch.where(u < keep, x / keep, torch.zeros((), dtype=x.dtype,
                                                        device=x.device))
+
+
+def split_drop_u(drop_u, n: int) -> List[Optional[torch.Tensor]]:
+    """A model's ``drop_u`` as its ``n`` uniforms (None: n Nones, each
+    drawn from the global generator)."""
+    if drop_u is None:
+        return [None] * n
+    drop_u = list(drop_u)
+    if len(drop_u) != n:
+        raise ValueError(f"drop_u holds {len(drop_u)} uniforms, the model "
+                         f"consumes {n} (its dropout_shapes)")
+    return drop_u
 
 
 class FlaxBatchNorm:

@@ -1,7 +1,8 @@
 """VNet family for LA / Pancreas 3D segmentation (port of
-chap_tpu/models/vnet3d.py:164-388,486-574): ConvBlock3d, ResidualConvBlock3d,
-DownBlock3d, UpBlock3d (modes 0, 1, 2), VEncoder, VDecoder, VNet and
-DualDecoder3d.
+chap_tpu/models/vnet3d.py): ConvBlock3d, ResidualConvBlock3d, DownBlock3d,
+UpBlock3d (modes 0, 1, 2), VEncoder, VDecoder, VNet, the deep-supervised
+VNetDS with its SideConv3d heads, and DualDecoder3d; normalisation
+batchnorm, groupnorm, instancenorm or none.
 
 NCDHW ``[B, C, X, Y, Z]`` where chap_tpu is ``[B, X, Y, Z, C]``, with the
 reference torch module names (``encoder.block_one.conv.0`` ...), which are the
@@ -17,7 +18,8 @@ Dropout: with ``has_dropout``, a train-mode forward drops elements of the
 bottleneck x5 and of each decoder's last features with probability 0.5
 (chap_tpu's ``bernoulli(rng, 0.5)``, keep where u < 0.5). The uniforms are
 passed in as ``drop_u = [u_x5, u_decoder1(, u_decoder2)]``, each shaped like
-the tensor it drops (``dropout_shapes``); None draws from the global
+the tensor it drops (``dropout_shapes``, and every 3D model's
+``dropout_shapes(rows, spatial)`` method); None draws from the global
 generator.
 """
 from __future__ import annotations
@@ -28,8 +30,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from chap_tpu_torch.models.layers import (BatchNorm3d, FlaxBatchNorm, Stats,
+from chap_tpu_torch.models.layers import (BatchNorm3d, FlaxBatchNorm,
+                                          InstanceNorm, Stats,
                                           dropout_from_uniform, set_stats_keys,
+                                          split_drop_u,
                                           upsample2x_nearest,
                                           upsample2x_trilinear)
 from chap_tpu_torch.models.perturb import perform_dropout
@@ -47,14 +51,26 @@ def dropout_shapes(rows: int, n_filters: int, spatial: Sequence[int],
             + [(rows, n_filters, x, y, z)] * decoders)
 
 
+# Flax's GroupNorm epsilon, which chap_tpu's groupnorm and instancenorm keep
+# (torch's nn.GroupNorm / nn.InstanceNorm3d default to 1e-5)
+GN_EPS = 1e-6
+
+
 def _norm(normalization: str, channels: int) -> Optional[nn.Module]:
+    """chap_tpu's _norm (vnet3d.py:22-33): Flax BatchNorm, GroupNorm of 16
+    groups with scale and bias, or an affine-free GroupNorm of one channel a
+    group (an instance norm), both at Flax's epsilon 1e-6. Flax takes the
+    group variance in one pass, E[x^2] - E[x]^2; torch's group_norm in two,
+    the exact value (tests/test_torch_zoo3d.py holds the difference)."""
     if normalization == "batchnorm":
         return BatchNorm3d(channels)
+    if normalization == "groupnorm":
+        return nn.GroupNorm(16, channels, eps=GN_EPS)
+    if normalization == "instancenorm":
+        return InstanceNorm(GN_EPS)
     if normalization == "none":
         return None
-    raise NotImplementedError(
-        f"normalization {normalization!r} is not ported (batchnorm | none); "
-        f"groupnorm and instancenorm come with the 3D zoo, ROADMAP item 17")
+    raise ValueError(f"unknown normalization {normalization!r}")
 
 
 def _run(seq: nn.Sequential, x: torch.Tensor, stats: Optional[Stats]
@@ -226,25 +242,23 @@ class VDecoder(nn.Module):
         self.block_nine = block(1, nf, nf, norm)
         self.out_conv = nn.Conv3d(nf, num_classes, 1)
 
+    def stages(self, features: Sequence[torch.Tensor],
+               u_out: Optional[torch.Tensor] = None,
+               stats: Optional[Stats] = None
+               ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        """(logits, [x6, x7, x8]): the output and the three coarsest
+        decoder stages' features."""
+        x1, x2, x3, x4, x5 = features
+        x6 = self.block_six(self.block_five_up(x5, stats) + x4, stats)
+        x7 = self.block_seven(self.block_six_up(x6, stats) + x3, stats)
+        x8 = self.block_eight(self.block_seven_up(x7, stats) + x2, stats)
+        x = self.block_nine(self.block_eight_up(x8, stats) + x1, stats)
+        return self.out_conv(_dropout(self, x, u_out)), [x6, x7, x8]
+
     def forward(self, features: Sequence[torch.Tensor],
                 u_out: Optional[torch.Tensor] = None,
                 stats: Optional[Stats] = None) -> torch.Tensor:
-        x1, x2, x3, x4, x5 = features
-        x = self.block_six(self.block_five_up(x5, stats) + x4, stats)
-        x = self.block_seven(self.block_six_up(x, stats) + x3, stats)
-        x = self.block_eight(self.block_seven_up(x, stats) + x2, stats)
-        x = self.block_nine(self.block_eight_up(x, stats) + x1, stats)
-        return self.out_conv(_dropout(self, x, u_out))
-
-
-def _drop_list(drop_u, n: int) -> List[Optional[torch.Tensor]]:
-    if drop_u is None:
-        return [None] * n
-    drop_u = list(drop_u)
-    if len(drop_u) != n:
-        raise ValueError(f"drop_u holds {len(drop_u)} uniforms, the model "
-                         f"consumes {n} (models/vnet3d.py dropout_shapes)")
-    return drop_u
+        return self.stages(features, u_out, stats)[0]
 
 
 class VNet(nn.Module):
@@ -257,16 +271,69 @@ class VNet(nn.Module):
                  n_filters: int = 16, normalization: str = "none",
                  has_dropout: bool = False, has_residual: bool = False):
         super().__init__()
+        self.n_filters = n_filters
         self.encoder = VEncoder(in_chns, n_filters, normalization, has_dropout,
                                 has_residual)
         self.decoder = VDecoder(num_classes, n_filters, normalization,
                                 has_dropout, has_residual, 0)
         set_stats_keys(self)
 
+    def dropout_shapes(self, rows: int, spatial: Sequence[int]
+                       ) -> List[Tuple[int, ...]]:
+        return dropout_shapes(rows, self.n_filters, spatial, 1)
+
     def forward(self, x: torch.Tensor, *, drop_u=None,
                 stats: Optional[Stats] = None) -> torch.Tensor:
-        u_x5, u_out = _drop_list(drop_u, 2)
+        u_x5, u_out = split_drop_u(drop_u, 2)
         return self.decoder(self.encoder(x, u_x5, stats), u_out, stats)
+
+
+class SideConv3d(nn.Module):
+    """Deep-supervision side heads (vnet.py SideConv:317-336): 1x1x1 class
+    projections of the bottleneck and the three coarsest decoder stages at
+    their own resolutions (chap_tpu's vnet3d.py:423-437; the reference's
+    upsample member is never applied)."""
+
+    def __init__(self, n_filters: int = 16, num_classes: int = 2):
+        super().__init__()
+        for name, m in zip(("side5", "side4", "side3", "side2"), (16, 8, 4, 2)):
+            setattr(self, name, nn.Conv3d(m * n_filters, num_classes, 1))
+
+    def forward(self, stage_feats: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        return [conv(f) for conv, f in zip(
+            (self.side5, self.side4, self.side3, self.side2), stage_feats)]
+
+
+class VNetDS(nn.Module):
+    """Deep-supervised VNet (chap_tpu vnet3d.py:391-484): VEncoder, the
+    deconv decoder (Decoder_ds, vnet.py:241-300) and SideConv3d.
+    forward(x) -> (logits [B, C, X, Y, Z], [side5, side4, side3, side2]), the
+    side logits at 1/16, 1/8, 1/4 and 1/2 of the input. Dropout as VNet's."""
+
+    num_decoders = 1
+
+    def __init__(self, in_chns: int = 1, num_classes: int = 2,
+                 n_filters: int = 16, normalization: str = "none",
+                 has_dropout: bool = False, has_residual: bool = False):
+        super().__init__()
+        self.n_filters = n_filters
+        self.encoder = VEncoder(in_chns, n_filters, normalization, has_dropout,
+                                has_residual)
+        self.decoder = VDecoder(num_classes, n_filters, normalization,
+                                has_dropout, has_residual, 0)
+        self.side = SideConv3d(n_filters, num_classes)
+        set_stats_keys(self)
+
+    def dropout_shapes(self, rows: int, spatial: Sequence[int]
+                       ) -> List[Tuple[int, ...]]:
+        return dropout_shapes(rows, self.n_filters, spatial, 1)
+
+    def forward(self, x: torch.Tensor, *, drop_u=None,
+                stats: Optional[Stats] = None):
+        u_x5, u_out = split_drop_u(drop_u, 2)
+        features = self.encoder(x, u_x5, stats)
+        out, stage_feats = self.decoder.stages(features, u_out, stats)
+        return out, self.side([features[4]] + stage_feats)
 
 
 class DualDecoder3d(nn.Module):
@@ -281,6 +348,7 @@ class DualDecoder3d(nn.Module):
                  n_filters: int = 16, normalization: str = "none",
                  has_dropout: bool = False, has_residual: bool = False):
         super().__init__()
+        self.n_filters = n_filters
         self.encoder = VEncoder(in_chns, n_filters, normalization, has_dropout,
                                 has_residual)
         self.decoder1 = VDecoder(num_classes, n_filters, normalization,
@@ -289,13 +357,17 @@ class DualDecoder3d(nn.Module):
                                  has_dropout, has_residual, 0)
         set_stats_keys(self)
 
+    def dropout_shapes(self, rows: int, spatial: Sequence[int]
+                       ) -> List[Tuple[int, ...]]:
+        return dropout_shapes(rows, self.n_filters, spatial, 2)
+
     def forward(self, x: torch.Tensor, *, drop_u=None,
                 dropout_level: Optional[Sequence[int]] = None,
                 scores: Optional[Sequence[Optional[torch.Tensor]]] = None,
                 comp_dropout: bool = False, perturb_draws=None,
                 perturb_gate=None, stats: Optional[Stats] = None):
         """x: [B, Cin, X, Y, Z] -> (logits1, logits2)."""
-        u_x5, u_1, u_2 = _drop_list(drop_u, 3)
+        u_x5, u_1, u_2 = split_drop_u(drop_u, 3)
         features = self.encoder(x, u_x5, stats)
         if dropout_level is None:
             f1 = f2 = features

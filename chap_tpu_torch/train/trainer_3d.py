@@ -2,7 +2,8 @@
 full CHAP method in 3D, the rank-generic CHAP step over two-stream patch
 batches of the DualDecoder3d, evaluated with the sliding-window engine;
 plus the cross-pseudo-supervision step (mode ``cps``) and the fully
-supervised step (mode ``supervised``, the BraTS protocol).
+supervised step (mode ``supervised``, the BraTS protocol) of any
+``net_factory_3d`` model (``model.name_3d``) but vnet_ds and resvnet.
 
 Orchestration, as in train/trainer_2d.py:
   - patches come from the card-resident volume pool with the on-card crop
@@ -29,7 +30,7 @@ from __future__ import annotations
 
 import logging
 import time
-from typing import Dict, Optional, Union
+from typing import Dict, Optional, Sequence, Union
 
 import torch
 
@@ -45,12 +46,14 @@ from chap_tpu_torch.eval.sliding_window import test_all_case
 from chap_tpu_torch.losses.ce import cross_entropy_per_pixel
 from chap_tpu_torch.losses.dice import dice_ce_supervised
 from chap_tpu_torch.models.factory import net_factory_3d
+from chap_tpu_torch.models.resvnet import ResVNet
+from chap_tpu_torch.models.vnet3d import VNetDS
 from chap_tpu_torch.semi.gradsim import VNET_LEVEL_PATHS
 from chap_tpu_torch.train.state import (TrainState, create_train_state,
                                         fold_batch_stats, make_lr_schedule,
                                         make_optimizer)
 from chap_tpu_torch.train.step_chap import (StepOutput, build_chap_train_step,
-                                            level_channels)
+                                            level_channels, uniform_sampler)
 from chap_tpu_torch.train.step_supervised import draw_supervised_uniforms
 from chap_tpu_torch.train.trainer_2d import _synchronize, batch_stream_seed
 from chap_tpu_torch.utils.checkpoint import CheckpointManager
@@ -141,17 +144,47 @@ def build_cps3d_train_step(model: torch.nn.Module,
     return step
 
 
+# models whose outputs past the first are not segmentations; chap_tpu's
+# supervised step feeds every output to the loss and fails on them
+# (trainer_3d.py:119-124)
+_NOT_SUPERVISABLE = {
+    VNetDS: ("vnet_ds", "its second output is the list of four side logits "
+             "at 1/16 .. 1/2 of the patch, and chap_tpu's step fails on it "
+             "with a TypeError"),
+    ResVNet: ("resvnet", "its second output is the decoder's first-stage "
+              "features x6 (8 n_filters channels at 1/8 of the patch), and "
+              "chap_tpu's step fails on it with a broadcast ValueError"),
+}
+
+
+def draw_model_uniforms(model: torch.nn.Module, image_shape: Sequence[int],
+                        generator: Optional[torch.Generator] = None,
+                        device: Optional[Union[str, torch.device]] = None
+                        ) -> Dict[str, object]:
+    """{'drop': the uniforms of one train-mode pass of ``model`` over a
+    batch of ``image_shape``, at its own ``dropout_shapes``}, drawn as
+    step_chap.uniform_sampler says."""
+    b, _, *spatial = (int(s) for s in image_shape)
+    rand, _ = uniform_sampler(generator, device)
+    return {"drop": [rand(s) for s in model.dropout_shapes(b, spatial)]}
+
+
 def build_supervised3d_train_step(model: torch.nn.Module,
                                   optimizer: torch.optim.Optimizer,
                                   cfg: Config,
                                   device: Optional[Union[str, torch.device]] = None):
     """Fully supervised 3D step (chap_tpu trainer_3d.py:102-135): dice+CE
-    over the whole batch (K1, R = 1); a dual-output model averages its two
-    heads. Metrics loss, sup_loss."""
+    over the whole batch (K1, R = 1, one launch an output); a model with
+    several outputs (DualDecoder3d, unet_3D_dv_semi) averages their losses.
+    Refuses vnet_ds and resvnet, whose extra outputs are no segmentations.
+    Metrics loss, sup_loss."""
+    for cls, (key, why) in _NOT_SUPERVISABLE.items():
+        if isinstance(model, cls):
+            raise ValueError(f"net_factory_3d key {key!r} cannot train in the "
+                             f"supervised 3D step: {why}")
     device = resolve_device(device)
     _check_device(model, device)
     num_classes = cfg.data.num_classes
-    decoders = getattr(model, "num_decoders", 1)
     lr_schedule = make_lr_schedule(cfg.optim.base_lr, cfg.optim.max_iterations,
                                    cfg.optim.poly_power)
 
@@ -161,8 +194,8 @@ def build_supervised3d_train_step(model: torch.nn.Module,
         image = batch["image"]
         label = batch["label"].to(torch.int32)
         if draws is None:
-            draws = draw_supervised_uniforms(cfg, image.shape, generator,
-                                             image.device, decoders)
+            draws = draw_model_uniforms(model, image.shape, generator,
+                                        image.device)
         model.train()
         stats: Dict = {}
         out = model(image, drop_u=draws["drop"], stats=stats)

@@ -17,7 +17,8 @@ Phases (any failure raises and the script exits non-zero):
                [0, C) that match a padded class index, and the 3D step's
                [1, 2, 112, 112, 80] (R = 2) and [2, 2, 112, 112, 80]
                (R = 1) and a ragged [2, 3, 23, 29, 17], and the ACAL
-               steps' labeled half [12, 4, 256, 256] (R = 1): statistics, dice,
+               steps' labeled half [12, 4, 256, 256] (R = 1) and the BraTS
+               supervised step's [4, 2, 96, 96, 96] (R = 1): statistics, dice,
                ce and d/dlogits (also with one region's grads None) at
                rtol 2e-3, two calls bit-identical; at the timed shapes
                torch.profiler counts the device kernels of 3 forward calls
@@ -80,7 +81,9 @@ Phases (any failure raises and the script exits non-zero):
                and a 16x16x10 patch at z-stride 3 (scalar path); score
                within 1e-6 relative, counts equal, label maps equal
                (near-ties within 1e-5 counted), two runs bit-identical; one
-               LA batch timed
+               LA batch timed. Then one output (no second logits, unet_3D's
+               eval) at the BraTS eval's batch of 8 patches of 96^3 over a
+               160x160x128 volume, held and timed the same way
  11. parity 3D one 3D CHAP step on the card and on the CPU from the same
                weights and draws (nf 4, patch 32x32x16, batch 4, TF32 off):
                the 7 metrics at rtol 2e-3, launches 4 / 12 / 1 (K2 3D);
@@ -132,11 +135,36 @@ Phases (any failure raises and the script exits non-zero):
      ablation  values on synthetic data: 10 steps, 2 / 2 / 0 a step, one
                disagreement.csv row per log step; the ``trainer_ablation``
                line
- 18. report    the kernels line (JSON), the card line, and the last line
+ 18. parity    every net_factory_3d key (unet_3D, attention_unet, voxresnet,
+     zoo3d     vnet, vnet_ds, dualdecoder, resvnet, unet_3D_dv_semi) and
+               VNet with groupnorm and instancenorm at a small width on the
+               card and on the CPU from the same weights and dropout draws
+               (48x32x16, TF32 off): every output in eval and train mode
+               and the BatchNorm batch statistics at 5e-4 of the output's
+               scale; one supervised step each of unet_3D, attention_unet,
+               voxresnet and unet_3D_dv_semi, loss at rtol 2e-3, the card's
+               K1 launches 1 / 1 (4 / 4 for unet_3D_dv_semi); vnet_ds and
+               resvnet refused by the supervised step
+ 19. slice     the supervised step at configs/brats_supervised.yml's values
+     zoo3d     (96^3, batch 4, 2 classes, fp32 by override, random weights
+               from a seed) for unet_3D (feature_scale 4: widths 16-256),
+               attention_unet and unet_3D_dv_semi: 1 warm-up and 3 timed
+               steps, launches asserted (1 / 1 a step, 4 / 4 for
+               unet_3D_dv_semi), peak memory; torch.profiler over 1 unet_3D
+               step by kernel class (``slice_zoo3d``, ``profile_zoo3d``)
+ 20. trainer   cli.train_3d.main --cfg configs/brats_supervised.yml --method
+     zoo3d     supervised --dataset synthetic (the 96^3 patch set back by
+               override, fp32): 4 unet_3D steps, --resume to 6, 1 / 1 K1 a
+               step; test_all_case on the latest weights over 2 synthetic
+               volumes of 160x160x128 at stride 64, sw_batch 8, and
+               cli.test_3d --model unet_3D, K3 launches equal to the patch
+               batches in both. Prints the ``trainer_zoo3d`` line (steps/s,
+               eval s per volume, checkpoint ms, peak bytes)
+ 21. report    the kernels line (JSON), the card line, and the last line
                {"ok": true, "device": {...}}
 
 The 2D and 3D phases keep the counts and depths they had before the ACAL
-path was added.
+path and the 3D zoo were added.
 
 Two diagnostics run only by hand, each from the repository root:
 
@@ -183,7 +211,13 @@ from chap_tpu_torch.data.device_data import build_device_batch_fn, build_device_
 from chap_tpu_torch.data.pipeline import to_device
 from chap_tpu_torch.eval import sliding_window as sw
 from chap_tpu_torch.eval.eval2d import evaluate_volumes, make_predictor, predict_volume
+from chap_tpu_torch.models.attention3d import AttentionUNet3D
 from chap_tpu_torch.models.factory import net_factory, net_factory_3d
+from chap_tpu_torch.models.resvnet import ResVNet
+from chap_tpu_torch.models.unet3d import UNet3D
+from chap_tpu_torch.models.unet3d_dv import UNet3DDvSemi
+from chap_tpu_torch.models.vnet3d import DualDecoder3d, VNet, VNetDS
+from chap_tpu_torch.models.voxresnet import VoxResNet
 from chap_tpu_torch.ops import cuda_build, fused_losses
 from chap_tpu_torch.semi import nms
 from chap_tpu_torch.semi.gradsim import VNET_LEVEL_PATHS
@@ -1874,6 +1908,349 @@ def phase_trainer_ablation() -> dict:
 
 
 
+# ---------------------------------------------------------------------------
+# phases 18-20: the 3D model zoo and the BraTS supervised protocol
+# ---------------------------------------------------------------------------
+
+BRATS_CFG = "configs/brats_supervised.yml"
+BRATS_PATCH = (96, 96, 96)
+# K1 launches of a supervised step: one R = 1 dice_ce_supervised per output
+ZOO_OUTPUTS = {"unet_3D": 1, "attention_unet": 1, "voxresnet": 1,
+               "unet_3D_dv_semi": 4}
+# the 3D CLI at configs/brats_supervised.yml's values on synthetic volumes:
+# --dataset synthetic pins a 64x64x48 patch, so the BraTS patch is set back
+# by override; 8 of the 12 phantom volumes labeled (the config's 250 would
+# leave no unlabeled stream)
+ZOO_TRAINER_FLAGS = ["--cfg", BRATS_CFG, "--method", "supervised", "--dataset",
+                     "synthetic", "--labeled_num", "8", "--device", "cuda"]
+ZOO_TRAINER_OVERRIDES = ["data.patch_size_3d=[96,96,96]", "model.dtype=float32",
+                         "run.log_every=2", f"run.snapshot_root={RUNS_DIR}"]
+
+
+def supervised_launches(outputs: int) -> dict:
+    return {"K1_fwd": outputs, "K1_bwd": outputs, "K2_ccl": 0, "K2_ccl3d": 0,
+            "K3_sw": 0}
+
+
+def brats_config():
+    """configs/brats_supervised.yml with float32 (bf16 is not ported yet)
+    and the BraTS patch the CLI pins from the dataset name."""
+    cfg = load_config(BRATS_CFG, ["model.dtype=float32"])
+    cfg.data.patch_size_3d = BRATS_PATCH
+    return cfg
+
+
+def small_zoo(key: str):
+    """Each net_factory_3d key's model at a small width (feature_scale 16,
+    8 VoxResNet channels, n_filters 4; n_filters 16 for VNet's groupnorm,
+    whose 16 groups need 16 channels), dropout on."""
+    return {"unet_3D": lambda: UNet3D(1, 2, 16),
+            "attention_unet": lambda: AttentionUNet3D(1, 2, 16),
+            "voxresnet": lambda: VoxResNet(1, 2, 8),
+            "vnet": lambda: VNet(1, 2, 4, "batchnorm", True),
+            "vnet_groupnorm": lambda: VNet(1, 2, 16, "groupnorm", True),
+            "vnet_instancenorm": lambda: VNet(1, 2, 4, "instancenorm", True),
+            "vnet_ds": lambda: VNetDS(1, 2, 4, "batchnorm", True),
+            "dualdecoder": lambda: DualDecoder3d(1, 2, 4, "batchnorm", True),
+            "resvnet": lambda: ResVNet(1, 2, 4, has_dropout=True),
+            "unet_3D_dv_semi": lambda: UNet3DDvSemi(1, 2, 16)}[key]()
+
+
+def _flat(out) -> list:
+    if isinstance(out, (tuple, list)):
+        return [t for o in out for t in _flat(o)]
+    return [out]
+
+
+def zoo_tol(want: torch.Tensor) -> float:
+    """5e-4 x max(1, peak |want|): the port's forward bar, relative to the
+    output's scale above 1, as tests/test_torch_models3d.py holds train-mode
+    VNet logits of up to ~30, where float32 alone moves them by 1e-3."""
+    return 5e-4 * max(1.0, float(want.abs().max()))
+
+
+def phase_parity_zoo3d() -> dict:
+    """Every net_factory_3d key (and VNet with groupnorm and instancenorm)
+    at a small width on the card and on the CPU from the same weights and
+    dropout draws (48x32x16, batch 2, TF32 off): every output in eval and
+    train mode at 5e-4 (zoo_tol), and the train pass's BatchNorm batch
+    statistics (the new running stats' inputs). Then one supervised step of
+    unet_3D, attention_unet, voxresnet and unet_3D_dv_semi on both (32x32x16,
+    batch 4): loss at rtol 2e-3, the card's K1 launches 1 / 1 a step (4 / 4
+    for unet_3D_dv_semi). vnet_ds and resvnet are refused by the step."""
+    set_tf32(False)
+    spatial = (48, 32, 16)
+    keys = ("unet_3D", "attention_unet", "voxresnet", "vnet", "vnet_groupnorm",
+            "vnet_instancenorm", "vnet_ds", "dualdecoder", "resvnet",
+            "unet_3D_dv_semi")
+    res = {"forward_max_abs_err": {}, "stats_max_abs_err": {}, "step": {}}
+    gen = torch.Generator().manual_seed(21)
+    for key in keys:
+        torch.manual_seed(7)
+        cpu = small_zoo(key)
+        card = small_zoo(key).cuda()
+        card.load_state_dict(cpu.state_dict())
+        x = torch.randn((2, 1, *spatial), generator=gen)
+        drop_u = [torch.rand(s, generator=gen) for s in cpu.dropout_shapes(2, spatial)]
+        err = stats_err = 0.0
+        for train in (False, True):
+            cpu.train(train)
+            card.train(train)
+            s_cpu, s_card = {}, {}
+            with torch.no_grad():
+                o_cpu = _flat(cpu(x, drop_u=drop_u, stats=s_cpu))
+                o_card = _flat(card(x.cuda(), drop_u=[u.cuda() for u in drop_u],
+                                    stats=s_card))
+            check(len(o_cpu) == len(o_card), f"{key} outputs")
+            for a, b in zip(o_card, o_cpu):
+                e = float((a.cpu() - b).abs().max())
+                check(e <= zoo_tol(b), f"zoo parity {key} (train={train}): {e}")
+                err = max(err, e)
+            check(set(s_cpu) == set(s_card), f"{key} BN statistics keys")
+            for k in s_cpu:
+                for a, b in zip(s_card[k], s_cpu[k]):
+                    e = float((a.cpu() - b).abs().max())
+                    check(e <= zoo_tol(b), f"zoo BN statistics {key} {k}: {e}")
+                    stats_err = max(stats_err, e)
+        res["forward_max_abs_err"][key] = err
+        res["stats_max_abs_err"][key] = stats_err
+    cfg = brats_config()
+    cfg.data.patch_size_3d = (32, 32, 16)
+    for key, outputs in ZOO_OUTPUTS.items():
+        torch.manual_seed(8)
+        cpu = small_zoo(key)
+        card = small_zoo(key).cuda()
+        card.load_state_dict(cpu.state_dict())
+        batch = phantom_patches(cfg, 40, "cpu")
+        draws = {"drop": [torch.rand(s, generator=gen)
+                          for s in cpu.dropout_shapes(4, cfg.data.patch_size_3d)]}
+        metrics = []
+        for model, dev in ((cpu, "cpu"), (card, "cuda")):
+            opt = make_optimizer(model, cfg.optim.base_lr, cfg.optim.momentum,
+                                 cfg.optim.weight_decay)
+            step = build_supervised3d_train_step(model, opt, cfg, device=dev)
+            before = launch_counts()
+            out = step(create_train_state(model, opt),
+                       batch if dev == "cpu" else to_cuda(batch),
+                       draws=draws if dev == "cpu" else to_cuda(draws))
+            metrics.append(float(out.metrics["loss"]))
+            ran = launches_since(before)
+        check(ran == supervised_launches(outputs),
+              f"{key} supervised step on the card: {ran} launches")
+        check(math.isclose(metrics[1], metrics[0], rel_tol=RTOL, abs_tol=1e-6),
+              f"{key} supervised step loss card {metrics[1]} vs cpu {metrics[0]}")
+        res["step"][key] = {"loss_card": metrics[1], "loss_cpu": metrics[0],
+                            "launches": ran}
+    for key in ("vnet_ds", "resvnet"):
+        model = small_zoo(key).cuda()
+        try:
+            build_supervised3d_train_step(model, make_optimizer(model, 0.01), cfg,
+                                          device="cuda")
+            refused = False
+        except ValueError as e:
+            refused = key in str(e)
+        check(refused, f"the supervised step refuses {key}")
+    res["settings"] = tf32_settings()
+    print("parity_zoo3d", json.dumps(res), flush=True)
+    return res
+
+
+def make_zoo_step(key, cfg, seed=1337):
+    torch.manual_seed(seed)
+    model = net_factory_3d(key, cfg.data.in_chns, cfg.data.num_classes, "train",
+                           cfg.model, device="cuda")
+    opt = make_optimizer(model, cfg.optim.base_lr, cfg.optim.momentum,
+                         cfg.optim.weight_decay)
+    return (create_train_state(model, opt),
+            build_supervised3d_train_step(model, opt, cfg, device="cuda"))
+
+
+def phase_slice_zoo3d() -> dict:
+    """The supervised step at configs/brats_supervised.yml's values (96^3,
+    batch 4, 2 classes, fp32 by override, random weights from a seed) on
+    phantom patches for unet_3D (the BraTS model), attention_unet and
+    unet_3D_dv_semi at their factory widths: 1 warm-up and 3 timed steps,
+    launches per step asserted, peak memory; torch.profiler over 1 unet_3D
+    step by kernel class."""
+    set_tf32(True)     # PyTorch's defaults, as in phase 12
+    cfg = brats_config()
+    batches = [phantom_patches(cfg, 50 + i, "cuda") for i in range(5)]
+    gen = torch.Generator(device="cuda").manual_seed(1337)
+    out = {}
+    for key in ("unet_3D", "attention_unet", "unet_3D_dv_semi"):
+        state, step = make_zoo_step(key, cfg)
+        step(state, batches[0], gen)              # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launch_counts()
+        times, losses = [], []
+        for batch in batches[1:4]:
+            t0 = time.perf_counter()
+            m = step(state, batch, gen).metrics
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(m["loss"]))
+        launches = launch_counts()
+        want = {k: 3 * v for k, v in supervised_launches(ZOO_OUTPUTS[key]).items()}
+        check(launches == want, f"{key} launches over 3 steps {launches}, "
+                                f"expected {want}")
+        check(all(math.isfinite(v) for v in losses), f"finite {key} losses {losses}")
+        res = {"step_ms": times, "median_step_ms": statistics.median(times),
+               "patches_per_s": 1e3 * cfg.data.batch_size / statistics.median(times),
+               "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+               "launches": launches, "losses": losses,
+               "params": sum(p.numel() for p in state.model.parameters()),
+               "conv_tflop_forward": conv_flop(
+                   state.model, batches[0]["image"]) / 1e12,
+               "batch": cfg.data.batch_size, "patch": list(BRATS_PATCH),
+               "settings": tf32_settings(), "card": card_line()}
+        print("slice_zoo3d", key, json.dumps(res), flush=True)
+        if key == "unet_3D":
+            res["profile"] = phase_profile(state, step, batches[4:5], gen,
+                                           tag="profile_zoo3d")
+            res["launches_main"] = launches
+        out[key] = res
+        del state, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_k3_brats() -> dict:
+    """K3 at the BraTS eval's shape, one output (logits2 None, unet_3D's
+    path): 2x2x2 patches of 96^3 at stride 64 over a 160x160x128 volume, one
+    batch of 8, against its plain version as phase 10 holds it; timed."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    shape, c = (160, 160, 128), 2
+    starts = sw.compute_grid(shape, BRATS_PATCH, 64, 64)
+    check(len(starts) == 8, f"BraTS grid of {len(starts)} patches")
+    l1 = torch.randn((8, c, *BRATS_PATCH), generator=gen, device="cuda") * 3
+    maps = [(torch.zeros((c, *shape), device="cuda"),
+             torch.zeros(shape, device="cuda")) for _ in range(3)]
+    sw.sw_accumulate_kernel(l1, None, starts, *maps[0])
+    sw.sw_accumulate_kernel(l1, None, starts, *maps[1])
+    sw.sw_accumulate_plain(l1, None, starts, *maps[2])
+    torch.cuda.synchronize()
+    (ks, kc), (rs_, rc), (ps, pc) = maps
+    check(torch.equal(ks, rs_) and torch.equal(kc, rc), "K3 BraTS bit-identical")
+    check(torch.equal(kc, pc), "K3 BraTS count equals the plain version's")
+    err = rel_err(ks, ps)
+    check(err <= 1e-6, f"K3 BraTS score within 1e-6 of the plain version: {err}")
+    score, cnt = maps[0]
+    lo, size = sw.batch_box(starts, BRATS_PATCH)
+    box = math.prod(size)
+    res = {"patches": len(starts), "batch": 8, "classes": c, "box": size,
+           "max_abs_err": float((ks - ps).abs().max()), "rel_err": err,
+           # logits read once; score and count read and written over the box
+           "bound": bound_ms(l1.numel() * 4 + 2 * (c + 1) * box * 4,
+                             8 * l1.numel()),
+           **timings(lambda: sw.sw_accumulate_kernel(l1, None, starts, score, cnt),
+                     n=20),
+           "plain_ms": device_ms(lambda: sw.sw_accumulate_plain(
+               l1, None, starts, score, cnt), n=5, warmup=1)}
+    print("K3 brats_160x160x128", json.dumps(res), flush=True)
+    return res
+
+
+def phase_trainer_zoo3d() -> dict:
+    """cli.train_3d --cfg configs/brats_supervised.yml --method supervised
+    --dataset synthetic (unet_3D, 96^3 by override, fp32): 4 steps, --resume
+    to 6, 1 / 1 K1 a step; then test_all_case on the run's latest weights
+    over 2 synthetic volumes of 160x160x128 at the BraTS protocol (stride
+    64, sw_batch 8), K3 launches equal to the patch batches, and
+    cli.test_3d --model unet_3D over its 2 synthetic volumes, K3 once per
+    patch batch."""
+    set_tf32(True)
+    shutil.rmtree(RUNS_DIR, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+
+    def run(flags, steps):
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        out = cli_train3d.main(ZOO_TRAINER_FLAGS + flags + ZOO_TRAINER_OVERRIDES)
+        wall_s = time.perf_counter() - t0
+        launches = launch_counts()
+        want = {k: v * steps for k, v in supervised_launches(1).items()}
+        check(launches == want, f"BraTS trainer launches {launches}, expected {want}")
+        records = _records(out["save_dir"])
+        check(all(math.isfinite(r["loss"]) for r in records if "loss" in r),
+              "finite BraTS trainer losses")
+        return {**out, "wall_s": wall_s, "launches": launches, "records": records}
+
+    first = run(["--max_iterations", "4"], 4)
+    save_dir = first["save_dir"]
+    check(first["steps"] == 4 and save_dir.endswith(os.path.join("unet_3D", "run_0")),
+          f"the BraTS run dir is named after the model: {save_dir}")
+    resumed = run(["--max_iterations", "6", "--resume"], 2)
+    check(resumed["save_dir"] == save_dir and resumed["steps"] == 6,
+          f"resume continues the BraTS run to step 6: {resumed['steps']}")
+    check([r["step"] for r in resumed["records"] if "loss" in r] == [2, 4, 6],
+          "BraTS log steps 2, 4 before and 6 after the resume")
+    peak = torch.cuda.max_memory_allocated()
+    cfg = brats_config()
+    model = net_factory_3d("unet_3D", 1, 2, "test", cfg.model, device="cuda")
+    CheckpointManager(save_dir).restore(
+        "latest", create_train_state(model, make_optimizer(model, 0.01)))
+    vols = SyntheticVolumeDataset((128, 160, 160), 2, length=2, seed=6)
+    cases = [{"image": vols[i]["image"].transpose(2, 1, 0),
+              "label": vols[i]["label"].transpose(2, 1, 0),
+              "case": vols[i]["case"]} for i in range(2)]
+    n_batches = sum(-(-len(sw.compute_grid(c["image"].shape, BRATS_PATCH, 64, 64))
+                      // cfg.eval.sw_batch) for c in cases)
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    metrics = sw.test_all_case(model, cases, 2, BRATS_PATCH, 64, 64,
+                               sw_batch=cfg.eval.sw_batch, device="cuda")
+    eval_s = time.perf_counter() - t0
+    k3 = launch_counts()["K3_sw"]
+    check(k3 == n_batches, f"BraTS test_all_case launched K3 {k3} times for "
+                           f"{n_batches} patch batches")
+    check(np.isfinite(metrics).all() and metrics.shape == (1, 2),
+          f"BraTS test_all_case metrics {metrics}")
+    engine = sw.SlidingWindowEngine(model, BRATS_PATCH, cfg.eval.sw_batch,
+                                    device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.predict_async(cases[0]["image"], 64, 64, 2)
+    torch.cuda.synchronize()
+    predict_s = time.perf_counter() - t0
+    # cli.test_3d's synthetic cases: 2 volumes of 112x112x96 at the LA
+    # protocol (112x112x80, stride 18/4): 5 patches, one batch of 8 each
+    test_batches = 2 * -(-len(sw.compute_grid((112, 112, 96), LA_PATCH, 18, 4)) // 8)
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    test_metrics = cli_test3d.main(["--dataset", "synthetic", "--snapshot", save_dir,
+                                    "--ckpt", "latest", "--model", "unet_3D",
+                                    "--device", "cuda"])
+    test_s = time.perf_counter() - t0
+    test_k3 = launch_counts()["K3_sw"]
+    check(test_k3 == test_batches, f"cli.test_3d launched K3 {test_k3} times for "
+                                   f"{test_batches} patch batches")
+    check(test_metrics.shape == (1, 4) and np.isfinite(test_metrics[:, 0]).all(),
+          f"cli.test_3d metrics {test_metrics}")
+
+    def rates(r):
+        return [x["steps_per_sec"] for x in r["records"] if "steps_per_sec" in x]
+    res = {
+        "card": card_line(), "model": "unet_3D", "patch": list(BRATS_PATCH),
+        "batch": cfg.data.batch_size,
+        "window_steps_per_s": {"first_4": rates(first), "resumed_2": rates(resumed)},
+        "checkpoint_ms": [r["checkpoint_ms"] for r in resumed["records"]
+                          if "checkpoint_ms" in r],
+        "eval_volumes": [list(c["image"].shape) for c in cases],
+        "eval_patch_batches": n_batches, "eval_s_per_volume": eval_s / len(cases),
+        "predict_s_per_volume": predict_s, "eval_dice_hd95": metrics[0].tolist(),
+        "test_3d_s": test_s, "test_3d_k3": test_k3,
+        "test_3d_mean": test_metrics.mean(axis=0).tolist(), "peak_mem_bytes": peak,
+        "wall_s": {"first_4": first["wall_s"], "resumed_2": resumed["wall_s"]},
+        "launches": {"first_4": first["launches"], "resumed_2": resumed["launches"],
+                     "test_all_case": k3, "test_3d": test_k3},
+        "settings": tf32_settings()}
+    print("trainer_zoo3d", json.dumps(res), flush=True)
+    shutil.rmtree(RUNS_DIR, ignore_errors=True)
+    return res
+
+
 def loop_breakdown(when: str, rounds: int = 2, n: int = 5) -> dict:
     """What the trainer's loop adds to the bare step, in one process at one
     moment: ms per step on phase 6's phantom batches and on batches the
@@ -1969,6 +2346,10 @@ def main() -> int:
     # the ACAL joint step's and max-step's dice_ce_supervised on the labeled
     # half (R = 1)
     k1_acal = phase_k1((12, 4, 256, 256), 6, 1, timed=True)
+    # the BraTS supervised step's dice_ce_supervised (R = 1) on a unet_3D
+    # output; torch.profiler has returned empty sessions for K1 late in the
+    # process, so every timed K1 shape is checked here
+    k1_brats = phase_k1((4, 2) + BRATS_PATCH, 7, 1, timed=True)
     # phase 4: K2
     k2 = phase_k2()
     # phase 5: CUDA-against-CPU step parity
@@ -1983,6 +2364,7 @@ def main() -> int:
     # phases 9-14: the 3D path
     k2_3d = phase_k2_3d()
     k3 = phase_k3()
+    k3_brats = phase_k3_brats()
     phase_parity_3d()
     launches_3d, slice_3d, profile_3d = phase_slice_3d()
     trainer_3d = phase_trainer_3d(slice_3d["median_step_ms"])
@@ -1992,8 +2374,13 @@ def main() -> int:
     slice_share = phase_slice_share()
     trainer_share = phase_trainer_share()
     trainer_ablation = phase_trainer_ablation()
+    torch.cuda.empty_cache()
+    # phases 18-20: the 3D zoo and the BraTS supervised protocol
+    phase_parity_zoo3d()
+    slice_zoo = phase_slice_zoo3d()
+    trainer_zoo = phase_trainer_zoo3d()
 
-    # phase 18: report
+    # phase 21: report
     def trainer_launches(run, name):
         """A kernel's launches over a trainer phase's runs."""
         return sum(r[name] for r in run["launches"].values() if isinstance(r, dict))
@@ -2060,6 +2447,21 @@ def main() -> int:
          "ms": la["device_ms"], "kernel_ms": la["kernel_ms"],
          "host_us": la["host_us"], "plain_ms": la["plain_ms"],
          "bound_ms": la["bound"][0], "bound_by": la["bound"][1],
+         "library_ms": None},
+        k1_row("K1_fwd_brats", "chap_tpu/ops/fused_losses.py:99", "K1_fwd",
+               k1_brats, k1_brats, slice_zoo["unet_3D"]["launches_main"],
+               trainer_zoo),
+        k1_row("K1_bwd_brats", "chap_tpu/ops/fused_losses.py:159", "K1_bwd",
+               k1_brats, k1_brats, slice_zoo["unet_3D"]["launches_main"],
+               trainer_zoo),
+        {"name": "K3_sw_brats", "route": "cuda",
+         "source": "chap_tpu_torch/csrc/sliding_window.cu",
+         "replaces": "chap_tpu/eval/sliding_window.py:98",
+         "launches": trainer_zoo["launches"]["test_all_case"],
+         "max_abs_err": k3_brats["max_abs_err"],
+         "ms": k3_brats["device_ms"], "kernel_ms": k3_brats["kernel_ms"],
+         "host_us": k3_brats["host_us"], "plain_ms": k3_brats["plain_ms"],
+         "bound_ms": k3_brats["bound"][0], "bound_by": k3_brats["bound"][1],
          "library_ms": None},
     ]
     print(card_line(), flush=True)

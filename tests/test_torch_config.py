@@ -61,7 +61,9 @@ def test_port_imports_no_jax_and_nothing_of_chap_tpu():
             "utils/checkpoint.py", "utils/launch.py",
             "utils/metrics_writer.py", "cli/train_3d.py", "cli/test_3d.py",
             "train/trainer_3d.py", "models/vnet3d.py", "data/transforms3d.py",
-            "eval/sliding_window.py"} <= scanned
+            "eval/sliding_window.py", "models/unet3d.py",
+            "models/attention3d.py", "models/unet3d_dv.py",
+            "models/voxresnet.py", "models/resvnet.py"} <= scanned
     bad = [(str(f.relative_to(ROOT)), name) for f in files for name in _imports(f)
            if name.split(".")[0] in FORBIDDEN]
     assert bad == []
