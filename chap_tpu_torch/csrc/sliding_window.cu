@@ -11,7 +11,12 @@
 //   score[c, s_p + i] += q_p[c, i],  cnt[s_p + i] += 1
 // into the class-first score map [C, X, Y, Z] and the count map [X, Y, Z]
 // (fp32). The patches of a batch overlap (stride 18 < 112), so a
-// patch-per-block scatter would race.
+// patch-per-block scatter would race. The logits are fp32
+// (chap_sw_accumulate) or bf16 (chap_sw_accumulate_bf16: a bf16 model's
+// output, as chap_tpu's engine feeds it). In bf16 the mean is taken as
+// chap_tpu's bf16 (out[0] + out[1]) / 2.0 is: the sum rounded to bf16
+// (__float2bfloat16_rn), then halved (exact); the softmax and the sums are
+// fp32 in both.
 //
 // What bounds it on the H100: bytes. At the LA eval's batch of 16 patches
 // of 112x112x80 with C = 2 it reads 2 x 16 x 2 x 1.0 M fp32 logits, 257 MB
@@ -35,11 +40,21 @@
 //     patch, and any other geometry, takes scalar loads, voxel by voxel.
 //   * the batch's starts sit in shared memory, read once a block.
 // Voxels of the box that no patch covers write nothing.
-// Measured by chip_smoke.py on an H100 80GB HBM3 at 700 W, one LA batch:
+// In bf16 the same design reads half the logits' bytes: each class's 4
+// z-voxels of a patch come as one 8-byte load (needs 8-byte aligned
+// logits), so an LA batch's bound falls to 128.5 MB of logits plus the
+// 41 MB of maps, about 0.051 ms, and a BraTS batch's (8 patches of 96^3,
+// one output) to 28.3 + 78.6 MB, about 0.032 ms. Measured by chip_smoke.py
+// on an H100 80GB HBM3 at 700 W: 0.0815 ms an LA batch (62% of that bound)
+// and 0.0498 ms the BraTS batch (64%), against 90% and 77% for the fp32
+// instantiation in the same call (its 8-byte loads keep half the bytes in
+// flight a thread: a candidate cause, not measured).
+// The fp32 instantiation, measured the same way, one LA batch:
 // 0.096-0.116 ms of kernel time over four calls (77-93% of the bound),
 // where the first version, one thread a voxel with scalar loads and the
 // starts read from device memory, took 0.171-0.214 ms.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -53,7 +68,42 @@ constexpr int kStartsChunk = 256;      // patches whose starts are in shared mem
 
 struct SwGeom {
   int n_patches, px, py, pz, nx, ny, nz, bx0, by0, bz0, bx, by, bz;
-  bool vec;                            // 16-byte loads and stores allowed
+  bool vec;                            // vector loads and stores allowed
+};
+
+// How K3 reads one logits type: a scalar, 4 consecutive values (one 16-byte
+// load of fp32, one 8-byte load of bf16), and the mean of two outputs.
+template <typename T>
+struct Logits;
+
+template <>
+struct Logits<float> {
+  static constexpr int kAlign = 16;
+  static __device__ __forceinline__ float one(const float* p, long long k) { return p[k]; }
+  static __device__ __forceinline__ void four(const float* p, float (&v)[kZ]) {
+    const float4 f = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = f.x; v[1] = f.y; v[2] = f.z; v[3] = f.w;
+  }
+  static __device__ __forceinline__ float mean(float a, float b) { return (a + b) / 2.0f; }
+};
+
+template <>
+struct Logits<__nv_bfloat16> {
+  static constexpr int kAlign = 8;
+  static __device__ __forceinline__ float one(const __nv_bfloat16* p, long long k) {
+    return __bfloat162float(p[k]);
+  }
+  static __device__ __forceinline__ void four(const __nv_bfloat16* p, float (&v)[kZ]) {
+    const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+    const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&u.x);
+    const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
+    v[0] = __low2float(lo); v[1] = __high2float(lo);
+    v[2] = __low2float(hi); v[3] = __high2float(hi);
+  }
+  // chap_tpu's bf16 (a + b) / 2.0: the sum rounded to bf16, halved exactly
+  static __device__ __forceinline__ float mean(float a, float b) {
+    return __bfloat162float(__float2bfloat16_rn(a + b)) * 0.5f;
+  }
 };
 
 // softmax over the C values of v (the mean logits of one voxel), added to
@@ -73,15 +123,12 @@ __device__ __forceinline__ void add_softmax(float (&v)[C], float (&acc)[C]) {
   for (int c = 0; c < C; ++c) acc[c] += v[c] / s;
 }
 
-__device__ __forceinline__ float lane4(const float4& f, int j) {
-  return j == 0 ? f.x : j == 1 ? f.y : j == 2 ? f.z : f.w;
-}
-
-template <int C>
+template <typename T, int C>
 __global__ void __launch_bounds__(kThreads)
-sw_accumulate(const float* __restrict__ logits1,
-              const float* __restrict__ logits2, const int* __restrict__ starts,
-              float* __restrict__ score, float* __restrict__ cnt, SwGeom q) {
+sw_accumulate(const T* __restrict__ logits1, const T* __restrict__ logits2,
+              const int* __restrict__ starts, float* __restrict__ score,
+              float* __restrict__ cnt, SwGeom q) {
+  using L = Logits<T>;
   __shared__ int s_start[3 * kStartsChunk];
   const int quads = (q.bz + kZ - 1) / kZ;
   const long long t = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
@@ -116,21 +163,18 @@ sw_accumulate(const float* __restrict__ logits1,
                              (static_cast<long long>(ix) * q.py + iy) * q.pz + iz;
       if (q.vec && (sz & (kZ - 1)) == 0) {
         // iz is a multiple of 4 and pz too: all four voxels lie in the patch
-        float4 a[C], b[C];
+        float a[C][kZ], b[C][kZ];
 #pragma unroll
         for (int c = 0; c < C; ++c) {
-          a[c] = __ldg(reinterpret_cast<const float4*>(logits1 + base + c * patch_vox));
-          if (logits2 != nullptr)
-            b[c] = __ldg(reinterpret_cast<const float4*>(logits2 + base + c * patch_vox));
+          L::four(logits1 + base + c * patch_vox, a[c]);
+          if (logits2 != nullptr) L::four(logits2 + base + c * patch_vox, b[c]);
         }
 #pragma unroll
         for (int j = 0; j < kZ; ++j) {
           float v[C];
 #pragma unroll
-          for (int c = 0; c < C; ++c) {
-            v[c] = lane4(a[c], j);
-            if (logits2 != nullptr) v[c] = (v[c] + lane4(b[c], j)) / 2.0f;
-          }
+          for (int c = 0; c < C; ++c)
+            v[c] = logits2 != nullptr ? L::mean(a[c][j], b[c][j]) : a[c][j];
           add_softmax<C>(v, acc[j]);
           n[j] += 1.0f;
         }
@@ -144,7 +188,8 @@ sw_accumulate(const float* __restrict__ logits1,
           for (int c = 0; c < C; ++c) {
             if (!in[j]) continue;
             const long long k = base + j + c * patch_vox;
-            v[j][c] = logits2 != nullptr ? (logits1[k] + logits2[k]) / 2.0f : logits1[k];
+            v[j][c] = logits2 != nullptr ? L::mean(L::one(logits1, k), L::one(logits2, k))
+                                         : L::one(logits1, k);
           }
         }
 #pragma unroll
@@ -182,12 +227,47 @@ sw_accumulate(const float* __restrict__ logits1,
   }
 }
 
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+bool aligned(const void* p, int bytes) {
+  return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
+}
 
-template <int C>
-void launch(const float* l1, const float* l2, const int* starts, float* score,
+template <typename T, int C>
+void launch(const T* l1, const T* l2, const int* starts, float* score,
             float* cnt, const SwGeom& q, unsigned blocks, cudaStream_t s) {
-  sw_accumulate<C><<<blocks, kThreads, 0, s>>>(l1, l2, starts, score, cnt, q);
+  sw_accumulate<T, C><<<blocks, kThreads, 0, s>>>(l1, l2, starts, score, cnt, q);
+}
+
+template <typename T>
+int accumulate(const T* logits1, const T* logits2, const int* starts,
+               float* score, float* cnt, int n_patches, int num_classes,
+               int px, int py, int pz, int nx, int ny, int nz, int bx0,
+               int by0, int bz0, int bx, int by, int bz, void* stream) {
+  if (n_patches <= 0 || num_classes < 1 || num_classes > kMaxClasses ||
+      bx <= 0 || by <= 0 || bz <= 0 || bx0 < 0 || by0 < 0 || bz0 < 0 ||
+      bx0 + bx > nx || by0 + by > ny || bz0 + bz > nz)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long threads =
+      static_cast<long long>(bx) * by * ((bz + kZ - 1) / kZ);
+  const long long blocks = (threads + kThreads - 1) / kThreads;
+  if (blocks >= (1ll << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  const int la = Logits<T>::kAlign;
+  const bool vec = pz % kZ == 0 && nz % kZ == 0 && bz0 % kZ == 0 &&
+                   aligned(logits1, la) && (logits2 == nullptr || aligned(logits2, la)) &&
+                   aligned(score, 16) && aligned(cnt, 16);
+  const SwGeom q{n_patches, px, py, pz, nx, ny, nz, bx0, by0, bz0, bx, by, bz, vec};
+  const unsigned nb = static_cast<unsigned>(blocks);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (num_classes) {
+    case 1: launch<T, 1>(logits1, logits2, starts, score, cnt, q, nb, s); break;
+    case 2: launch<T, 2>(logits1, logits2, starts, score, cnt, q, nb, s); break;
+    case 3: launch<T, 3>(logits1, logits2, starts, score, cnt, q, nb, s); break;
+    case 4: launch<T, 4>(logits1, logits2, starts, score, cnt, q, nb, s); break;
+    case 5: launch<T, 5>(logits1, logits2, starts, score, cnt, q, nb, s); break;
+    case 6: launch<T, 6>(logits1, logits2, starts, score, cnt, q, nb, s); break;
+    case 7: launch<T, 7>(logits1, logits2, starts, score, cnt, q, nb, s); break;
+    default: launch<T, 8>(logits1, logits2, starts, score, cnt, q, nb, s); break;
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -203,29 +283,22 @@ extern "C" int chap_sw_accumulate(const float* logits1, const float* logits2,
                                   int py, int pz, int nx, int ny, int nz,
                                   int bx0, int by0, int bz0, int bx, int by,
                                   int bz, void* stream) {
-  if (n_patches <= 0 || num_classes < 1 || num_classes > kMaxClasses ||
-      bx <= 0 || by <= 0 || bz <= 0 || bx0 < 0 || by0 < 0 || bz0 < 0 ||
-      bx0 + bx > nx || by0 + by > ny || bz0 + bz > nz)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const long long threads =
-      static_cast<long long>(bx) * by * ((bz + kZ - 1) / kZ);
-  const long long blocks = (threads + kThreads - 1) / kThreads;
-  if (blocks >= (1ll << 31)) return static_cast<int>(cudaErrorInvalidValue);
-  const bool vec = pz % kZ == 0 && nz % kZ == 0 && bz0 % kZ == 0 &&
-                   aligned16(logits1) && (logits2 == nullptr || aligned16(logits2)) &&
-                   aligned16(score) && aligned16(cnt);
-  const SwGeom q{n_patches, px, py, pz, nx, ny, nz, bx0, by0, bz0, bx, by, bz, vec};
-  const unsigned nb = static_cast<unsigned>(blocks);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (num_classes) {
-    case 1: launch<1>(logits1, logits2, starts, score, cnt, q, nb, s); break;
-    case 2: launch<2>(logits1, logits2, starts, score, cnt, q, nb, s); break;
-    case 3: launch<3>(logits1, logits2, starts, score, cnt, q, nb, s); break;
-    case 4: launch<4>(logits1, logits2, starts, score, cnt, q, nb, s); break;
-    case 5: launch<5>(logits1, logits2, starts, score, cnt, q, nb, s); break;
-    case 6: launch<6>(logits1, logits2, starts, score, cnt, q, nb, s); break;
-    case 7: launch<7>(logits1, logits2, starts, score, cnt, q, nb, s); break;
-    default: launch<8>(logits1, logits2, starts, score, cnt, q, nb, s); break;
-  }
-  return static_cast<int>(cudaGetLastError());
+  return accumulate<float>(logits1, logits2, starts, score, cnt, n_patches,
+                           num_classes, px, py, pz, nx, ny, nz, bx0, by0, bz0,
+                           bx, by, bz, stream);
+}
+
+// The same with bf16 logits (score and cnt stay fp32).
+extern "C" int chap_sw_accumulate_bf16(const void* logits1, const void* logits2,
+                                       const int* starts, float* score,
+                                       float* cnt, int n_patches,
+                                       int num_classes, int px, int py, int pz,
+                                       int nx, int ny, int nz, int bx0, int by0,
+                                       int bz0, int bx, int by, int bz,
+                                       void* stream) {
+  return accumulate<__nv_bfloat16>(
+      static_cast<const __nv_bfloat16*>(logits1),
+      static_cast<const __nv_bfloat16*>(logits2), starts, score, cnt,
+      n_patches, num_classes, px, py, pz, nx, ny, nz, bx0, by0, bz0, bx, by,
+      bz, stream);
 }

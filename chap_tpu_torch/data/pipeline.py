@@ -95,12 +95,13 @@ class BatchLoader:
 
 def to_device(batch: Dict[str, np.ndarray], device: torch.device
               ) -> Dict[str, torch.Tensor]:
-    """numpy batch -> tensors on ``device``: through pinned host memory with
-    a non-blocking copy for a CUDA device (PyTorch's pinned allocator keeps
-    the host buffer alive until the copy is done)."""
+    """numpy (or host tensor) batch -> tensors on ``device``: through pinned
+    host memory with a non-blocking copy for a CUDA device (PyTorch's pinned
+    allocator keeps the host buffer alive until the copy is done)."""
     out = {}
     for key, value in batch.items():
-        t = torch.from_numpy(np.ascontiguousarray(value))
+        t = (value.contiguous() if isinstance(value, torch.Tensor)
+             else torch.from_numpy(np.ascontiguousarray(value)))
         if device.type == "cuda":
             t = t.pin_memory().to(device, non_blocking=True)
         out[key] = t
@@ -124,12 +125,16 @@ def prefetch_to_device(iterator: Iterable, device: Union[str, torch.device],
         yield buf.pop(0)
 
 
-def compact_batch(batch: dict, compute_dtype=np.float32) -> dict:
-    """Shrink the host->device payload: images in the model's compute dtype,
-    integer labels as uint8 (exact; num_classes < 256). The train steps widen
-    the labels on the device."""
+def compact_batch(batch: dict, compute_dtype: torch.dtype = torch.float32
+                  ) -> dict:
+    """Shrink the host->device payload: images in the model's compute dtype
+    (float32 as numpy; bf16, which numpy lacks, as a host tensor rounded to
+    nearest, as chap_tpu's ml_dtypes cast), integer labels as uint8 (exact;
+    num_classes < 256). The train steps widen the labels on the device."""
     out = dict(batch)
-    out["image"] = np.asarray(batch["image"]).astype(np.dtype(compute_dtype))
+    image = np.asarray(batch["image"]).astype(np.float32)
+    out["image"] = (image if compute_dtype == torch.float32 else
+                    torch.from_numpy(np.ascontiguousarray(image)).to(compute_dtype))
     label = np.asarray(batch["label"])
     if np.issubdtype(label.dtype, np.integer):
         out["label"] = label.astype(np.uint8)

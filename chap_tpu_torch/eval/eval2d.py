@@ -23,6 +23,7 @@ from chap_tpu_torch.data.transforms import resize_slice
 from chap_tpu_torch.device import resolve_device
 from chap_tpu_torch.metrics.surface import (calculate_metric_percase,
                                             calculate_metric_percase_full)
+from chap_tpu_torch.models.layers import softmax
 
 MODEL_TYPES = ("model1", "model2", "logit_ensemble", "prob_ensemble")
 
@@ -50,16 +51,16 @@ def make_predictor(model: torch.nn.Module, model_type: str = "logit_ensemble",
                 if isinstance(out, (tuple, list)):
                     o1, o2 = out[0], out[1]
                     if model_type == "model1":
-                        prob = torch.softmax(o1, dim=1)
+                        prob = softmax(o1, 1)
                     elif model_type == "model2":
-                        prob = torch.softmax(o2, dim=1)
+                        prob = softmax(o2, 1)
                     elif model_type == "logit_ensemble":
-                        prob = torch.softmax((o1 + o2) / 2.0, dim=1)
+                        prob = softmax((o1 + o2) / 2.0, 1)
                     else:
-                        prob = (torch.softmax(o1, dim=1)
-                                + torch.softmax(o2, dim=1)) / 2.0
+                        prob = (softmax(o1, 1)
+                                + softmax(o2, 1)) / 2.0
                 else:
-                    prob = torch.softmax(out, dim=1)
+                    prob = softmax(out, 1)
                 return prob.argmax(dim=1).to(torch.int8)
         finally:
             model.train(was_training)

@@ -4,12 +4,14 @@ from __future__ import annotations
 
 import torch
 
+from chap_tpu_torch.models.layers import log_softmax
+
 
 def cross_entropy_per_pixel(logits: torch.Tensor, labels: torch.Tensor
                             ) -> torch.Tensor:
     """Per-pixel CE, no reduction. logits [B, C, ...], labels integer [B, ...]
     (torch F.cross_entropy(reduction='none'))."""
-    logp = torch.log_softmax(logits, dim=1)
+    logp = log_softmax(logits, 1)
     return -torch.gather(logp, 1, labels.long().unsqueeze(1)).squeeze(1)
 
 

@@ -6,7 +6,9 @@ divergence of the adversarial pass against both decoders' clean soft targets
 is penalised inside the top-k disagreement mask. The power iteration takes
 ``torch.autograd.grad`` with respect to ``d`` only, so it leaves no
 parameter gradient, like chap_tpu's stop-gradient on ``d``. The initial
-uniform draw of ``d`` can be passed in.
+uniform draw of ``d`` can be passed in. Everything runs in x's dtype, as in
+chap_tpu: in bf16 the direction is bf16 and ``working_uniform`` makes the
+draw one that chap_tpu's bf16 ``jax.random.uniform`` can give.
 """
 from __future__ import annotations
 
@@ -15,9 +17,22 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from chap_tpu_torch.losses.ce import kl_div_per_pixel
+from chap_tpu_torch.models.layers import log_softmax, reduced_dtype, softmax
 from chap_tpu_torch.losses.dice import soft_dice_loss_masked
 
 ApplyFn = Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
+
+
+def working_uniform(u: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A [0, 1) uniform draw as ``jax.random.uniform(..., dtype=dtype)``
+    makes it (chap_tpu/losses/vat.py:73): below float32 JAX fills only the
+    dtype's mantissa bits, so a bf16 draw is a multiple of 2^-7 below 1
+    (rounding a float32 draw to the nearest bf16 could give 1.0). Floor to
+    that grid; float32 (and float64) draws pass unchanged."""
+    if not reduced_dtype(dtype):
+        return u.to(dtype)
+    eps = torch.finfo(dtype).eps
+    return (torch.floor(u.float() / eps) * eps).to(dtype)
 
 
 def l2_normalize_batch(d: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
@@ -32,14 +47,14 @@ def _divergence(logits1: torch.Tensor, logits2: torch.Tensor,
     """Masked divergence of perturbed predictions vs. the clean soft targets
     (logits / soft: [B, C, *spatial]; mask: [B, *spatial])."""
     if losstype == "kl":
-        kl1 = kl_div_per_pixel(torch.log_softmax(logits1, dim=1), soft1)
-        kl2 = kl_div_per_pixel(torch.log_softmax(logits2, dim=1), soft2)
+        kl1 = kl_div_per_pixel(log_softmax(logits1, 1), soft1)
+        kl2 = kl_div_per_pixel(log_softmax(logits2, 1), soft2)
         m = mask.to(kl1.dtype)
         denom = m.sum() + 1e-16
         return ((kl1 * m).sum() + (kl2 * m).sum()) / denom
     if losstype == "dice":
-        return (soft_dice_loss_masked(torch.softmax(logits1, dim=1), soft1, mask)
-                + soft_dice_loss_masked(torch.softmax(logits2, dim=1), soft2, mask))
+        return (soft_dice_loss_masked(softmax(logits1, 1), soft1, mask)
+                + soft_dice_loss_masked(softmax(logits2, 1), soft2, mask))
     raise ValueError(f"unknown adv_losstype {losstype!r}")
 
 
@@ -50,11 +65,11 @@ def vat_direction(apply_fn: ApplyFn, x: torch.Tensor, soft1: torch.Tensor,
                   losstype: str = "kl") -> torch.Tensor:
     """Power iteration only: the unit adversarial direction d (detached).
     d0: the initial uniform [0, 1) draw, shaped like x (drawn from the
-    global generator when None)."""
+    global generator when None), taken in x's dtype (``working_uniform``)."""
     soft1, soft2 = soft1.detach(), soft2.detach()
     if d0 is None:
-        d0 = torch.rand_like(x)
-    d = l2_normalize_batch(d0.to(x.dtype) - 0.5)
+        d0 = torch.rand(x.shape, device=x.device)
+    d = l2_normalize_batch(working_uniform(d0, x.dtype) - 0.5)
     for _ in range(num_iters):
         d_req = d.detach().requires_grad_(True)
         l1, l2 = apply_fn(x + xi * d_req)

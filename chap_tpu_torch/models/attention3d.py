@@ -20,9 +20,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from chap_tpu_torch.models.layers import (BatchNorm2d, BatchNorm3d, Stats,
-                                          instance_norm, resize_linear,
-                                          set_stats_keys)
+from chap_tpu_torch.models.layers import (BatchNorm2d, BatchNorm3d, Conv2d,
+                                          Conv3d, Stats, instance_norm,
+                                          resize_linear, set_stats_keys,
+                                          softmax)
 from chap_tpu_torch.models.unet3d import (UNet3DEncoder, UnetUp3CT,
                                           unet_filters)
 
@@ -34,7 +35,7 @@ TORR_MODES = ("concatenation_softmax", "concatenation_sigmoid",
 
 def _softmax_over_space(psi: torch.Tensor) -> torch.Tensor:
     b = psi.shape[0]
-    return torch.softmax(psi.reshape(b, -1), dim=1).reshape(psi.shape)
+    return softmax(psi.reshape(b, -1), 1).reshape(psi.shape)
 
 
 class GridAttentionBlock3D(nn.Module):
@@ -54,11 +55,11 @@ class GridAttentionBlock3D(nn.Module):
             raise ValueError(f"unknown grid-attention mode {mode!r}")
         self.mode = mode
         ssf = tuple(sub_sample_factor)
-        self.theta = nn.Conv3d(in_channels, inter_channels, ssf, stride=ssf,
+        self.theta = Conv3d(in_channels, inter_channels, ssf, stride=ssf,
                                bias=False)
-        self.phi = nn.Conv3d(gating_channels, inter_channels, 1)
-        self.psi = nn.Conv3d(inter_channels, 1, 1)
-        self.W = nn.Sequential(nn.Conv3d(in_channels, in_channels, 1),
+        self.phi = Conv3d(gating_channels, inter_channels, 1)
+        self.psi = Conv3d(inter_channels, 1, 1)
+        self.W = nn.Sequential(Conv3d(in_channels, in_channels, 1),
                                BatchNorm3d(in_channels))
 
     def forward(self, x: torch.Tensor, g: torch.Tensor,
@@ -97,7 +98,7 @@ class GridAttentionBlockTORR(nn.Module):
                              f"supports only {TORR_MODES})")
         if dims not in (2, 3):
             raise ValueError(f"dims must be 2 or 3, got {dims}")
-        conv = nn.Conv3d if dims == 3 else nn.Conv2d
+        conv = Conv3d if dims == 3 else Conv2d
         bn = BatchNorm3d if dims == 3 else BatchNorm2d
         ssf = tuple(sub_sample_factor)[:dims] or (1,) * dims
         self.mode, self.nonlinearity1 = mode, nonlinearity1
@@ -130,7 +131,7 @@ class GridAttentionBlockTORR(nn.Module):
         b = psi_f.shape[0]
         flat = psi_f.reshape(b, -1)
         if self.mode == "concatenation_softmax":
-            gate = torch.softmax(flat, dim=1)
+            gate = softmax(flat, 1)
         elif self.mode == "concatenation_mean":
             gate = flat / flat.sum(dim=1, keepdim=True)
         elif self.mode == "concatenation_mean_flow":
@@ -160,7 +161,7 @@ class MultiAttentionBlock(nn.Module):
         super().__init__()
         self.gate_block_1 = GridAttentionBlock3D(in_size, gate_size, inter_size)
         self.gate_block_2 = GridAttentionBlock3D(in_size, gate_size, inter_size)
-        self.combine_gates = nn.Sequential(nn.Conv3d(2 * in_size, in_size, 1),
+        self.combine_gates = nn.Sequential(Conv3d(2 * in_size, in_size, 1),
                                            BatchNorm3d(in_size), nn.ReLU())
 
     def forward(self, x: torch.Tensor, g: torch.Tensor,
@@ -180,7 +181,7 @@ class UnetDsv3(nn.Module):
     def __init__(self, in_size: int, out_size: int, scale_factor: int):
         super().__init__()
         self.scale_factor = scale_factor
-        self.dsv = nn.Sequential(nn.Conv3d(in_size, out_size, 1))
+        self.dsv = nn.Sequential(Conv3d(in_size, out_size, 1))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return resize_linear(self.dsv(x),
@@ -193,7 +194,7 @@ class UnetGridGatingSignal3(nn.Module):
 
     def __init__(self, in_size: int, out_size: int):
         super().__init__()
-        self.conv1 = nn.Sequential(nn.Conv3d(in_size, out_size, 1))
+        self.conv1 = nn.Sequential(Conv3d(in_size, out_size, 1))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.relu(instance_norm(self.conv1(x)))
@@ -222,8 +223,8 @@ class AttentionUNet3D(UNet3DEncoder):
         self.dsv4 = UnetDsv3(f[3], num_classes, 8)
         self.dsv3 = UnetDsv3(f[2], num_classes, 4)
         self.dsv2 = UnetDsv3(f[1], num_classes, 2)
-        self.dsv1 = nn.Conv3d(f[0], num_classes, 1)
-        self.final = nn.Conv3d(4 * num_classes, num_classes, 1)
+        self.dsv1 = Conv3d(f[0], num_classes, 1)
+        self.final = Conv3d(4 * num_classes, num_classes, 1)
         set_stats_keys(self)
 
     def dropout_shapes(self, rows: int, spatial: Sequence[int]

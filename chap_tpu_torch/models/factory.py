@@ -1,6 +1,11 @@
 """Model factories (port of chap_tpu/models/factory.py): ``net_factory``
 with the 2D ``dualdecoder`` and ``acalnet`` keys (the rest of the 2D zoo is
-ROADMAP item 18) and ``net_factory_3d`` with every 3D key."""
+ROADMAP item 18) and ``net_factory_3d`` with every 3D key.
+
+``model.dtype`` is the compute dtype, float32 or bfloat16, as chap_tpu's
+``_dtype`` (factory.py:28-29) reads it: the parameters stay float32, and
+every convolution and norm computes in the compute dtype
+(models/layers.py says op by op what that means)."""
 from __future__ import annotations
 
 import logging
@@ -12,6 +17,7 @@ import torch.nn as nn
 from chap_tpu_torch.config import ModelConfig
 from chap_tpu_torch.device import resolve_device
 from chap_tpu_torch.models.attention3d import AttentionUNet3D
+from chap_tpu_torch.models.layers import compute_dtype, set_compute_dtype
 from chap_tpu_torch.models.resvnet import ResVNet
 from chap_tpu_torch.models.unet2d import DualDecoder
 from chap_tpu_torch.models.unet3d import UNet3D
@@ -26,27 +32,20 @@ _TPU_LAYOUT_FLAGS = ("s2d_stem", "s2d_stage2", "zpack_stage2")
 _logged_flags = set()
 
 
-def _check_dtype(cfg: ModelConfig) -> None:
-    if cfg.dtype != "float32":
-        raise ValueError(f"model.dtype {cfg.dtype!r} is not ported yet (float32 "
-                         f"only; bf16 is queued in ROADMAP): pass the override "
-                         f"model.dtype=float32")
-
-
 def net_factory(net_type: str, in_chns: int, class_num: int,
                 cfg: Optional[ModelConfig] = None,
                 device: Optional[Union[str, torch.device]] = None) -> nn.Module:
     """2D factory. The model is built on ``device`` (the card unless
-    ``device="cpu"``). Only float32 is ported so far."""
+    ``device="cpu"``), its parameters float32, computing in ``model.dtype``."""
     cfg = cfg or ModelConfig()
-    _check_dtype(cfg)
+    dtype = compute_dtype(cfg.dtype)
     dev = resolve_device(device)
     if net_type in ("dualdecoder", "acalnet"):
         # acalnet: the ACAL trainer's shared-encoder model, the same
         # DualDecoder (chap_tpu/models/factory.py:43-44)
         model = DualDecoder(in_chns, class_num, cfg.decoder_type,
                             tuple(cfg.feature_chns), tuple(cfg.dropout))
-        return model.to(dev)
+        return set_compute_dtype(model, dtype).to(dev)
     raise ValueError(f"2D net_type {net_type!r} is not ported yet (available: "
                      f"dualdecoder, acalnet); the rest of the 2D zoo is "
                      f"ROADMAP item 18")
@@ -62,10 +61,11 @@ def net_factory_3d(net_type: str, in_chns: int, class_num: int,
     ``model.normalization_3d``, dropout in train mode only,
     net_factory_3d.py:16-27) and ``resvnet`` (16 filters, instance norm,
     dropout in train mode). Built on ``device`` (the card unless
-    ``device="cpu"``). chap_tpu's s2d / z-pack flags are accepted and change
-    nothing (logged once each)."""
+    ``device="cpu"``), its parameters float32, computing in ``model.dtype``.
+    chap_tpu's s2d / z-pack flags are accepted and change nothing (logged
+    once each)."""
     cfg = cfg or ModelConfig()
-    _check_dtype(cfg)
+    dtype = compute_dtype(cfg.dtype)
     dev = resolve_device(device)
     vnet_family = net_type in ("vnet", "vnet_ds", "dualdecoder")
     for flag in _TPU_LAYOUT_FLAGS:
@@ -92,4 +92,4 @@ def net_factory_3d(net_type: str, in_chns: int, class_num: int,
     if net_type not in builders:
         raise ValueError(f"unknown 3D net_type {net_type!r} (one of "
                          f"{', '.join(builders)})")
-    return builders[net_type]().to(dev)
+    return set_compute_dtype(builders[net_type](), dtype).to(dev)

@@ -87,10 +87,12 @@ def scores_dropout_v2(grad_sim: torch.Tensor, activation: torch.Tensor,
 
 def _gate_mask(mask: torch.Tensor, gate) -> torch.Tensor:
     """Blend a multiplicative mask toward identity: gate=1 keeps the
-    perturbation, gate=0 makes the pass clean."""
+    perturbation, gate=0 makes the pass clean. The gate takes the mask's
+    dtype (the features'), as chap_tpu's (perturb.py:109)."""
     if gate is None:
         return mask
-    return gate * mask + (1.0 - gate)
+    g = torch.as_tensor(gate, dtype=mask.dtype, device=mask.device)
+    return g * mask + (1.0 - g)
 
 
 def perturb_draw_shapes(batch: int, feature_chns: Sequence[int],

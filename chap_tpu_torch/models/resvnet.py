@@ -20,8 +20,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from chap_tpu_torch.models.layers import (dropout_from_uniform, instance_norm,
-                                          set_stats_keys, split_drop_u)
+from chap_tpu_torch.models.layers import (Conv3d, dropout_from_uniform,
+                                          instance_norm, set_stats_keys,
+                                          split_drop_u)
 from chap_tpu_torch.models.vnet3d import ConvBlock3d, UpBlock3d
 
 DROPOUT_P = 0.5
@@ -34,13 +35,13 @@ class BasicBlock3d(nn.Module):
 
     def __init__(self, in_planes: int, planes: int, stride: int = 1):
         super().__init__()
-        self.conv1 = nn.Conv3d(in_planes, planes, 3, stride=stride, padding=1,
+        self.conv1 = Conv3d(in_planes, planes, 3, stride=stride, padding=1,
                                bias=False)
-        self.conv2 = nn.Conv3d(planes, planes, 3, padding=1, bias=False)
+        self.conv2 = Conv3d(planes, planes, 3, padding=1, bias=False)
         self.downsample = None
         if stride != 1 or in_planes != planes:
             self.downsample = nn.Sequential(
-                nn.Conv3d(in_planes, planes, 1, stride=stride, bias=False))
+                Conv3d(in_planes, planes, 1, stride=stride, bias=False))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = instance_norm(self.conv2(F.relu(instance_norm(self.conv1(x)))))
@@ -55,7 +56,7 @@ class ResNetEncoder3d(nn.Module):
 
     def __init__(self, in_chns: int = 1, base: int = 16):
         super().__init__()
-        self.conv1 = nn.Conv3d(in_chns, base, 7, padding=3, bias=False)
+        self.conv1 = Conv3d(in_chns, base, 7, padding=3, bias=False)
         planes = base
         for stage, blocks in enumerate(STAGE_BLOCKS):
             layer = []
@@ -95,7 +96,7 @@ class ResVNet(nn.Module):
         self.block_eight = ConvBlock3d(2, 2 * nf, 2 * nf, normalization)
         self.block_eight_up = UpBlock3d(2 * nf, nf, normalization, 0)
         self.branch_conv = ConvBlock3d(1, nf, nf, normalization)
-        self.branch_out = nn.Conv3d(nf, num_classes, 1)
+        self.branch_out = Conv3d(nf, num_classes, 1)
         set_stats_keys(self)
 
     def dropout_shapes(self, rows: int, spatial: Sequence[int]

@@ -11,8 +11,8 @@ from typing import List, Optional, Sequence
 import torch
 import torch.nn as nn
 
-from chap_tpu_torch.models.layers import (ConvBlock, DownBlock, Stats, UpBlock,
-                                          set_stats_keys)
+from chap_tpu_torch.models.layers import (Conv2d, ConvBlock, DownBlock, Stats,
+                                          UpBlock, set_stats_keys)
 from chap_tpu_torch.models.perturb import perform_dropout
 
 DEFAULT_CHNS = (16, 32, 64, 128, 256)
@@ -59,7 +59,7 @@ class Decoder(nn.Module):
         self.up2 = UpBlock(ch[3], ch[2], ch[2], 0.0, bilinear, plus)
         self.up3 = UpBlock(ch[2], ch[1], ch[1], 0.0, bilinear, plus)
         self.up4 = UpBlock(ch[1], ch[0], ch[0], 0.0, bilinear, plus)
-        self.out_conv = nn.Conv2d(ch[0], num_classes, 3, padding=1)
+        self.out_conv = Conv2d(ch[0], num_classes, 3, padding=1)
 
     def forward(self, feature: Sequence[torch.Tensor],
                 stats: Optional[Stats] = None) -> torch.Tensor:

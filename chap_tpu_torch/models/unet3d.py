@@ -22,8 +22,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from chap_tpu_torch.models.layers import (InstanceNorm, dropout_from_uniform,
-                                          resize_linear, split_drop_u)
+from chap_tpu_torch.models.layers import (Conv3d, InstanceNorm,
+                                          dropout_from_uniform, resize_linear,
+                                          split_drop_u)
 
 DROPOUT_P = 0.3
 UNET_FILTERS = (64, 128, 256, 512, 1024)
@@ -36,7 +37,7 @@ def unet_filters(feature_scale: int) -> List[int]:
 
 def _conv_norm_relu(in_channels: int, out_channels: int,
                     is_batchnorm: bool) -> nn.Sequential:
-    ops: List[nn.Module] = [nn.Conv3d(in_channels, out_channels, 3, padding=1)]
+    ops: List[nn.Module] = [Conv3d(in_channels, out_channels, 3, padding=1)]
     if is_batchnorm:
         ops.append(InstanceNorm(IN_EPS))
     ops.append(nn.ReLU())
@@ -111,7 +112,7 @@ class UNet3D(UNet3DEncoder):
         self.up_concat3 = UnetUp3CT(filters[3], filters[2], is_batchnorm)
         self.up_concat2 = UnetUp3CT(filters[2], filters[1], is_batchnorm)
         self.up_concat1 = UnetUp3CT(filters[1], filters[0], is_batchnorm)
-        self.final = nn.Conv3d(filters[0], num_classes, 1)
+        self.final = Conv3d(filters[0], num_classes, 1)
 
     def dropout_shapes(self, rows: int, spatial: Sequence[int]
                        ) -> List[Tuple[int, ...]]:

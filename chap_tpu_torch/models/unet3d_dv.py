@@ -7,9 +7,9 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
-import torch.nn as nn
 
 from chap_tpu_torch.models.attention3d import UnetDsv3
+from chap_tpu_torch.models.layers import Conv3d
 from chap_tpu_torch.models.unet3d import UNet3D
 
 
@@ -26,7 +26,7 @@ class UNet3DDvSemi(UNet3D):
         self.dsv4 = UnetDsv3(f[3], num_classes, 8)
         self.dsv3 = UnetDsv3(f[2], num_classes, 4)
         self.dsv2 = UnetDsv3(f[1], num_classes, 2)
-        self.dsv1 = nn.Conv3d(f[0], num_classes, 1)
+        self.dsv1 = Conv3d(f[0], num_classes, 1)
 
     def forward(self, x: torch.Tensor, *, drop_u=None, stats=None
                 ) -> Tuple[torch.Tensor, ...]:

@@ -30,10 +30,11 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from chap_tpu_torch.models.layers import (BatchNorm3d, FlaxBatchNorm,
-                                          InstanceNorm, Stats,
-                                          dropout_from_uniform, set_stats_keys,
-                                          split_drop_u,
+from chap_tpu_torch.models.layers import (BatchNorm3d, Conv3d,
+                                          ConvTranspose3d, FlaxBatchNorm,
+                                          GroupNorm, Stats,
+                                          dropout_from_uniform,
+                                          set_stats_keys, split_drop_u,
                                           upsample2x_nearest,
                                           upsample2x_trilinear)
 from chap_tpu_torch.models.perturb import perform_dropout
@@ -61,13 +62,15 @@ def _norm(normalization: str, channels: int) -> Optional[nn.Module]:
     groups with scale and bias, or an affine-free GroupNorm of one channel a
     group (an instance norm), both at Flax's epsilon 1e-6. Flax takes the
     group variance in one pass, E[x^2] - E[x]^2; torch's group_norm in two,
-    the exact value (tests/test_torch_zoo3d.py holds the difference)."""
+    the exact value (tests/test_torch_zoo3d.py holds the difference). In
+    bf16 both take float32 statistics and round only their output, as
+    Flax's GroupNorm(dtype=) does."""
     if normalization == "batchnorm":
         return BatchNorm3d(channels)
     if normalization == "groupnorm":
-        return nn.GroupNorm(16, channels, eps=GN_EPS)
+        return GroupNorm(16, channels, eps=GN_EPS)
     if normalization == "instancenorm":
-        return InstanceNorm(GN_EPS)
+        return GroupNorm(channels, channels, eps=GN_EPS, affine=False)
     if normalization == "none":
         return None
     raise ValueError(f"unknown normalization {normalization!r}")
@@ -102,7 +105,7 @@ class ConvBlock3d(nn.Module):
         super().__init__()
         ops: List[nn.Module] = []
         for i in range(n_stages):
-            ops.append(nn.Conv3d(in_channels if i == 0 else out_channels,
+            ops.append(Conv3d(in_channels if i == 0 else out_channels,
                                  out_channels, 3, padding=1))
             norm = _norm(normalization, out_channels)
             if norm is not None:
@@ -124,7 +127,7 @@ class ResidualConvBlock3d(nn.Module):
         super().__init__()
         ops: List[nn.Module] = []
         for i in range(n_stages):
-            ops.append(nn.Conv3d(in_channels if i == 0 else out_channels,
+            ops.append(Conv3d(in_channels if i == 0 else out_channels,
                                  out_channels, 3, padding=1))
             norm = _norm(normalization, out_channels)
             if norm is not None:
@@ -145,7 +148,7 @@ class DownBlock3d(nn.Module):
     def __init__(self, in_channels: int, out_channels: int,
                  normalization: str = "none"):
         super().__init__()
-        ops: List[nn.Module] = [nn.Conv3d(in_channels, out_channels, 2, stride=2)]
+        ops: List[nn.Module] = [Conv3d(in_channels, out_channels, 2, stride=2)]
         norm = _norm(normalization, out_channels)
         if norm is not None:
             ops.append(norm)
@@ -165,11 +168,11 @@ class UpBlock3d(nn.Module):
                  normalization: str = "none", mode_upsampling: int = 1):
         super().__init__()
         if mode_upsampling == 0:
-            ops: List[nn.Module] = [nn.ConvTranspose3d(in_channels, out_channels,
+            ops: List[nn.Module] = [ConvTranspose3d(in_channels, out_channels,
                                                        2, stride=2)]
         elif mode_upsampling in (1, 2):
             ops = [_Upsample2x("trilinear" if mode_upsampling == 1 else "nearest"),
-                   nn.Conv3d(in_channels, out_channels, 3, padding=1)]
+                   Conv3d(in_channels, out_channels, 3, padding=1)]
         else:
             raise ValueError(f"unknown mode_upsampling {mode_upsampling}")
         norm = _norm(normalization, out_channels)
@@ -240,7 +243,7 @@ class VDecoder(nn.Module):
         self.block_eight = block(2, 2 * nf, 2 * nf, norm)
         self.block_eight_up = UpBlock3d(2 * nf, nf, norm, up_type)
         self.block_nine = block(1, nf, nf, norm)
-        self.out_conv = nn.Conv3d(nf, num_classes, 1)
+        self.out_conv = Conv3d(nf, num_classes, 1)
 
     def stages(self, features: Sequence[torch.Tensor],
                u_out: Optional[torch.Tensor] = None,
@@ -297,7 +300,7 @@ class SideConv3d(nn.Module):
     def __init__(self, n_filters: int = 16, num_classes: int = 2):
         super().__init__()
         for name, m in zip(("side5", "side4", "side3", "side2"), (16, 8, 4, 2)):
-            setattr(self, name, nn.Conv3d(m * n_filters, num_classes, 1))
+            setattr(self, name, Conv3d(m * n_filters, num_classes, 1))
 
     def forward(self, stage_feats: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         return [conv(f) for conv, f in zip(

@@ -14,16 +14,17 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from chap_tpu_torch.models.layers import InstanceNorm, upsample2x_trilinear
+from chap_tpu_torch.models.layers import (Conv3d, InstanceNorm,
+                                          upsample2x_trilinear)
 
 
 def _preact_double_conv(in_channels: int, out_channels: int) -> nn.Sequential:
     """IN-ReLU-conv-IN-ReLU-conv, the convs at Sequential indices 2 and 5."""
     return nn.Sequential(
         InstanceNorm(), nn.ReLU(),
-        nn.Conv3d(in_channels, out_channels, 3, padding=1, bias=False),
+        Conv3d(in_channels, out_channels, 3, padding=1, bias=False),
         InstanceNorm(), nn.ReLU(),
-        nn.Conv3d(out_channels, out_channels, 3, padding=1, bias=False))
+        Conv3d(out_channels, out_channels, 3, padding=1, bias=False))
 
 
 class VoxRex(nn.Module):
@@ -58,12 +59,12 @@ class VoxResNet(nn.Module):
                  feature_chns: int = 64):
         super().__init__()
         nf = feature_chns
-        self.conv1 = nn.Conv3d(in_chns, nf, 3, padding=1)
+        self.conv1 = Conv3d(in_chns, nf, 3, padding=1)
         for i in range(1, 7):
             setattr(self, f"res{i}", VoxRex(nf))
         self.up1_conv = VoxConvBlock(2 * nf, nf)
         self.up2_conv = VoxConvBlock(2 * nf, nf)
-        self.out = nn.Conv3d(nf, num_classes, 1)
+        self.out = Conv3d(nf, num_classes, 1)
 
     def dropout_shapes(self, rows: int, spatial: Sequence[int]
                        ) -> List[Tuple[int, ...]]:

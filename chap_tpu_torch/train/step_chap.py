@@ -40,6 +40,7 @@ from chap_tpu_torch.device import resolve_device
 from chap_tpu_torch.losses.ce import cross_entropy, cross_entropy_per_pixel
 from chap_tpu_torch.losses.mix import mix_loss
 from chap_tpu_torch.losses.vat import vat_loss_2d
+from chap_tpu_torch.models.layers import softmax
 from chap_tpu_torch.models.perturb import perturb_draw_shapes
 from chap_tpu_torch.models.vnet3d import dropout_shapes as vnet_dropout_shapes
 from chap_tpu_torch.semi.bcp import draw_box_starts, generate_mask_nd, mix_images
@@ -230,8 +231,10 @@ def build_chap_train_step(model: torch.nn.Module,
         uimg_ab = image[labeled_bs:]
         with torch.no_grad():
             pre_ab1, pre_ab2, t_stats = apply_model(uimg_ab, drop["teacher"], True)
-            soft1 = torch.softmax(pre_ab1, dim=1)
-            soft2 = torch.softmax(pre_ab2, dim=1)
+            # in the logits' dtype, argmax on it (bf16 near-ties go to the
+            # first class, as chap_tpu's step_chap.py:120-123)
+            soft1 = softmax(pre_ab1, 1)
+            soft2 = softmax(pre_ab2, 1)
             pseudo1 = soft1.argmax(dim=1)
             pseudo2 = soft2.argmax(dim=1)
             knowledge = (cross_entropy_per_pixel(pre_ab1, pseudo2)

@@ -24,9 +24,15 @@ Modes: ``chap``, ``supervised`` and ``ablation`` (train/step_ablation.py;
 at each log step its disagreement ratio is appended to
 ``<snapshot>/disagreement.csv``, as chap_tpu's trainer_2d.py:174-178 does).
 One device: ``parallel.num_devices`` 0 (the default device) or 1.
+
+``model.dtype=bfloat16`` computes the model in bf16 over float32 parameters
+(models/layers.py), with the batches in bf16 as chap_tpu's (pool and host
+loader, trainer_2d.py:97-121); the ablation mode refuses it (ROADMAP item
+21b).
 """
 from __future__ import annotations
 
+import functools
 import logging
 import time
 from typing import Optional, Union
@@ -43,6 +49,7 @@ from chap_tpu_torch.data.transforms import RandomGenerator
 from chap_tpu_torch.device import resolve_device
 from chap_tpu_torch.eval.eval2d import evaluate_volumes, make_predictor
 from chap_tpu_torch.models.factory import net_factory
+from chap_tpu_torch.models.layers import compute_dtype
 from chap_tpu_torch.train.state import create_train_state, make_optimizer
 from chap_tpu_torch.train.step_ablation import build_ablation_train_step
 from chap_tpu_torch.train.step_chap import build_chap_train_step
@@ -78,6 +85,11 @@ def train(cfg: Config, snapshot_path: str, mode: str = "chap",
             f"parallel.num_devices={cfg.parallel.num_devices}: the port trains "
             f"on one device; data parallelism over cards (DDP) is ROADMAP "
             f"item 16")
+    dtype = compute_dtype(cfg.model.dtype)
+    if mode == "ablation" and dtype != torch.float32:
+        raise ValueError(f"model.dtype={cfg.model.dtype}: the ablation step "
+                         f"computes in float32 only; bf16 for it is ROADMAP "
+                         f"item 21b")
     if cfg.run.prng_impl != "threefry2x32":
         logger.warning("run.prng_impl=%r selects a JAX PRNG; ignored (the "
                        "port draws from torch.Generator)", cfg.run.prng_impl)
@@ -122,8 +134,7 @@ def train(cfg: Config, snapshot_path: str, mode: str = "chap",
 
     if cfg.data.device_input:
         t0 = time.perf_counter()
-        pool = build_device_pool(db_train, cfg.data.image_size, torch.float32,
-                                 device)
+        pool = build_device_pool(db_train, cfg.data.image_size, dtype, device)
         _synchronize(device)
         writer.write(start_iter, {"pool_build_s": time.perf_counter() - t0})
         batch_fn = build_device_batch_fn(total_slices, labeled_slice,
@@ -145,8 +156,10 @@ def train(cfg: Config, snapshot_path: str, mode: str = "chap",
                     cfg.data.batch_size - cfg.data.labeled_bs,
                     seed=cfg.run.seed + epoch_start)
                 loader = BatchLoader(db_train, sampler, cfg.data.num_workers)
-                yield from prefetch_to_device(loader, device, size=2,
-                                              transform=compact_batch)
+                yield from prefetch_to_device(
+                    loader, device, size=2,
+                    transform=functools.partial(compact_batch,
+                                                compute_dtype=dtype))
                 epoch_start += len(sampler)
 
     step_gen = torch.Generator(device=device)

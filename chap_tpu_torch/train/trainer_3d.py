@@ -24,10 +24,18 @@ Orchestration, as in train/trainer_2d.py:
 chap_tpu forces ``optim.fused_passes`` off for the 3D CHAP step without a
 word (trainer_3d.py:189-192); here the CHAP step logs that option, and
 ``split``, once when it is built, as in 2D.
+
+``model.dtype=bfloat16`` (every 3D config the repository ships) computes the
+model in bf16 over float32 parameters (models/layers.py), with the patches
+in bf16 as chap_tpu's (volume pool and host loader, trainer_3d.py:228-250);
+the eval runs the engine at its default float32 input, so a bf16 model
+gives bf16 logits to K3, as chap_tpu's eval does. Checkpoints hold the
+float32 parameters.
 One device: ``parallel.num_devices`` 0 or 1.
 """
 from __future__ import annotations
 
+import functools
 import logging
 import time
 from typing import Dict, Optional, Sequence, Union
@@ -46,6 +54,7 @@ from chap_tpu_torch.eval.sliding_window import test_all_case
 from chap_tpu_torch.losses.ce import cross_entropy_per_pixel
 from chap_tpu_torch.losses.dice import dice_ce_supervised
 from chap_tpu_torch.models.factory import net_factory_3d
+from chap_tpu_torch.models.layers import compute_dtype, softmax
 from chap_tpu_torch.models.resvnet import ResVNet
 from chap_tpu_torch.models.vnet3d import VNetDS
 from chap_tpu_torch.semi.gradsim import VNET_LEVEL_PATHS
@@ -129,8 +138,10 @@ def build_cps3d_train_step(model: torch.nn.Module,
         o1, o2 = model(image, drop_u=draws["drop"], stats=stats)
         sup1 = dice_ce_supervised(o1[:lbs], label[:lbs], num_classes)
         sup2 = dice_ce_supervised(o2[:lbs], label[:lbs], num_classes)
-        pseudo1 = o1[lbs:].detach().argmax(dim=1)
-        pseudo2 = o2[lbs:].detach().argmax(dim=1)
+        # argmax of the softmax in the logits' dtype, as chap_tpu's
+        # (trainer_3d.py:77-82): in bf16 its rounding makes ties
+        pseudo1 = softmax(o1[lbs:].detach(), 1).argmax(dim=1)
+        pseudo2 = softmax(o2[lbs:].detach(), 1).argmax(dim=1)
         ps1 = cross_entropy_per_pixel(o1[lbs:], pseudo2).mean()
         ps2 = cross_entropy_per_pixel(o2[lbs:], pseudo1).mean()
         w = semi.consistency * sigmoid_rampup(state.step // 150,
@@ -229,6 +240,7 @@ def train(cfg: Config, snapshot_path: str, max_steps: Optional[int] = None,
                        "port draws from torch.Generator)", cfg.run.prng_impl)
     patch = tuple(int(p) for p in cfg.data.patch_size_3d)
     num_classes = cfg.data.num_classes
+    dtype = compute_dtype(cfg.model.dtype)
 
     torch.manual_seed(cfg.run.seed)
     model_name = cfg.model.name_3d if mode == "supervised" else "dualdecoder"
@@ -278,7 +290,7 @@ def train(cfg: Config, snapshot_path: str, max_steps: Optional[int] = None,
 
     if cfg.data.device_input:
         t0 = time.perf_counter()
-        pool = build_device_volume_pool(volumes, patch, torch.float32, device)
+        pool = build_device_volume_pool(volumes, patch, dtype, device)
         _synchronize(device)
         writer.write(start_iter, {"pool_build_s": time.perf_counter() - t0})
         patch_fn = build_device_patch_fn(
@@ -305,8 +317,10 @@ def train(cfg: Config, snapshot_path: str, max_steps: Optional[int] = None,
                     cfg.data.batch_size - cfg.data.labeled_bs,
                     seed=cfg.run.seed + epoch_start)
                 loader = BatchLoader(dataset, sampler, cfg.data.num_workers)
-                yield from prefetch_to_device(loader, device, size=2,
-                                              transform=compact_batch)
+                yield from prefetch_to_device(
+                    loader, device, size=2,
+                    transform=functools.partial(compact_batch,
+                                                compute_dtype=dtype))
                 epoch_start += len(sampler)
 
     def save_latest() -> float:

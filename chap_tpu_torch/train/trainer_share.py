@@ -20,7 +20,9 @@ seeded from ``run.seed``. Besides chap_tpu's metric keys, each log record
 carries ``steps_per_sec`` and ``mb_feed_ms`` (the bank feeds' mean since the
 last log, copy and host ranking included), and each eval record
 ``model{1,2}_eval_s`` and ``checkpoint_ms``. No resume: chap_tpu's ACAL
-trainer has none. One device: ``parallel.num_devices`` 0 or 1.
+trainer has none. One device: ``parallel.num_devices`` 0 or 1. Float32
+only: ``model.dtype=bfloat16`` is refused (ROADMAP item 21b; the only
+config of this trainer, configs/acdc_share_acal.yml, is float32).
 """
 from __future__ import annotations
 
@@ -61,6 +63,10 @@ def train(cfg: Config, snapshot_path: str, max_steps: Optional[int] = None,
             f"parallel.num_devices={cfg.parallel.num_devices}: the port trains "
             f"on one device; data parallelism over cards (DDP) is ROADMAP "
             f"item 16")
+    if cfg.model.dtype != "float32":
+        raise ValueError(f"model.dtype={cfg.model.dtype}: the ACAL trainer "
+                         f"computes in float32 only; bf16 for it is ROADMAP "
+                         f"item 21b")
     if cfg.run.prng_impl != "threefry2x32":
         logger.warning("run.prng_impl=%r selects a JAX PRNG; ignored (the "
                        "port draws from torch.Generator)", cfg.run.prng_impl)

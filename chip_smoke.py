@@ -20,7 +20,11 @@ Phases (any failure raises and the script exits non-zero):
                steps' labeled half [12, 4, 256, 256] (R = 1) and the BraTS
                supervised step's [4, 2, 96, 96, 96] (R = 1): statistics, dice,
                ce and d/dlogits (also with one region's grads None) at
-               rtol 2e-3, two calls bit-identical; at the timed shapes
+               rtol 2e-3, two calls bit-identical; then at bf16 logits (the
+               configs as written) at [1, 2, 112, 112, 80] (R = 2),
+               [2, 2, 112, 112, 80] (R = 1) and [4, 2, 96, 96, 96] (R = 1):
+               losses at rtol 2e-3, the bf16 gradients within one bf16
+               rounding of the plain version's; at the timed shapes
                torch.profiler counts the device kernels of 3 forward calls
                (1 or 2 kernels each) and of 3 backward calls (1 each);
                device ms per launch over 100 back-to-back calls, host us
@@ -83,29 +87,44 @@ Phases (any failure raises and the script exits non-zero):
                (near-ties within 1e-5 counted), two runs bit-identical; one
                LA batch timed. Then one output (no second logits, unet_3D's
                eval) at the BraTS eval's batch of 8 patches of 96^3 over a
-               160x160x128 volume, held and timed the same way
+               160x160x128 volume, held and timed the same way. Then K3's
+               bf16-logits instantiation (a bf16 model's eval) over the LA
+               grid (two outputs) and the BraTS batch (one output) against
+               its plain version on the same bf16 logits: score within
+               1e-5, counts equal, bit-identical on repeat; timed, its bound
+               from the bf16 bytes
  11. parity 3D one 3D CHAP step on the card and on the CPU from the same
                weights and draws (nf 4, patch 32x32x16, batch 4, TF32 off):
                the 7 metrics at rtol 2e-3, launches 4 / 12 / 1 (K2 3D);
                then the sliding-window eval of a 48x48x24 volume on both
                from weights trained 20 supervised steps on the card:
                >= 99.9% of voxels agree, each map 1-99% foreground, K3
-               once per patch batch
+               once per patch batch. Both again in bf16 (configs/
+               la_chap.yml's dtype): the card's step metrics on three
+               batches, one vector, within 2x the CPU's own bf16-vs-float32
+               gap of the CPU's bf16 ones, every K1 launch at bf16 logits;
+               the card's bf16 label map agreeing
+               with the CPU's bf16 one at least as well as the CPU's bf16
+               and float32 maps agree, less 0.5 points
  12. slice 3D  the 3D CHAP step at configs/la_chap.yml's values (nf 16,
                widths 16-256, patch 112x112x80, batch 4 = 2 + 2, fp32 via
-               model.dtype=float32) on phantom patches, random weights from a
+               model.dtype=float32, beside phase 21's bf16 step) on phantom
+               patches, random weights from a
                seed: 1 warm-up and 3 timed steps, launches per step asserted
                (4 K1 forward, 12 K1 backward, 1 K2 3D), peak memory; then
                torch.profiler over 1 step by kernel class
  13. trainer3d chap_tpu_torch.cli.train_3d.main at configs/la_chap.yml's
-               values on synthetic volumes (12 of 128x128x88 in the device
-               pool; the LA patch set back by override, since --dataset
-               synthetic pins 64x64x48): 4 CHAP steps, --resume to 6 (the
-               step counter continues), 2 cps and 2 supervised steps (2 / 2
-               / 0 a step), 3 CHAP steps on the host loader; then
-               test_all_case on the run's latest weights over 2 synthetic
-               volumes of 160x160x96 at stride 18/4, sw_batch 16, K3
-               launches equal to the patch batches; cli.test_3d on the card.
+               values as written (bf16 compute) on synthetic volumes (12 of
+               128x128x88 in the device pool; the LA patch set back by
+               override, since --dataset synthetic pins 64x64x48): 4 CHAP
+               steps, --resume to 6 (the step counter continues), 2 cps and
+               2 supervised steps (2 / 2 / 0 a step), 3 CHAP steps on the
+               host loader, every K1 launch at bf16 logits; then
+               test_all_case on the run's latest (float32) weights over 2
+               synthetic volumes of 160x160x96 at stride 18/4, sw_batch 16,
+               with the model in bf16 (K3's bf16 instantiation once per
+               patch batch) and in float32 (its float32 one); cli.test_3d
+               on the card.
                Prints the ``trainer3d`` line (steps/s, eval s per volume,
                checkpoint ms, peak bytes)
  14. parity    one ACAL joint step, decoder max-step and encoder min-step
@@ -141,12 +160,15 @@ Phases (any failure raises and the script exits non-zero):
                card and on the CPU from the same weights and dropout draws
                (48x32x16, TF32 off): every output in eval and train mode
                and the BatchNorm batch statistics at 5e-4 of the output's
-               scale; one supervised step each of unet_3D, attention_unet,
+               scale, and every output in bf16 within 2x the CPU's own
+               bf16-vs-float32 gap of the CPU's bf16 output (float32
+               statistics); one supervised step each of unet_3D, attention_unet,
                voxresnet and unet_3D_dv_semi, loss at rtol 2e-3, the card's
                K1 launches 1 / 1 (4 / 4 for unet_3D_dv_semi); vnet_ds and
                resvnet refused by the supervised step
  19. slice     the supervised step at configs/brats_supervised.yml's values
-     zoo3d     (96^3, batch 4, 2 classes, fp32 by override, random weights
+     zoo3d     (96^3, batch 4, 2 classes, fp32 by override beside phase
+               21's bf16 step, random weights
                from a seed) for unet_3D (feature_scale 4: widths 16-256),
                attention_unet and unet_3D_dv_semi: 1 warm-up and 3 timed
                steps, launches asserted (1 / 1 a step, 4 / 4 for
@@ -154,17 +176,30 @@ Phases (any failure raises and the script exits non-zero):
                step by kernel class (``slice_zoo3d``, ``profile_zoo3d``)
  20. trainer   cli.train_3d.main --cfg configs/brats_supervised.yml --method
      zoo3d     supervised --dataset synthetic (the 96^3 patch set back by
-               override, fp32): 4 unet_3D steps, --resume to 6, 1 / 1 K1 a
-               step; test_all_case on the latest weights over 2 synthetic
-               volumes of 160x160x128 at stride 64, sw_batch 8, and
+               override, bf16 as written): 4 unet_3D steps, --resume to 6,
+               1 / 1 K1 a step at bf16 logits; test_all_case on the latest
+               weights over 2 synthetic volumes of 160x160x128 at stride
+               64, sw_batch 8, with the model in bf16 and in float32, and
                cli.test_3d --model unet_3D, K3 launches equal to the patch
-               batches in both. Prints the ``trainer_zoo3d`` line (steps/s,
+               batches in each. Prints the ``trainer_zoo3d`` line (steps/s,
                eval s per volume, checkpoint ms, peak bytes)
- 21. report    the kernels line (JSON), the card line, and the last line
+ 21. slice     configs/la_chap.yml, configs/pancreas_chap.yml and
+     bf16      configs/brats_supervised.yml as written, no override (bf16
+               compute over float32 parameters): the CHAP step at
+               112x112x80 and at 96^3 and the unet_3D supervised step at
+               96^3, batch 4, bf16 phantom patches, random weights from a
+               seed: 1 warm-up and 3 timed steps, launches asserted with
+               every K1 launch at bf16 logits, peak memory; torch.profiler
+               over 1 LA and 1 unet_3D step, which must show bf16
+               convolution kernels (``slice_bf16``, ``profile_bf16_*``)
+ 22. report    the kernels line (JSON; K1 and K3 at bf16 logits have rows
+               of their own), the card line, and the last line
                {"ok": true, "device": {...}}
 
 The 2D and 3D phases keep the counts and depths they had before the ACAL
-path and the 3D zoo were added.
+path and the 3D zoo were added; the 3D trainer phases (13, 20) run their
+configs as written, in bf16, and the float32 steps of phases 12 and 19
+stand beside phase 21's bf16 ones.
 
 Two diagnostics run only by hand, each from the repository root:
 
@@ -213,6 +248,7 @@ from chap_tpu_torch.eval import sliding_window as sw
 from chap_tpu_torch.eval.eval2d import evaluate_volumes, make_predictor, predict_volume
 from chap_tpu_torch.models.attention3d import AttentionUNet3D
 from chap_tpu_torch.models.factory import net_factory, net_factory_3d
+from chap_tpu_torch.models.layers import set_compute_dtype
 from chap_tpu_torch.models.resvnet import ResVNet
 from chap_tpu_torch.models.unet3d import UNet3D
 from chap_tpu_torch.models.unet3d_dv import UNet3DDvSemi
@@ -271,12 +307,29 @@ def launch_counts() -> dict:
             "K3_sw": sw.sw_accumulate_kernel.launches}
 
 
+def bf16_launch_counts() -> dict:
+    """The launches at bf16 logits of the kernels that take them (K1's
+    forward and backward, K3), a part of launch_counts()' totals."""
+    return {"K1_fwd": fused_losses.stats_kernel.launches_bf16,
+            "K1_bwd": fused_losses.stats_grad_kernel.launches_bf16,
+            "K3_sw": sw.sw_accumulate_kernel.launches_bf16}
+
+
 def zero_launch_counts() -> None:
-    fused_losses.stats_kernel.launches = 0
-    fused_losses.stats_grad_kernel.launches = 0
+    for fn in (fused_losses.stats_kernel, fused_losses.stats_grad_kernel,
+               sw.sw_accumulate_kernel):
+        fn.launches = fn.launches_bf16 = 0
     nms.ccl_kernel.launches = 0
     nms.ccl3d_kernel.launches = 0
-    sw.sw_accumulate_kernel.launches = 0
+
+
+def check_all_bf16(what: str) -> dict:
+    """Every K1 and K3 launch since the counters were set to 0 took bf16
+    logits (a bf16 model's path); returns the bf16 counts."""
+    total, bf16 = launch_counts(), bf16_launch_counts()
+    check(all(bf16[k] == total[k] for k in bf16),
+          f"{what}: every K1 / K3 launch at bf16 logits: {bf16} of {total}")
+    return bf16
 
 
 def single_call_ms(fn, n: int = 20, warmup: int = 3) -> float:
@@ -364,15 +417,20 @@ def timings(fn, n: int = 100) -> dict:
     """device_ms: events around n back-to-back calls (bounded below by the
     host's enqueue when that is slower); kernel_ms: the kernels' own device
     time per call, from torch.profiler over 20 calls; host_us; and the
-    median of single calls between two events."""
-    kernels = device_kernels(fn, 20)
-    by_kernel = {}
-    for name, us in kernels:
-        name = short_name(name)
-        by_kernel[name] = by_kernel.get(name, 0.0) + us / 20 / 1e3
+    median of single calls between two events. A profiler session that saw
+    no device kernel is taken once more (torch.profiler has returned empty
+    sessions late in the process); if the second is empty too, kernel_ms
+    is None: not measured."""
+    for _ in range(2):
+        by_kernel = {}
+        for name, us in device_kernels(fn, 20):
+            name = short_name(name)
+            by_kernel[name] = by_kernel.get(name, 0.0) + us / 20 / 1e3
+        if by_kernel:
+            break
     return {"device_ms": device_ms(fn, n), "host_us": host_us(fn, n),
-            "kernel_ms": sum(by_kernel.values()), "kernel_ms_by_name": by_kernel,
-            "single_call_ms": single_call_ms(fn)}
+            "kernel_ms": sum(by_kernel.values()) if by_kernel else None,
+            "kernel_ms_by_name": by_kernel, "single_call_ms": single_call_ms(fn)}
 
 
 def bound_ms(n_bytes: float, n_flops: float):
@@ -419,14 +477,14 @@ def tf32_settings() -> str:
 # phase 3: K1
 # ---------------------------------------------------------------------------
 
-def k1_inputs(shape, seed, label_values=None):
-    """Logits, two label maps with values in [0, label_values) (default C;
-    larger values are labels outside [0, C), which count nowhere) and a
-    {0, 1} mask."""
+def k1_inputs(shape, seed, label_values=None, dtype=torch.float32):
+    """Logits in ``dtype``, two label maps with values in [0, label_values)
+    (default C; larger values are labels outside [0, C), which count
+    nowhere) and a {0, 1} mask."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     b, c, *spatial = shape
     hi = label_values or c
-    logits = torch.randn(shape, generator=gen, device="cuda") * 2
+    logits = (torch.randn(shape, generator=gen, device="cuda") * 2).to(dtype)
     labels = torch.randint(0, hi, (b, *spatial), generator=gen, device="cuda",
                            dtype=torch.int32)
     labels2 = torch.randint(0, hi, (b, *spatial), generator=gen, device="cuda",
@@ -455,15 +513,30 @@ def _k1_grads(x, lab, mask, lab2, weights, used):
     return out
 
 
-def phase_k1(shape, seed, regions, timed=False, label_values=None):
+def bf16_rounding_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest |got - want| in units of one bf16 rounding of the larger
+    of the two (2^-7 of it), with 1e-5 of want's peak as the floor: <= 1
+    when got and want differ by no more than bf16 rounding."""
+    g, w = got.double(), want.double()
+    unit = 2.0 ** -7 * torch.maximum(g.abs(), w.abs()) + 1e-5 * w.abs().max()
+    return float(((g - w).abs() / unit).max())
+
+
+def phase_k1(shape, seed, regions, timed=False, label_values=None,
+             dtype=torch.float32):
     """K1 with R = ``regions`` against its plain version: statistics, losses,
     the Function's gradient and the backward kernel alone; bit-identical on
     repeat. At the main path's shape it also counts the device kernels of
-    one forward and one backward and times kernel and plain version."""
-    logits, labels, labels2, mask = k1_inputs(shape, seed, label_values)
+    one forward and one backward and times kernel and plain version. At
+    bf16 logits (a bf16 model's) the losses are held at rtol 2e-3 as in
+    float32 (both upcast the logits), and the gradients, bf16 in both,
+    within one bf16 rounding of the plain version's."""
+    logits, labels, labels2, mask = k1_inputs(shape, seed, label_values, dtype)
     lab2 = labels2 if regions == 2 else None
     c = shape[1]
-    tag = f"{shape} R={regions} labels<{label_values or c}"
+    bf16 = dtype == torch.bfloat16
+    tag = (f"{shape} R={regions} labels<{label_values or c}"
+           + (" bf16" if bf16 else ""))
     # forward: statistics and losses
     losses, stats = fused_losses.stats_kernel(logits, labels, mask, lab2)
     losses2, stats2 = fused_losses.stats_kernel(logits, labels, mask, lab2)
@@ -486,9 +559,15 @@ def phase_k1(shape, seed, regions, timed=False, label_values=None):
         g2 = _k1_grads(logits, labels, mask, lab2, weights, used)
         check(torch.equal(g["kernel"][1], g2["kernel"][1]),
               f"K1 backward deterministic at {tag}")
+        check(g["kernel"][1].dtype == dtype, f"K1 gradient dtype at {tag}")
         err = rel_err(g["kernel"][1], g["plain"][1])
-        check(err <= RTOL, f"K1 gradient at {tag} {used}: "
-                           f"max|diff|/max|plain| = {err}")
+        if bf16:    # both round a float32 gradient to bf16 once
+            units = bf16_rounding_err(g["kernel"][1], g["plain"][1])
+            check(units <= 1.0, f"K1 bf16 gradient within bf16 rounding of the "
+                                f"plain one at {tag} {used}: {units} units")
+        else:
+            check(err <= RTOL, f"K1 gradient at {tag} {used}: "
+                               f"max|diff|/max|plain| = {err}")
         g_err = max(g_err, err)
         bwd_abs = max(bwd_abs, float((g["kernel"][1] - g["plain"][1]).abs().max()))
     # the backward kernel alone against the plain analytic gradient
@@ -498,8 +577,12 @@ def phase_k1(shape, seed, regions, timed=False, label_values=None):
     p_grad = fused_losses.stats_grad_plain(
         logits, labels, mask, stats, torch.stack(grads).view(regions, 2),
         1e-10, 1e-16, lab2)
-    check(rel_err(k_grad, p_grad) <= RTOL, f"K1 backward kernel at {tag}")
-    res = {"shape": list(shape), "regions": regions,
+    if bf16:
+        check(bf16_rounding_err(k_grad, p_grad) <= 1.0,
+              f"K1 bf16 backward kernel within bf16 rounding at {tag}")
+    else:
+        check(rel_err(k_grad, p_grad) <= RTOL, f"K1 backward kernel at {tag}")
+    res = {"shape": list(shape), "regions": regions, "dtype": str(dtype),
            "losses": losses.view(-1).tolist(), "fwd_max_abs_err": fwd_err,
            "bwd_max_abs_err": bwd_abs, "bwd_rel_err": g_err}
     if timed:
@@ -769,7 +852,7 @@ def phase_profile(state, step, batches, gen, tag="profile") -> dict:
                 step(state, batch, gen)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        by_class, top, ported = {}, [], {}
+        by_class, top, ported, conv_bf16 = {}, [], {}, 0.0
         for ev in prof.key_averages():
             dev_us = getattr(ev, "self_device_time_total", None)
             if dev_us is None:
@@ -778,6 +861,8 @@ def phase_profile(state, step, batches, gen, tag="profile") -> dict:
                 continue
             cls = _kernel_class(ev.key)
             by_class[cls] = by_class.get(cls, 0.0) + dev_us / 1e3 / len(batches)
+            if cls == "conv" and "bf16" in ev.key.lower():
+                conv_bf16 += dev_us / 1e3 / len(batches)
             top.append((dev_us / 1e3 / len(batches), ev.count // len(batches),
                         ev.key[:70]))
             if cls.startswith(("K1", "K2", "K3")):
@@ -794,6 +879,9 @@ def phase_profile(state, step, batches, gen, tag="profile") -> dict:
         "ms_per_step_by_class": dict(sorted(by_class.items(),
                                             key=lambda kv: -kv[1])),
         "ported_kernels_ms_and_calls_per_step": ported,
+        # convolution kernels whose names say bf16 (cuDNN's and CUTLASS's
+        # name their element types)
+        "conv_bf16_ms_per_step": conv_bf16,
         "top_kernels_ms_per_step": [[round(t, 3), c, k] for t, c, k in top[:15]]}
     print(tag, json.dumps(res), flush=True)
     return res
@@ -952,14 +1040,15 @@ LA_PATCH = (112, 112, 80)
 # synthetic pins a 64x64x48 patch, so the LA patch is set back by override
 TRAINER3D_FLAGS = ["--cfg", "configs/la_chap.yml", "--dataset", "synthetic",
                    "--adv_noise", "--dropout", "--device", "cuda"]
-TRAINER3D_OVERRIDES = ["data.patch_size_3d=[112,112,80]", "model.dtype=float32",
-                       "run.log_every=2", f"run.snapshot_root={RUNS_DIR}"]
+TRAINER3D_OVERRIDES = ["data.patch_size_3d=[112,112,80]", "run.log_every=2",
+                       f"run.snapshot_root={RUNS_DIR}"]
+F32 = "model.dtype=float32"
 
 
-def la_config():
-    """configs/la_chap.yml with the one override the port needs (float32;
-    bf16 is not ported yet)."""
-    return load_config("configs/la_chap.yml", ["model.dtype=float32"])
+def la_config(*overrides):
+    """configs/la_chap.yml as written (bf16 compute), with ``overrides``
+    (``F32`` for the float32 phases kept beside the bf16 ones)."""
+    return load_config("configs/la_chap.yml", list(overrides))
 
 
 def serpentine3d(nx, ny, nz):
@@ -1318,17 +1407,17 @@ def phase_parity_3d() -> dict:
     agree, each map between 1% and 99% foreground (so agreement cannot come
     from two all-background maps), K3 launched once per patch batch."""
     set_tf32(False)
-    cfg = la_config()
+    cfg = la_config(F32)
     cfg.model.n_filters_3d = 4
     cfg.data.patch_size_3d = (32, 32, 16)
     cpu_state, cpu_step = make_step_3d(cfg, "cpu")
-    cuda_state, cuda_step = make_step_3d(cfg, "cuda",
-                                         state_dict=cpu_state.model.state_dict())
+    init = {k: v.clone() for k, v in cpu_state.model.state_dict().items()}
+    cuda_state, cuda_step = make_step_3d(cfg, "cuda", state_dict=init)
     batch = phantom_patches(cfg, 1, "cpu")
     draws = draw_step_uniforms(cfg, batch["image"].shape,
                                torch.Generator().manual_seed(2), "cpu")
     before = launch_counts()
-    on_cpu = cpu_step(cpu_state, batch, draws=draws).metrics
+    on_cpu = cpu_step(cpu_state, batch, draws=dict(draws)).metrics
     on_card = cuda_step(cuda_state, to_cuda(batch), draws=to_cuda(draws)).metrics
     after = launch_counts()
     ran = {k: after[k] - before[k] for k in after}
@@ -1341,6 +1430,7 @@ def phase_parity_3d() -> dict:
         check(math.isclose(a, b, rel_tol=RTOL, abs_tol=1e-6),
               f"3D step parity {k}: card {a} vs cpu {b}")
         res[k] = [a, b]
+    res["bf16_step"] = bf16_step_parity(init, draws)
     # eval parity from briefly trained weights
     model = cuda_state.model
     opt = make_optimizer(model, cfg.optim.base_lr)
@@ -1363,6 +1453,7 @@ def phase_parity_3d() -> dict:
     agree = float(np.mean(on_card == on_cpu))
     res.update({"eval_voxel_agreement": agree, "eval_fg_share": float(on_cpu.mean()),
                 "eval_k3_launches": k3, "settings": tf32_settings()})
+    res["bf16_eval"] = bf16_eval_parity(model.state_dict(), image, on_cpu, n_batches)
     print("parity_3d", json.dumps(res), flush=True)
     check(k3 == n_batches, f"eval launched K3 {k3} times for {n_batches} batches")
     check(agree >= 0.999, f"3D eval voxels agree on >= 99.9%: {agree}")
@@ -1372,13 +1463,74 @@ def phase_parity_3d() -> dict:
     return res
 
 
+def bf16_step_parity(init, draws) -> dict:
+    """Phase 11's step in bf16 (configs/la_chap.yml's dtype) from the same
+    weights and draws on three batches (their images in bf16): the card's
+    metrics against the CPU's bf16 ones, all as one vector, within 2x the
+    CPU's own bf16-vs-float32 gap on the same batches (a single scalar's
+    gap is one draw of a rounding error); every K1 launch at bf16 logits."""
+    cfgs = {"float32": la_config(F32), "bfloat16": la_config()}
+    for cfg in cfgs.values():
+        cfg.model.n_filters_3d = 4
+        cfg.data.patch_size_3d = (32, 32, 16)
+    runs = {"cpu_f32": [], "cpu_bf16": [], "card_bf16": []}
+    zero_launch_counts()
+    for seed in (1, 2, 3):
+        batch = phantom_patches(cfgs["float32"], seed, "cpu")
+        b16 = {"image": batch["image"].bfloat16(), "label": batch["label"]}
+        for name, cfg, dev, b in (("cpu_f32", cfgs["float32"], "cpu", batch),
+                                  ("cpu_bf16", cfgs["bfloat16"], "cpu", b16),
+                                  ("card_bf16", cfgs["bfloat16"], "cuda", b16)):
+            state, step = make_step_3d(cfg, dev, state_dict=init)
+            out = (step(state, b, draws=dict(draws)) if dev == "cpu" else
+                   step(state, to_cuda(b), draws=to_cuda(draws)))
+            runs[name].append([float(out.metrics[k]) for k in METRICS])
+    ran = launch_counts()
+    check(ran == {k: 3 * v for k, v in LAUNCHES_PER_STEP_3D.items()},
+          f"the card's bf16 3D steps: {ran} launches")
+    check_all_bf16("the card's bf16 3D step")
+    cpu32, cpu16, card16 = (np.array(runs[k]) for k in ("cpu_f32", "cpu_bf16",
+                                                        "card_bf16"))
+    gap = float(np.abs(cpu16 - cpu32).max())
+    diff = float(np.abs(card16 - cpu16).max())
+    check(diff <= 2 * gap + 1e-6, f"bf16 3D step, card against CPU: {diff}, the "
+                                  f"CPU's bf16-vs-float32 gap {gap}")
+    return {"card_vs_cpu": diff, "cpu_bf16_vs_f32": gap, "metrics": METRICS,
+            **runs}
+
+
+def bf16_eval_parity(state_dict, image, on_cpu32, n_batches) -> dict:
+    """Phase 11's sliding-window eval with the model in bf16: the card's
+    label map agrees with the CPU's bf16 one at least as well as the CPU's
+    bf16 map agrees with its float32 one, less 0.5 points; K3's bf16
+    instantiation once per patch batch."""
+    cfg = la_config()
+    cfg.model.n_filters_3d = 4
+    maps = {}
+    for dev in ("cuda", "cpu"):
+        model = net_factory_3d("dualdecoder", 1, 2, "test", cfg.model, device=dev)
+        model.load_state_dict(state_dict)
+        zero_launch_counts()
+        maps[dev] = sw.test_single_case(model, image, 8, 4, (32, 32, 16), 2,
+                                        sw_batch=4, device=dev)
+        if dev == "cuda":
+            k3 = check_all_bf16("the card's bf16 eval")["K3_sw"]
+    share_ref = float(np.mean(maps["cpu"] == on_cpu32))
+    share = float(np.mean(maps["cuda"] == maps["cpu"]))
+    check(k3 == n_batches, f"bf16 eval launched K3 {k3} times for {n_batches} batches")
+    check(share >= share_ref - 0.005, f"bf16 3D eval: card and CPU agree on "
+                                      f"{share}, CPU bf16 and float32 on {share_ref}")
+    return {"card_vs_cpu_agreement": share, "cpu_bf16_vs_f32_agreement": share_ref,
+            "k3_bf16_launches": k3}
+
+
 def phase_slice_3d():
     """The 3D CHAP step at configs/la_chap.yml's values (nf 16, patch
     112x112x80, batch 4 = 2 + 2, fp32) on phantom patches, random weights
     from a seed: 1 warm-up and 3 timed steps, launches per step asserted,
     peak memory, then one step profiled by kernel class."""
     set_tf32(True)     # PyTorch's defaults: TF32 in cuDNN convs, not in matmuls
-    cfg = la_config()
+    cfg = la_config(F32)
     state, step = make_step_3d(cfg, "cuda", seed=1337)
     batches = [phantom_patches(cfg, 10 + i, "cuda") for i in range(5)]
     gen = torch.Generator(device="cuda").manual_seed(1337)
@@ -1443,7 +1595,8 @@ def conv_flop(model, x) -> int:
 
 def trainer3d_run(flags, overrides, steps, per_step) -> dict:
     """One cli.train_3d.main call with the launch counters set to 0 just
-    before it and read just after; they must be ``steps`` x ``per_step``."""
+    before it and read just after; they must be ``steps`` x ``per_step``,
+    every K1 launch at bf16 logits (configs/la_chap.yml's dtype)."""
     zero_launch_counts()
     t0 = time.perf_counter()
     out = cli_train3d.main(TRAINER3D_FLAGS + flags + TRAINER3D_OVERRIDES + overrides)
@@ -1452,21 +1605,25 @@ def trainer3d_run(flags, overrides, steps, per_step) -> dict:
     want = {k: v * steps for k, v in per_step.items()}
     check(launches == want, f"3D trainer launches {launches}, expected {want} "
                             f"({per_step} per step over {steps} steps)")
+    bf16 = check_all_bf16("the 3D trainer on configs/la_chap.yml")
     check(out["steps"] == steps or "--resume" in flags,
           f"3D trainer ran {out['steps']} steps, expected {steps}")
     records = _records(out["save_dir"])
     for r in records:
         if "loss" in r:
             check(math.isfinite(r["loss"]), f"finite 3D loss {r}")
-    return {**out, "wall_s": wall_s, "launches": launches, "records": records}
+    return {**out, "wall_s": wall_s, "launches": launches,
+            "launches_bf16": bf16, "records": records}
 
 
 def phase_trainer_3d(bare_step_ms: float) -> dict:
-    """cli.train_3d at configs/la_chap.yml's values on synthetic volumes: 4
-    CHAP steps, --resume to 6, 2 cps and 2 supervised steps, 3 CHAP steps on
-    the host loader; then test_all_case on the run's latest weights over 2
-    synthetic volumes of 160x160x96 (stride 18/4, sw_batch 16) and
-    cli.test_3d on the card."""
+    """cli.train_3d at configs/la_chap.yml's values as written (bf16) on
+    synthetic volumes: 4 CHAP steps, --resume to 6, 2 cps and 2 supervised
+    steps, 3 CHAP steps on the host loader; then test_all_case on the run's
+    latest weights over 2 synthetic volumes of 160x160x96 (stride 18/4,
+    sw_batch 16) with the model in bf16 (K3's bf16 instantiation once per
+    patch batch) and, from the same float32 parameters, in float32 (K3's
+    float32 one), and cli.test_3d on the card."""
     set_tf32(True)
     shutil.rmtree(RUNS_DIR, ignore_errors=True)
     torch.cuda.reset_peak_memory_stats()
@@ -1492,6 +1649,8 @@ def phase_trainer_3d(bare_step_ms: float) -> dict:
     CheckpointManager(save_dir).restore(
         "latest", create_train_state(model, make_optimizer(model, 0.01),
                                      level_channels(cfg, 3)))
+    check(all(v.dtype == torch.float32 for v in model.state_dict().values()
+              if v.is_floating_point()), "the bf16 run checkpoints float32")
     vols = SyntheticVolumeDataset((96, 160, 160), 2, length=2, seed=4)
     cases = [{"image": vols[i]["image"].transpose(2, 1, 0),
               "label": vols[i]["label"].transpose(2, 1, 0),
@@ -1504,11 +1663,24 @@ def phase_trainer_3d(bare_step_ms: float) -> dict:
     metrics = sw.test_all_case(model, cases, 2, LA_PATCH, 18, 4, sw_batch=16,
                                device="cuda")
     eval_s = time.perf_counter() - t0
-    k3 = launch_counts()["K3_sw"]
+    k3 = check_all_bf16("test_all_case with the bf16 model")["K3_sw"]
     check(k3 == n_batches, f"test_all_case launched K3 {k3} times for "
                            f"{n_batches} patch batches")
     check(np.isfinite(metrics).all() and metrics.shape == (1, 2),
           f"test_all_case metrics {metrics}")
+    # the same parameters in float32: K3's float32 instantiation
+    model32 = net_factory_3d("dualdecoder", 1, 2, "test", la_config(F32).model,
+                             device="cuda")
+    model32.load_state_dict(model.state_dict())
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    metrics32 = sw.test_all_case(model32, cases, 2, LA_PATCH, 18, 4, sw_batch=16,
+                                 device="cuda")
+    eval32_s = time.perf_counter() - t0
+    k3_32 = launch_counts()["K3_sw"]
+    check(k3_32 == n_batches and bf16_launch_counts()["K3_sw"] == 0,
+          f"float32 test_all_case launched K3 {k3_32} times, none in bf16")
+    check(np.isfinite(metrics32).all(), f"float32 test_all_case metrics {metrics32}")
     # the card's part of one volume: forwards, K3 and argmax, no host metrics
     engine = sw.SlidingWindowEngine(model, LA_PATCH, 16, device="cuda")
     torch.cuda.synchronize()
@@ -1539,7 +1711,9 @@ def phase_trainer_3d(bare_step_ms: float) -> dict:
                           if "checkpoint_ms" in r],
         "eval_volumes": [list(c["image"].shape) for c in cases],
         "eval_patch_batches": n_batches, "eval_s_per_volume": eval_s / len(cases),
-        "predict_s_per_volume": predict_s,
+        "eval_f32_s_per_volume": eval32_s / len(cases),
+        "eval_f32_dice_hd95": metrics32[0].tolist(),
+        "predict_s_per_volume": predict_s, "dtype": cfg.model.dtype,
         "conv_tflop_per_volume": forward_flop * batches_per_volume / 1e12,
         "conv_tflop_per_s": forward_flop * batches_per_volume / predict_s / 1e12,
         "eval_dice_hd95": metrics[0].tolist(), "test_3d_s": test_s,
@@ -1549,7 +1723,13 @@ def phase_trainer_3d(bare_step_ms: float) -> dict:
                    "host_3": host["wall_s"]},
         "launches": {"chap_4": first["launches"], "resume_2": resumed["launches"],
                      "cps_2": cps["launches"], "supervised_2": sup["launches"],
-                     "host_3": host["launches"], "test_all_case": k3},
+                     "host_3": host["launches"], "test_all_case": k3,
+                     "test_all_case_f32": k3_32},
+        "launches_bf16": {"chap_4": first["launches_bf16"],
+                          "resume_2": resumed["launches_bf16"],
+                          "cps_2": cps["launches_bf16"],
+                          "supervised_2": sup["launches_bf16"],
+                          "host_3": host["launches_bf16"]},
         "settings": tf32_settings()}
     print("trainer3d", json.dumps(res), flush=True)
     shutil.rmtree(RUNS_DIR, ignore_errors=True)
@@ -1923,8 +2103,8 @@ ZOO_OUTPUTS = {"unet_3D": 1, "attention_unet": 1, "voxresnet": 1,
 # leave no unlabeled stream)
 ZOO_TRAINER_FLAGS = ["--cfg", BRATS_CFG, "--method", "supervised", "--dataset",
                      "synthetic", "--labeled_num", "8", "--device", "cuda"]
-ZOO_TRAINER_OVERRIDES = ["data.patch_size_3d=[96,96,96]", "model.dtype=float32",
-                         "run.log_every=2", f"run.snapshot_root={RUNS_DIR}"]
+ZOO_TRAINER_OVERRIDES = ["data.patch_size_3d=[96,96,96]", "run.log_every=2",
+                         f"run.snapshot_root={RUNS_DIR}"]
 
 
 def supervised_launches(outputs: int) -> dict:
@@ -1932,10 +2112,11 @@ def supervised_launches(outputs: int) -> dict:
             "K3_sw": 0}
 
 
-def brats_config():
-    """configs/brats_supervised.yml with float32 (bf16 is not ported yet)
-    and the BraTS patch the CLI pins from the dataset name."""
-    cfg = load_config(BRATS_CFG, ["model.dtype=float32"])
+def brats_config(*overrides):
+    """configs/brats_supervised.yml as written (bf16 compute), with
+    ``overrides``, and the BraTS patch the CLI pins from the dataset
+    name."""
+    cfg = load_config(BRATS_CFG, list(overrides))
     cfg.data.patch_size_3d = BRATS_PATCH
     return cfg
 
@@ -1983,7 +2164,8 @@ def phase_parity_zoo3d() -> dict:
     keys = ("unet_3D", "attention_unet", "voxresnet", "vnet", "vnet_groupnorm",
             "vnet_instancenorm", "vnet_ds", "dualdecoder", "resvnet",
             "unet_3D_dv_semi")
-    res = {"forward_max_abs_err": {}, "stats_max_abs_err": {}, "step": {}}
+    res = {"forward_max_abs_err": {}, "stats_max_abs_err": {}, "step": {},
+           "bf16": {}}
     gen = torch.Generator().manual_seed(21)
     for key in keys:
         torch.manual_seed(7)
@@ -2001,6 +2183,8 @@ def phase_parity_zoo3d() -> dict:
                 o_cpu = _flat(cpu(x, drop_u=drop_u, stats=s_cpu))
                 o_card = _flat(card(x.cuda(), drop_u=[u.cuda() for u in drop_u],
                                     stats=s_card))
+            res["bf16"].setdefault(key, {})[f"train={train}"] = zoo_bf16_parity(
+                key, cpu, card, x, drop_u, o_cpu)
             check(len(o_cpu) == len(o_card), f"{key} outputs")
             for a, b in zip(o_card, o_cpu):
                 e = float((a.cpu() - b).abs().max())
@@ -2014,7 +2198,7 @@ def phase_parity_zoo3d() -> dict:
                     stats_err = max(stats_err, e)
         res["forward_max_abs_err"][key] = err
         res["stats_max_abs_err"][key] = stats_err
-    cfg = brats_config()
+    cfg = brats_config(F32)
     cfg.data.patch_size_3d = (32, 32, 16)
     for key, outputs in ZOO_OUTPUTS.items():
         torch.manual_seed(8)
@@ -2055,6 +2239,35 @@ def phase_parity_zoo3d() -> dict:
     return res
 
 
+def zoo_bf16_parity(key, cpu, card, x, drop_u, o_cpu32) -> list:
+    """One forward of a phase 18 model pair in bf16 (the configs' dtype):
+    every output of the card within 2x the CPU's own bf16-vs-float32 gap of
+    the CPU's bf16 output; bf16 outputs, float32 BatchNorm statistics. The
+    pair goes back to float32 after."""
+    out = []
+    try:
+        for m in (cpu, card):
+            set_compute_dtype(m, torch.bfloat16)
+        s_cpu, s_card = {}, {}
+        with torch.no_grad():
+            o_cpu = _flat(cpu(x, drop_u=drop_u, stats=s_cpu))
+            o_card = _flat(card(x.cuda(), drop_u=[u.cuda() for u in drop_u],
+                                stats=s_card))
+        for a, b, b32 in zip(o_card, o_cpu, o_cpu32):
+            check(a.dtype == b.dtype == torch.bfloat16, f"{key} bf16 output dtype")
+            gap = float((b.float() - b32).abs().max())
+            diff = float((a.float().cpu() - b.float()).abs().max())
+            check(diff <= 2 * gap + 1e-6, f"zoo bf16 parity {key}: card {diff} from "
+                                          f"the CPU, the CPU's bf16 gap {gap}")
+            out.append([diff, gap])
+        check(all(t.dtype == torch.float32 for pair in s_card.values()
+                  for t in pair), f"{key} bf16 BatchNorm statistics are float32")
+    finally:
+        for m in (cpu, card):
+            set_compute_dtype(m, torch.float32)
+    return out
+
+
 def make_zoo_step(key, cfg, seed=1337):
     torch.manual_seed(seed)
     model = net_factory_3d(key, cfg.data.in_chns, cfg.data.num_classes, "train",
@@ -2073,7 +2286,7 @@ def phase_slice_zoo3d() -> dict:
     launches per step asserted, peak memory; torch.profiler over 1 unet_3D
     step by kernel class."""
     set_tf32(True)     # PyTorch's defaults, as in phase 12
-    cfg = brats_config()
+    cfg = brats_config(F32)
     batches = [phantom_patches(cfg, 50 + i, "cuda") for i in range(5)]
     gen = torch.Generator(device="cuda").manual_seed(1337)
     out = {}
@@ -2151,14 +2364,151 @@ def phase_k3_brats() -> dict:
     return res
 
 
+def phase_slice_bf16() -> dict:
+    """configs/la_chap.yml, configs/pancreas_chap.yml and
+    configs/brats_supervised.yml as written, no override (bf16 compute over
+    float32 parameters): the CHAP step of the DualDecoder3d (nf 16) at the
+    LA patch 112x112x80 and the Pancreas patch 96^3, and the unet_3D
+    supervised step at 96^3, each at batch 4 = 2 + 2 on bf16 phantom patches
+    (the pool's dtype), random weights from a seed: 1 warm-up and 3 timed
+    steps, launches per step asserted with every K1 launch at bf16 logits,
+    peak memory; torch.profiler over 1 LA step and 1 unet_3D step, which
+    must show bf16 convolution kernels (their share of the convolution time
+    is reported). The float32 steps of phases 12 and 19 stand beside
+    these."""
+    set_tf32(True)
+    out = {}
+    jobs = [("la_chap", "configs/la_chap.yml"),
+            ("pancreas_chap", "configs/pancreas_chap.yml"),
+            ("brats_supervised", BRATS_CFG)]
+    for name, path in jobs:
+        cfg = load_config(path)
+        check(cfg.model.dtype == "bfloat16", f"{path} asks for bf16")
+        cfg.data.patch_size_3d = cli_train3d.PROTOCOLS[cfg.data.dataset]["patch"]
+        if name == "brats_supervised":
+            state, step = make_zoo_step(cfg.model.name_3d, cfg)
+            per_step = supervised_launches(1)
+        else:
+            state, step = make_step_3d(cfg, "cuda", seed=1337)
+            per_step = LAUNCHES_PER_STEP_3D
+        batches = []
+        for i in range(5):
+            b = phantom_patches(cfg, 60 + i, "cuda")
+            batches.append({"image": b["image"].bfloat16(), "label": b["label"]})
+        gen = torch.Generator(device="cuda").manual_seed(1337)
+        step(state, batches[0], gen)             # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launch_counts()
+        times, losses = [], []
+        for batch in batches[1:4]:
+            t0 = time.perf_counter()
+            m = step(state, batch, gen).metrics
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(m["loss"]))
+        launches = launch_counts()
+        bf16 = check_all_bf16(f"the {name} step")
+        want = {k: 3 * v for k, v in per_step.items()}
+        check(launches == want, f"{name} launches over 3 steps {launches}, "
+                                f"expected {want}")
+        check(all(math.isfinite(v) for v in losses), f"finite {name} losses {losses}")
+        res = {"config": path, "dtype": cfg.model.dtype,
+               "model": "dualdecoder" if name != "brats_supervised" else
+               cfg.model.name_3d, "patch": list(cfg.data.patch_size_3d),
+               "batch": cfg.data.batch_size, "step_ms": times,
+               "median_step_ms": statistics.median(times),
+               "patches_per_s": 1e3 * cfg.data.batch_size / statistics.median(times),
+               "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+               "launches": launches, "launches_bf16": bf16, "losses": losses,
+               "params_dtype": str(next(state.model.parameters()).dtype),
+               "settings": tf32_settings(), "card": card_line()}
+        print("slice_bf16", name, json.dumps(res), flush=True)
+        if name != "pancreas_chap":
+            prof = phase_profile(state, step, batches[4:5], gen,
+                                 tag=f"profile_bf16_{name}")
+            conv = prof["ms_per_step_by_class"].get("conv", 0.0)
+            check(prof["conv_bf16_ms_per_step"] > 0,
+                  f"{name}: the profile shows bf16 convolution kernels "
+                  f"({prof['conv_bf16_ms_per_step']} of {conv} ms)")
+            res["profile"] = prof
+            res["conv_bf16_share"] = prof["conv_bf16_ms_per_step"] / conv
+        out[name] = res
+        del state, step, batches
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_k3_bf16() -> dict:
+    """K3's bf16-logits instantiation (a bf16 model's eval) against its
+    plain version on the same bf16 logits: the LA eval's whole grid of 80
+    patches of 112x112x80 in a 160x160x96 volume, two outputs, in batches of
+    16; and the BraTS eval's batch of 8 patches of 96^3 over a 160x160x128
+    volume, one output. Score within 1e-5 absolute, count exact, two runs
+    bit-identical; one batch of each timed, its bound from the bf16 bytes."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    cases = {"la_160x160x96": ((160, 160, 96), LA_PATCH, 18, 4, 16, 2),
+             "brats_160x160x128": ((160, 160, 128), BRATS_PATCH, 64, 64, 8, 1)}
+    out = {}
+    for name, (shape, patch, sxy, sz, bs, outputs) in cases.items():
+        c = 2
+        starts = sw.compute_grid(shape, patch, sxy, sz)
+        maps = [(torch.zeros((c, *shape), device="cuda"),
+                 torch.zeros(shape, device="cuda")) for _ in range(3)]
+        launches_before = sw.sw_accumulate_kernel.launches_bf16
+        for i in range(0, len(starts), bs):
+            st = starts[i:i + bs]
+            ls = [(torch.randn((len(st), c, *patch), generator=gen, device="cuda")
+                   * 3).bfloat16() for _ in range(outputs)]
+            l1, l2 = ls[0], (ls[1] if outputs == 2 else None)
+            sw.sw_accumulate_kernel(l1, l2, st, *maps[0])
+            sw.sw_accumulate_kernel(l1, l2, st, *maps[1])
+            sw.sw_accumulate_plain(l1, l2, st, *maps[2])
+        torch.cuda.synchronize()
+        n_calls = 2 * -(-len(starts) // bs)
+        check(sw.sw_accumulate_kernel.launches_bf16 - launches_before == n_calls,
+              f"K3 bf16 instantiation launched for {name}")
+        (ks, kc), (rs_, rc), (ps, pc) = maps
+        check(torch.equal(ks, rs_) and torch.equal(kc, rc),
+              f"K3 bf16 bit-identical on repeat ({name})")
+        check(torch.equal(kc, pc), f"K3 bf16 count equals the plain version's ({name})")
+        err = float((ks - ps).abs().max())
+        check(err <= 1e-5, f"K3 bf16 score within 1e-5 of the plain version "
+                           f"({name}): {err}")
+        st = starts[:bs]
+        ls = [(torch.randn((len(st), c, *patch), generator=gen, device="cuda")
+               * 3).bfloat16() for _ in range(outputs)]
+        l1, l2 = ls[0], (ls[1] if outputs == 2 else None)
+        score, cnt = (torch.zeros((c, *shape), device="cuda"),
+                      torch.zeros(shape, device="cuda"))
+        lo, size = sw.batch_box(st, patch)
+        box = math.prod(size)
+        logit_bytes = outputs * l1.numel() * l1.element_size()
+        res = {"patches": len(starts), "batch": bs, "outputs": outputs,
+               "classes": c, "box": size, "max_abs_err": err,
+               # the bf16 logits read once; score and count read and
+               # written over the box; about 8 operations a class a voxel
+               "bound": bound_ms(logit_bytes + 2 * (c + 1) * box * 4,
+                                 8 * l1.numel()),
+               "logit_bytes": logit_bytes, "map_bytes": 2 * (c + 1) * box * 4,
+               **timings(lambda: sw.sw_accumulate_kernel(l1, l2, st, score, cnt),
+                         n=20),
+               "plain_ms": device_ms(lambda: sw.sw_accumulate_plain(
+                   l1, l2, st, score, cnt), n=5, warmup=1)}
+        print("K3_bf16", name, json.dumps(res), flush=True)
+        out[name] = res
+    return out
+
+
 def phase_trainer_zoo3d() -> dict:
     """cli.train_3d --cfg configs/brats_supervised.yml --method supervised
-    --dataset synthetic (unet_3D, 96^3 by override, fp32): 4 steps, --resume
-    to 6, 1 / 1 K1 a step; then test_all_case on the run's latest weights
-    over 2 synthetic volumes of 160x160x128 at the BraTS protocol (stride
-    64, sw_batch 8), K3 launches equal to the patch batches, and
-    cli.test_3d --model unet_3D over its 2 synthetic volumes, K3 once per
-    patch batch."""
+    --dataset synthetic (unet_3D, 96^3 by override, bf16 as written): 4
+    steps, --resume to 6, 1 / 1 K1 a step at bf16 logits; then
+    test_all_case on the run's latest weights over 2 synthetic volumes of
+    160x160x128 at the BraTS protocol (stride 64, sw_batch 8) with the model
+    in bf16 and, from the same parameters, in float32, K3 launches (bf16,
+    then float32) equal to the patch batches, and cli.test_3d --model
+    unet_3D over its 2 synthetic volumes, K3 once per patch batch."""
     set_tf32(True)
     shutil.rmtree(RUNS_DIR, ignore_errors=True)
     torch.cuda.reset_peak_memory_stats()
@@ -2171,10 +2521,12 @@ def phase_trainer_zoo3d() -> dict:
         launches = launch_counts()
         want = {k: v * steps for k, v in supervised_launches(1).items()}
         check(launches == want, f"BraTS trainer launches {launches}, expected {want}")
+        bf16 = check_all_bf16("the BraTS trainer on configs/brats_supervised.yml")
         records = _records(out["save_dir"])
         check(all(math.isfinite(r["loss"]) for r in records if "loss" in r),
               "finite BraTS trainer losses")
-        return {**out, "wall_s": wall_s, "launches": launches, "records": records}
+        return {**out, "wall_s": wall_s, "launches": launches,
+                "launches_bf16": bf16, "records": records}
 
     first = run(["--max_iterations", "4"], 4)
     save_dir = first["save_dir"]
@@ -2202,11 +2554,23 @@ def phase_trainer_zoo3d() -> dict:
     metrics = sw.test_all_case(model, cases, 2, BRATS_PATCH, 64, 64,
                                sw_batch=cfg.eval.sw_batch, device="cuda")
     eval_s = time.perf_counter() - t0
-    k3 = launch_counts()["K3_sw"]
+    k3 = check_all_bf16("BraTS test_all_case with the bf16 model")["K3_sw"]
     check(k3 == n_batches, f"BraTS test_all_case launched K3 {k3} times for "
                            f"{n_batches} patch batches")
     check(np.isfinite(metrics).all() and metrics.shape == (1, 2),
           f"BraTS test_all_case metrics {metrics}")
+    model32 = net_factory_3d("unet_3D", 1, 2, "test", brats_config(F32).model,
+                             device="cuda")
+    model32.load_state_dict(model.state_dict())
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    metrics32 = sw.test_all_case(model32, cases, 2, BRATS_PATCH, 64, 64,
+                                 sw_batch=cfg.eval.sw_batch, device="cuda")
+    eval32_s = time.perf_counter() - t0
+    k3_32 = launch_counts()["K3_sw"]
+    check(k3_32 == n_batches and bf16_launch_counts()["K3_sw"] == 0,
+          f"float32 BraTS test_all_case launched K3 {k3_32} times, none in bf16")
+    check(np.isfinite(metrics32).all(), f"float32 BraTS metrics {metrics32}")
     engine = sw.SlidingWindowEngine(model, BRATS_PATCH, cfg.eval.sw_batch,
                                     device="cuda")
     torch.cuda.synchronize()
@@ -2223,7 +2587,7 @@ def phase_trainer_zoo3d() -> dict:
                                     "--ckpt", "latest", "--model", "unet_3D",
                                     "--device", "cuda"])
     test_s = time.perf_counter() - t0
-    test_k3 = launch_counts()["K3_sw"]
+    test_k3 = check_all_bf16("cli.test_3d on the bf16 BraTS run")["K3_sw"]
     check(test_k3 == test_batches, f"cli.test_3d launched K3 {test_k3} times for "
                                    f"{test_batches} patch batches")
     check(test_metrics.shape == (1, 4) and np.isfinite(test_metrics[:, 0]).all(),
@@ -2239,12 +2603,17 @@ def phase_trainer_zoo3d() -> dict:
                           if "checkpoint_ms" in r],
         "eval_volumes": [list(c["image"].shape) for c in cases],
         "eval_patch_batches": n_batches, "eval_s_per_volume": eval_s / len(cases),
+        "eval_f32_s_per_volume": eval32_s / len(cases), "dtype": cfg.model.dtype,
+        "eval_f32_dice_hd95": metrics32[0].tolist(),
         "predict_s_per_volume": predict_s, "eval_dice_hd95": metrics[0].tolist(),
         "test_3d_s": test_s, "test_3d_k3": test_k3,
         "test_3d_mean": test_metrics.mean(axis=0).tolist(), "peak_mem_bytes": peak,
         "wall_s": {"first_4": first["wall_s"], "resumed_2": resumed["wall_s"]},
         "launches": {"first_4": first["launches"], "resumed_2": resumed["launches"],
-                     "test_all_case": k3, "test_3d": test_k3},
+                     "test_all_case": k3, "test_all_case_f32": k3_32,
+                     "test_3d": test_k3},
+        "launches_bf16": {"first_4": first["launches_bf16"],
+                          "resumed_2": resumed["launches_bf16"]},
         "settings": tf32_settings()}
     print("trainer_zoo3d", json.dumps(res), flush=True)
     shutil.rmtree(RUNS_DIR, ignore_errors=True)
@@ -2350,6 +2719,14 @@ def main() -> int:
     # output; torch.profiler has returned empty sessions for K1 late in the
     # process, so every timed K1 shape is checked here
     k1_brats = phase_k1((4, 2) + BRATS_PATCH, 7, 1, timed=True)
+    # K1 at bf16 logits (the configs as written compute in bf16): the LA
+    # step's 3D mix_loss (R = 2) and supervised (R = 1) calls, and the
+    # BraTS supervised call
+    bf16 = torch.bfloat16
+    k1_bf16 = {"la": phase_k1((1, 2) + LA_PATCH, 8, 2, timed=True, dtype=bf16),
+               "la_r1": phase_k1((2, 2) + LA_PATCH, 8, 1, timed=True, dtype=bf16),
+               "brats": phase_k1((4, 2) + BRATS_PATCH, 9, 1, timed=True,
+                                 dtype=bf16)}
     # phase 4: K2
     k2 = phase_k2()
     # phase 5: CUDA-against-CPU step parity
@@ -2365,6 +2742,7 @@ def main() -> int:
     k2_3d = phase_k2_3d()
     k3 = phase_k3()
     k3_brats = phase_k3_brats()
+    k3_bf16 = phase_k3_bf16()
     phase_parity_3d()
     launches_3d, slice_3d, profile_3d = phase_slice_3d()
     trainer_3d = phase_trainer_3d(slice_3d["median_step_ms"])
@@ -2379,11 +2757,21 @@ def main() -> int:
     phase_parity_zoo3d()
     slice_zoo = phase_slice_zoo3d()
     trainer_zoo = phase_trainer_zoo3d()
+    torch.cuda.empty_cache()
+    # phase 21: configs/la_chap.yml, pancreas_chap.yml and
+    # brats_supervised.yml as written (bf16)
+    slice_bf16 = phase_slice_bf16()
 
-    # phase 21: report
-    def trainer_launches(run, name):
-        """A kernel's launches over a trainer phase's runs."""
-        return sum(r[name] for r in run["launches"].values() if isinstance(r, dict))
+    # phase 22: report
+    def trainer_launches(run, name, logits=None):
+        """A kernel's launches over a trainer phase's training runs: all of
+        them, or those at ``logits`` ("bf16" or "float32") logits, from the
+        counters of the phases that record their bf16 launches."""
+        total = sum(r[name] for r in run["launches"].values() if isinstance(r, dict))
+        if logits is None:
+            return total
+        bf16 = sum(r[name] for r in run["launches_bf16"].values())
+        return bf16 if logits == "bf16" else total - bf16
 
     # the K1 launches of the ACAL and ablation paths, by run
     k1_new_paths = {
@@ -2393,11 +2781,11 @@ def main() -> int:
               "ablation_trainer_10": trainer_launches(trainer_ablation, key)}
         for key in ("K1_fwd", "K1_bwd")}
 
-    def k1_row(name, replaces, key, res, res_r1, launches_of, run):
+    def k1_row(name, replaces, key, res, res_r1, launches_of, trainer_n):
         return {"name": name, "route": "triton",
                 "source": "chap_tpu_torch/ops/fused_losses.py",
                 "replaces": replaces, "launches": launches_of[key],
-                "trainer_launches": trainer_launches(run, key),
+                "trainer_launches": trainer_n, "dtype": res["dtype"],
                 "acal_ablation_launches": k1_new_paths[key],
                 "shape": res["shape"], "regions": res["regions"],
                 "max_abs_err": max(res[f"{name[3:6]}_max_abs_err"],
@@ -2423,47 +2811,73 @@ def main() -> int:
                 "bound_ms": res["clean"]["bound"][0],
                 "bound_by": res["clean"]["bound"][1], "library_ms": None}
 
+    def k3_row(name, res, launches_n, max_abs_err):
+        return {"name": name, "route": "cuda",
+                "source": "chap_tpu_torch/csrc/sliding_window.cu",
+                "replaces": "chap_tpu/eval/sliding_window.py:98",
+                "launches": launches_n, "max_abs_err": max_abs_err,
+                "ms": res["device_ms"], "kernel_ms": res["kernel_ms"],
+                "host_us": res["host_us"], "plain_ms": res["plain_ms"],
+                "bound_ms": res["bound"][0], "bound_by": res["bound"][1],
+                "library_ms": None}
+
     la = k3["la_160x160x96"]
     kernels = [
         k1_row("K1_fwd", "chap_tpu/ops/fused_losses.py:99", "K1_fwd", k1, k1_r1,
-               launches, trainer),
+               launches, trainer_launches(trainer, "K1_fwd")),
         k1_row("K1_bwd", "chap_tpu/ops/fused_losses.py:159", "K1_bwd", k1, k1_r1,
-               launches, trainer),
+               launches, trainer_launches(trainer, "K1_bwd")),
         k1_row("K1_fwd_3d", "chap_tpu/ops/fused_losses.py:99", "K1_fwd", k1_3d,
-               k1_3d_r1, launches_3d, trainer_3d),
+               k1_3d_r1, launches_3d,
+               trainer_launches(trainer_3d, "K1_fwd", "float32")),
         k1_row("K1_bwd_3d", "chap_tpu/ops/fused_losses.py:159", "K1_bwd", k1_3d,
-               k1_3d_r1, launches_3d, trainer_3d),
+               k1_3d_r1, launches_3d,
+               trainer_launches(trainer_3d, "K1_bwd", "float32")),
         k1_row("K1_fwd_acal", "chap_tpu/ops/fused_losses.py:99", "K1_fwd",
-               k1_acal, k1_acal, slice_share["launches"], trainer_share),
+               k1_acal, k1_acal, slice_share["launches"],
+               trainer_launches(trainer_share, "K1_fwd")),
         k1_row("K1_bwd_acal", "chap_tpu/ops/fused_losses.py:159", "K1_bwd",
-               k1_acal, k1_acal, slice_share["launches"], trainer_share),
+               k1_acal, k1_acal, slice_share["launches"],
+               trainer_launches(trainer_share, "K1_bwd")),
         k2_row("K2_ccl", k2, launches, "K2_ccl", trainer),
         k2_row("K2_ccl3d", k2_3d, launches_3d, "K2_ccl3d", trainer_3d),
-        {"name": "K3_sw", "route": "cuda",
-         "source": "chap_tpu_torch/csrc/sliding_window.cu",
-         "replaces": "chap_tpu/eval/sliding_window.py:98",
-         "launches": trainer_3d["launches"]["test_all_case"],
-         "max_abs_err": max(r["max_abs_err"] for r in k3.values()),
-         "ms": la["device_ms"], "kernel_ms": la["kernel_ms"],
-         "host_us": la["host_us"], "plain_ms": la["plain_ms"],
-         "bound_ms": la["bound"][0], "bound_by": la["bound"][1],
-         "library_ms": None},
+        k3_row("K3_sw", la, trainer_3d["launches"]["test_all_case_f32"],
+               max(r["max_abs_err"] for r in k3.values())),
         k1_row("K1_fwd_brats", "chap_tpu/ops/fused_losses.py:99", "K1_fwd",
                k1_brats, k1_brats, slice_zoo["unet_3D"]["launches_main"],
-               trainer_zoo),
+               trainer_launches(trainer_zoo, "K1_fwd", "float32")),
         k1_row("K1_bwd_brats", "chap_tpu/ops/fused_losses.py:159", "K1_bwd",
                k1_brats, k1_brats, slice_zoo["unet_3D"]["launches_main"],
-               trainer_zoo),
-        {"name": "K3_sw_brats", "route": "cuda",
-         "source": "chap_tpu_torch/csrc/sliding_window.cu",
-         "replaces": "chap_tpu/eval/sliding_window.py:98",
-         "launches": trainer_zoo["launches"]["test_all_case"],
-         "max_abs_err": k3_brats["max_abs_err"],
-         "ms": k3_brats["device_ms"], "kernel_ms": k3_brats["kernel_ms"],
-         "host_us": k3_brats["host_us"], "plain_ms": k3_brats["plain_ms"],
-         "bound_ms": k3_brats["bound"][0], "bound_by": k3_brats["bound"][1],
-         "library_ms": None},
+               trainer_launches(trainer_zoo, "K1_bwd", "float32")),
+        k3_row("K3_sw_brats", k3_brats, trainer_zoo["launches"]["test_all_case_f32"],
+               k3_brats["max_abs_err"]),
+        # bf16 logits: the configs as written (phase 21's bare steps for
+        # launches, phases 13 and 20 for the trainers and the bf16 evals)
+        k1_row("K1_fwd_bf16", "chap_tpu/ops/fused_losses.py:99", "K1_fwd",
+               k1_bf16["la"], k1_bf16["la_r1"],
+               slice_bf16["la_chap"]["launches_bf16"],
+               trainer_launches(trainer_3d, "K1_fwd", "bf16")),
+        k1_row("K1_bwd_bf16", "chap_tpu/ops/fused_losses.py:159", "K1_bwd",
+               k1_bf16["la"], k1_bf16["la_r1"],
+               slice_bf16["la_chap"]["launches_bf16"],
+               trainer_launches(trainer_3d, "K1_bwd", "bf16")),
+        k1_row("K1_fwd_bf16_brats", "chap_tpu/ops/fused_losses.py:99", "K1_fwd",
+               k1_bf16["brats"], k1_bf16["brats"],
+               slice_bf16["brats_supervised"]["launches_bf16"],
+               trainer_launches(trainer_zoo, "K1_fwd", "bf16")),
+        k1_row("K1_bwd_bf16_brats", "chap_tpu/ops/fused_losses.py:159", "K1_bwd",
+               k1_bf16["brats"], k1_bf16["brats"],
+               slice_bf16["brats_supervised"]["launches_bf16"],
+               trainer_launches(trainer_zoo, "K1_bwd", "bf16")),
+        k3_row("K3_sw_bf16", k3_bf16["la_160x160x96"],
+               trainer_3d["launches"]["test_all_case"],
+               k3_bf16["la_160x160x96"]["max_abs_err"]),
+        k3_row("K3_sw_bf16_brats", k3_bf16["brats_160x160x128"],
+               trainer_zoo["launches"]["test_all_case"],
+               k3_bf16["brats_160x160x128"]["max_abs_err"]),
     ]
+    for row in kernels:
+        check(row["launches"] > 0, f"{row['name']} launched on its main path")
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -182,6 +182,3 @@ def test_k3_dispatch_never_runs_the_plain_version_off_the_cpu(monkeypatch):
 def test_engine_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="ROADMAP item 16"):
         sw.SlidingWindowEngine(Threshold(), PATCH, mesh=object(), device="cpu")
-    with pytest.raises(ValueError, match="float32"):
-        sw.SlidingWindowEngine(Threshold(), PATCH, compute_dtype=torch.bfloat16,
-                               device="cpu")

@@ -416,6 +416,3 @@ def test_factory_3d_refuses_unknown_keys_and_bf16():
     cfg = ModelConfig()
     with pytest.raises(ValueError, match="unknown 3D net_type"):
         net_factory_3d("unet_2D", 1, 2, "test", cfg, device="cpu")
-    cfg.dtype = "bfloat16"
-    with pytest.raises(ValueError, match="model.dtype=float32"):
-        net_factory_3d("unet_3D", 1, 2, "test", cfg, device="cpu")
