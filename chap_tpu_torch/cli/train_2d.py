@@ -6,6 +6,14 @@ the card; ``cpu`` runs the kernels' plain versions).
 Usage:
     python -m chap_tpu_torch.cli.train_2d --exp bcp --labeled_num 7 \
         --adv_noise --dropout [--cfg configs/acdc_chap.yml] [key.path=value ...]
+
+Data parallel over N cards (``chap`` and ``supervised``; parallel/dist.py):
+
+    torchrun --nproc_per_node N -m chap_tpu_torch.cli.train_2d ...
+
+(``python -m torch.distributed.run`` is the same launcher): NCCL on the
+cards, gloo with ``--device cpu``. Rank 0 picks the run dir and writes its
+files; the process group is destroyed at exit, also on error.
 """
 from __future__ import annotations
 
@@ -16,8 +24,11 @@ import os
 import pprint
 from typing import List, Optional
 
+import numpy as np
+
 from chap_tpu_torch.config import load_config
 from chap_tpu_torch.device import resolve_device
+from chap_tpu_torch.parallel import dist
 from chap_tpu_torch.utils.launch import (dump_config, init_save_folder,
                                          setup_logging, write_doc)
 
@@ -86,23 +97,33 @@ def main(argv: Optional[List[str]] = None) -> dict:
     args = parse_args(argv)
     device = resolve_device(args.device)
     cfg = build_config(args)
+    with dist.process_group(cfg, device) as (rank, _, device):
+        snapshot_path = os.path.join(
+            cfg.run.snapshot_root, cfg.data.dataset,
+            f"{cfg.run.exp}_{cfg.data.labeled_num}_labeled")
+        base = os.path.join(snapshot_path, cfg.model.name)
+        run = 0
+        if rank == 0:
+            os.makedirs(snapshot_path, exist_ok=True)
+            save_dir = init_save_folder(snapshot_path, cfg.model.name,
+                                        reuse_last=args.resume)
+            run = int(save_dir.rsplit("_", 1)[1])
+        # rank 0's run dir on every rank
+        save_dir = os.path.join(base, "run_%d" % dist.broadcast_array(
+            np.array([run]), device)[0])
+        cfg_dict = dataclasses.asdict(cfg)
+        if rank == 0:
+            write_doc(save_dir, cfg.run.text)
+            dump_config(save_dir, cfg_dict)
+            setup_logging(save_dir)
+            logging.info("%s", pprint.pformat(cfg_dict))
+            logging.info("data parallel: %s, device %s", dist.describe(),
+                         device)
 
-    snapshot_path = os.path.join(
-        cfg.run.snapshot_root, cfg.data.dataset,
-        f"{cfg.run.exp}_{cfg.data.labeled_num}_labeled")
-    os.makedirs(snapshot_path, exist_ok=True)
-    save_dir = init_save_folder(snapshot_path, cfg.model.name,
-                                reuse_last=args.resume)
-    cfg_dict = dataclasses.asdict(cfg)
-    write_doc(save_dir, cfg.run.text)
-    dump_config(save_dir, cfg_dict)
-    setup_logging(save_dir)
-    logging.info("%s", pprint.pformat(cfg_dict))
-
-    from chap_tpu_torch.train.trainer_2d import train
-    result = train(cfg, save_dir, mode=args.mode, resume=args.resume,
-                   device=device)
-    logging.info("done: %s", result)
+        from chap_tpu_torch.train.trainer_2d import train
+        result = train(cfg, save_dir, mode=args.mode, resume=args.resume,
+                       device=device)
+        logging.info("done: %s", result)
     return {**result, "save_dir": save_dir}
 
 

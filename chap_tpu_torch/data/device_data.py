@@ -36,6 +36,7 @@ import torch
 
 from chap_tpu_torch.data.transforms import resize_slice
 from chap_tpu_torch.device import resolve_device
+from chap_tpu_torch.parallel import dist
 
 
 class DevicePool(NamedTuple):
@@ -142,14 +143,25 @@ def draw_augment(batch_size: int, generator: torch.Generator
 
 
 def build_device_batch_fn(num_slices: int, num_labeled: int, batch_size: int,
-                          labeled_bs: int, augment: bool = True) -> Callable:
+                          labeled_bs: int, augment: bool = True,
+                          roles: int = 1, rank: int = 0, world: int = 1
+                          ) -> Callable:
     """Returns batch_fn(pool, generator) -> {'image': [B,1,H,W], 'label':
     [B,H,W] uint8} with the two-stream layout [labeled_bs rows drawn from
     [0, num_labeled) ; the rest from [num_labeled, num_slices)]. Every draw
-    comes from ``generator``, which lies on the pool's device: no host sync."""
+    comes from ``generator``, which lies on the pool's device: no host sync.
+
+    Data parallel (``world`` > 1): every draw is made for the global batch,
+    so each rank's generator, seeded alike, draws the same numbers; the rank
+    then gathers and augments only its rows (parallel/dist.py ``rank_rows``
+    with ``roles`` equal roles: 4 for the CHAP step, 1 for the supervised
+    one) from the pool, which it holds whole. B is then the rank's rows."""
     if not 0 < num_labeled < num_slices:
         raise ValueError(f"need 0 < num_labeled ({num_labeled}) < num_slices "
                          f"({num_slices}) for two streams")
+    rows = None
+    if world > 1:
+        rows = dist.rank_rows(batch_size, roles, rank, world)
 
     def batch_fn(pool: DevicePool, generator: torch.Generator
                  ) -> Dict[str, torch.Tensor]:
@@ -164,10 +176,15 @@ def build_device_batch_fn(num_slices: int, num_labeled: int, batch_size: int,
                                   (batch_size - labeled_bs,),
                                   generator=generator, device=dev)
         idx = torch.cat([lab_idx, unlab_idx])
+        params = draw_augment(batch_size, generator) if augment else None
+        if rows is not None:
+            sel = torch.tensor(rows, device=dev)
+            idx = idx[sel]
+            if params is not None:
+                params = tuple(p[sel] for p in params)
         imgs, labs = pool.images[idx], pool.labels[idx]
         if augment:
-            imgs, labs = apply_augment(imgs, labs,
-                                       *draw_augment(batch_size, generator))
+            imgs, labs = apply_augment(imgs, labs, *params)
         return {"image": imgs.unsqueeze(1), "label": labs}
 
     return batch_fn

@@ -5,12 +5,15 @@ batch order identical to chap_tpu's for the same seed).
 The labeled stream is iterated in shuffled epochs, the unlabeled stream is
 sampled eternally, and each emitted batch is [primary_bs labeled ;
 secondary_bs unlabeled], the positional contract every CHAP loss depends on.
+``RankBatchSampler`` gives each data-parallel rank its rows of every batch.
 """
 from __future__ import annotations
 
 from typing import Iterator, List, Sequence
 
 import numpy as np
+
+from chap_tpu_torch.parallel.dist import rank_rows
 
 
 class TwoStreamBatchSampler:
@@ -61,3 +64,24 @@ class TwoStreamBatchSampler:
             labeled = primary[start:start + self.primary_batch_size]
             unlabeled = self._next_secondary(self.secondary_batch_size)
             yield labeled + unlabeled
+
+
+class RankBatchSampler:
+    """Each rank's rows of every batch of a global batch sampler (the
+    counterpart of chap_tpu's ProcessLocalBatchSampler, parallel/mesh.py):
+    every rank builds the same global sampler (same seed) and loads only its
+    rows, chosen by parallel/dist.py ``rank_rows`` with ``roles`` equal roles
+    (4 for the CHAP step's [img_a ; img_b ; uimg_a ; uimg_b], 1 for the
+    supervised step), not chap_tpu's contiguous slice."""
+
+    def __init__(self, sampler, roles: int, rank: int, world: int):
+        self.sampler = sampler
+        self.roles, self.rank, self.world = roles, rank, world
+
+    def __len__(self) -> int:
+        return len(self.sampler)
+
+    def __iter__(self) -> Iterator[List[int]]:
+        for batch in self.sampler:
+            yield [batch[i] for i in rank_rows(len(batch), self.roles,
+                                               self.rank, self.world)]

@@ -11,6 +11,14 @@ back, in one copy per volume.
 Ensemble modes match val_2D.py:66-80: model1 | model2 | logit_ensemble |
 prob_ensemble, and single-output models. The split-model (ds, adv) and
 polyp predictors wait for the model zoo and ACAL slices (ROADMAP).
+
+With W > 1 ranks (parallel/dist.py) each volume's chunks of ``slice_batch``
+slices are dealt to the ranks in turn (chunk k of the whole eval to rank k
+mod W), and the int8 label maps are assembled with one all-reduce of a
+zero-filled buffer of the volume's shape; the metrics are computed on rank 0
+and broadcast. chap_tpu's mesh shards each chunk's rows instead (one SPMD
+program, chap_tpu/eval/eval2d.py:57-71); whole chunks keep every forward at
+W = 1's shape, so the label maps, and the scores, are the same at every W.
 """
 from __future__ import annotations
 
@@ -24,8 +32,10 @@ from chap_tpu_torch.device import resolve_device
 from chap_tpu_torch.metrics.surface import (calculate_metric_percase,
                                             calculate_metric_percase_full)
 from chap_tpu_torch.models.layers import softmax
+from chap_tpu_torch.parallel import dist
 
 MODEL_TYPES = ("model1", "model2", "logit_ensemble", "prob_ensemble")
+SLICE_BATCH = 16      # slices a forward
 
 
 def make_predictor(model: torch.nn.Module, model_type: str = "logit_ensemble",
@@ -71,21 +81,44 @@ def make_predictor(model: torch.nn.Module, model_type: str = "logit_ensemble",
 
 def predict_volume(predict: Callable, image: np.ndarray,
                    patch_size: Sequence[int] = (256, 256),
-                   slice_batch: int = 16) -> np.ndarray:
+                   slice_batch: int = SLICE_BATCH, first_chunk: int = 0
+                   ) -> np.ndarray:
     """image: [D,H,W] float -> prediction [D,H,W] (int8, or int32 when the
-    slices were zoomed back from ``patch_size``)."""
+    slices were zoomed back from ``patch_size``). With W > 1 ranks, this
+    rank predicts the volume's chunks k (counted from ``first_chunk``) with
+    k mod W equal to its rank, and every rank returns the whole map."""
     d, x, y = image.shape
-    slices = np.stack([resize_slice(image[i], patch_size, order=0)
-                       for i in range(d)]).astype(np.float32)
+    world, rank = dist.world_size(), dist.rank()
+    starts = [s for k, s in enumerate(range(0, d, slice_batch))
+              if (first_chunk + k) % world == rank]
+    mine = [i for s in starts for i in range(s, min(s + slice_batch, d))]
+    slices = np.zeros((d, *patch_size), np.float32)
+    for i in mine:
+        slices[i] = resize_slice(image[i], patch_size, order=0)
     host = torch.from_numpy(slices).unsqueeze(1)
     if predict.device.type == "cuda":
         host = host.pin_memory()
-    chunks = [predict(host[s:s + slice_batch]) for s in range(0, d, slice_batch)]
-    pred = torch.cat(chunks).cpu().numpy()
+    chunks = [predict(host[s:s + slice_batch]) for s in starts]
+    if world == 1:
+        pred = torch.cat(chunks)
+    else:
+        pred = torch.zeros((d, *patch_size), dtype=torch.int8,
+                           device=predict.device)
+        for s, chunk in zip(starts, chunks):
+            pred[s:s + slice_batch] = chunk
+        dist.all_reduce_(pred)
+    pred = pred.cpu().numpy()
     if (x, y) != tuple(patch_size):
         pred = np.stack([resize_slice(pred[i].astype(np.float32), (x, y), order=0)
                          for i in range(d)]).astype(np.int32)
     return pred
+
+
+def _metrics(prediction: np.ndarray, label: np.ndarray, classes: int,
+             full_metrics: bool) -> List[Tuple]:
+    metric_fn = calculate_metric_percase_full if full_metrics else calculate_metric_percase
+    label = np.asarray(label)
+    return [metric_fn(prediction == c, label == c) for c in range(1, classes)]
 
 
 def test_single_volume(image: np.ndarray, label: np.ndarray, predict: Callable,
@@ -94,21 +127,25 @@ def test_single_volume(image: np.ndarray, label: np.ndarray, predict: Callable,
     """Per-class (dice, hd95[, asd, jc]) like val_2D.py:93-97 /
     test_2D_fully.py:81-83."""
     prediction = predict_volume(predict, np.asarray(image), patch_size)
-    label = np.asarray(label)
-    metric_fn = calculate_metric_percase_full if full_metrics else calculate_metric_percase
-    return [metric_fn(prediction == c, label == c) for c in range(1, classes)]
+    return _metrics(prediction, label, classes, full_metrics)
 
 
 def evaluate_volumes(dataset, predict: Callable, classes: int,
                      patch_size: Sequence[int] = (256, 256),
                      full_metrics: bool = False) -> np.ndarray:
     """Mean per-class metrics over a volume dataset (train_ours_2D.py:407-415):
-    [classes - 1, 2] (dice, hd95), or [classes - 1, 4] with full_metrics."""
-    total = None
+    [classes - 1, 2] (dice, hd95), or [classes - 1, 4] with full_metrics.
+    With W > 1 ranks every rank predicts its chunks (module docstring) and
+    returns rank 0's metrics."""
+    total = np.zeros((classes - 1, 4 if full_metrics else 2))
+    chunk = 0
     for i in range(len(dataset)):
         sample = dataset[i]
-        m = np.array(test_single_volume(sample["image"], sample["label"],
-                                        predict, classes, patch_size,
-                                        full_metrics))
-        total = m if total is None else total + m
-    return total / len(dataset)
+        image = np.asarray(sample["image"])
+        prediction = predict_volume(predict, image, patch_size,
+                                    first_chunk=chunk)
+        chunk += -(-image.shape[0] // SLICE_BATCH)
+        if dist.is_main():
+            total = total + np.array(_metrics(prediction, sample["label"],
+                                              classes, full_metrics))
+    return dist.broadcast_array(total / len(dataset), predict.device)

@@ -5,6 +5,7 @@ from __future__ import annotations
 import torch
 
 from chap_tpu_torch.models.layers import log_softmax
+from chap_tpu_torch.parallel import dist
 
 
 def cross_entropy_per_pixel(logits: torch.Tensor, labels: torch.Tensor
@@ -16,8 +17,9 @@ def cross_entropy_per_pixel(logits: torch.Tensor, labels: torch.Tensor
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean CE (torch CrossEntropyLoss default reduction)."""
-    return cross_entropy_per_pixel(logits, labels).mean()
+    """Mean CE (torch CrossEntropyLoss default reduction), over the global
+    batch with W > 1 ranks (parallel/dist.py ``global_mean``)."""
+    return dist.global_mean(cross_entropy_per_pixel(logits, labels))
 
 
 def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

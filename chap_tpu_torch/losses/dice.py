@@ -4,6 +4,7 @@ from __future__ import annotations
 import torch
 
 from chap_tpu_torch.ops.fused_losses import fused_masked_dice_ce
+from chap_tpu_torch.parallel import dist
 
 
 def one_hot(labels: torch.Tensor, num_classes: int) -> torch.Tensor:
@@ -54,9 +55,10 @@ def dice_ce_supervised(logits: torch.Tensor, labels: torch.Tensor,
 def soft_dice_loss_masked(probs1: torch.Tensor, probs2: torch.Tensor,
                           mask: torch.Tensor, smooth: float = 1e-5) -> torch.Tensor:
     """Dice between two soft probability maps [B, C, ...] restricted to
-    mask==1 (train_share_encoder_2D.py:253-254)."""
+    mask==1 (train_share_encoder_2D.py:253-254); its class sums run over the
+    global batch with W > 1 ranks (the VAT divergence's ``dice`` type)."""
     m = mask.float().unsqueeze(1)
-    intersect = _class_sums(probs1 * probs2 * m)
-    s1 = _class_sums(probs1 * probs1 * m)
-    s2 = _class_sums(probs2 * probs2 * m)
+    intersect, s1, s2 = dist.global_sums(_class_sums(probs1 * probs2 * m),
+                                         _class_sums(probs1 * probs1 * m),
+                                         _class_sums(probs2 * probs2 * m))
     return torch.mean(1.0 - (2.0 * intersect + smooth) / (s1 + s2 + smooth))

@@ -19,6 +19,7 @@ import torch
 from chap_tpu_torch.losses.ce import kl_div_per_pixel
 from chap_tpu_torch.models.layers import log_softmax, reduced_dtype, softmax
 from chap_tpu_torch.losses.dice import soft_dice_loss_masked
+from chap_tpu_torch.parallel import dist
 
 ApplyFn = Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
 
@@ -45,13 +46,16 @@ def _divergence(logits1: torch.Tensor, logits2: torch.Tensor,
                 soft1: torch.Tensor, soft2: torch.Tensor,
                 mask: torch.Tensor, losstype: str) -> torch.Tensor:
     """Masked divergence of perturbed predictions vs. the clean soft targets
-    (logits / soft: [B, C, *spatial]; mask: [B, *spatial])."""
+    (logits / soft: [B, C, *spatial]; mask: [B, *spatial]), over the global
+    batch with W > 1 ranks (its sums all-reduced, parallel/dist.py)."""
     if losstype == "kl":
         kl1 = kl_div_per_pixel(log_softmax(logits1, 1), soft1)
         kl2 = kl_div_per_pixel(log_softmax(logits2, 1), soft2)
         m = mask.to(kl1.dtype)
-        denom = m.sum() + 1e-16
-        return ((kl1 * m).sum() + (kl2 * m).sum()) / denom
+        sum1, sum2, m_sum = dist.global_sums((kl1 * m).sum(), (kl2 * m).sum(),
+                                             m.sum())
+        denom = m_sum + 1e-16
+        return (sum1 + sum2) / denom
     if losstype == "dice":
         return (soft_dice_loss_masked(softmax(logits1, 1), soft1, mask)
                 + soft_dice_loss_masked(softmax(logits2, 1), soft2, mask))

@@ -20,6 +20,8 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from chap_tpu_torch.parallel import dist
+
 Draws = List[torch.Tensor]
 
 
@@ -61,9 +63,11 @@ def _drop_based_on_prob(drop_probs: torch.Tensor, comp: bool, draws: Draws,
         u1, u2 = draws
         mask1 = (u1 < 1.0 - drop_probs).float()
         mask2 = (u2 < 1.0 - drop_probs).float()
-    numel = float(mask1.numel())
-    mask1 = mask1 * numel / (mask1.sum() + 1e-8)
-    mask2 = mask2 * numel / (mask2.sum() + 1e-8)
+    # the rescale's count and sums run over every rank's rows (W > 1)
+    numel = float(mask1.numel()) * dist.world_size()
+    sum1, sum2 = dist.global_sums(mask1.sum(), mask2.sum())
+    mask1 = mask1 * numel / (sum1 + 1e-8)
+    mask2 = mask2 * numel / (sum2 + 1e-8)
     shape = _mask_shape(feat_ndim, mask1.shape[0], mask1.shape[1])
     return mask1.reshape(shape), mask2.reshape(shape)
 

@@ -66,6 +66,8 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from chap_tpu_torch.parallel import dist
+
 BLOCK = 512            # pixels per tile, forward and backward
 PROGRAMS_PER_SM = 2    # forward programs; more pixels loop inside a program
 FIN_ROWS = 128         # partial rows the finalising program sums per step
@@ -455,12 +457,26 @@ stats_grad_kernel.launches_bf16 = 0
 
 class _RegionDiceCE(torch.autograd.Function):
     """K1 forward and backward on the card (chap_tpu's custom_vjp pair, over
-    one or two regions): returns (dice_1, ce_1[, dice_2, ce_2])."""
+    one or two regions): returns (dice_1, ce_1[, dice_2, ce_2]).
+
+    With W > 1 ranks (parallel/dist.py) the kernel's statistics are this
+    rank's rows only: they are all-reduced, dice and CE are composed from
+    the global statistics by ``compose_plain`` (a few tensor ops on
+    [R, 4, C]; the finalize kernel's own compose is then unused), and the
+    global statistics are saved for the backward kernel, since the gradient
+    of dice with respect to this rank's logits depends on the global I, Z
+    and Y. The compose is replicated, so its statistics take
+    ``all_reduce_replicated``'s rule: the incoming grads are already whole
+    and are not reduced again."""
 
     @staticmethod
     def forward(ctx, logits, labels, mask, labels2, smooth_dice, eps_ce):
         losses, stats = stats_kernel(logits, labels, mask, labels2,
                                      smooth_dice, eps_ce)
+        if dist.world_size() > 1:
+            stats = dist.all_reduce_(stats.clone())
+            losses = compose_plain(stats[:, :, :logits.shape[1]], smooth_dice,
+                                   eps_ce)
         ctx.set_materialize_grads(False)   # a None grad is a device zero
         ctx.save_for_backward(logits, labels, mask, labels2, stats)
         ctx.smooth_dice, ctx.eps_ce = smooth_dice, eps_ce
@@ -492,9 +508,12 @@ def region_dice_ce(logits: torch.Tensor, labels: torch.Tensor,
     """(dice_1, ce_1[, dice_2, ce_2]), differentiable in ``logits``: region
     1 is (labels, mask), region 2 (labels2, 1 - mask). CUDA: K1's Triton
     forward and backward, one call for both regions. CPU: the plain version
-    under autograd (the same function, so the same gradient)."""
+    under autograd (the same function, so the same gradient). With W > 1
+    ranks the losses are those of the global batch: the per-class
+    statistics are all-reduced between the two halves (``_RegionDiceCE``)."""
     if logits.device.type == "cpu":
-        stats = region_stats_plain(logits, labels, mask, labels2)
+        stats = dist.all_reduce_replicated(
+            region_stats_plain(logits, labels, mask, labels2))
         losses = compose_plain(stats, smooth_dice, eps_ce)
         return tuple(losses.view(-1).unbind())
     return _RegionDiceCE.apply(logits, labels, mask, labels2,

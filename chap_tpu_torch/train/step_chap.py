@@ -43,6 +43,7 @@ from chap_tpu_torch.losses.vat import vat_loss_2d
 from chap_tpu_torch.models.layers import softmax
 from chap_tpu_torch.models.perturb import perturb_draw_shapes
 from chap_tpu_torch.models.vnet3d import dropout_shapes as vnet_dropout_shapes
+from chap_tpu_torch.parallel import dist
 from chap_tpu_torch.semi.bcp import draw_box_starts, generate_mask_nd, mix_images
 from chap_tpu_torch.semi.gradsim import (ENCODER_LEVEL_PATHS, level_weights,
                                          update_grad_sim)
@@ -151,6 +152,31 @@ def draw_step_uniforms(cfg: Config, image_shape: Sequence[int],
     return draws
 
 
+def shard_step_draws(draws: Dict[str, object], rank: Optional[int] = None,
+                     world: Optional[int] = None) -> Dict[str, object]:
+    """This rank's part of ``draw_step_uniforms``'s draws for the global
+    batch (parallel/dist.py ``rank_rows``): every pass's dropout draws and
+    the VAT direction over the unlabeled rows [uimg_a ; uimg_b] (or the
+    mixed [img_b/uimg_b ; uimg_a/img_a] rows of the student pass), two roles;
+    the channel-perturbation draws over the perturbed uimg_b rows, one role;
+    the BCP box and the comp-drop swap (0-d) shared. The draws themselves
+    at W = 1."""
+    world = dist.world_size() if world is None else world
+    if world == 1:
+        return draws
+
+    def rows(u, roles):
+        return dist.shard_rows(u, roles, rank, world)
+    out = dict(draws)
+    out["drop"] = {name: [rows(u, 2) for u in us]
+                   for name, us in draws["drop"].items()}
+    if "perturb" in draws:
+        out["perturb"] = [[rows(u, 1) for u in lvl] for lvl in draws["perturb"]]
+    if "vat_d" in draws:
+        out["vat_d"] = rows(draws["vat_d"], 2)
+    return out
+
+
 def build_chap_train_step(model: torch.nn.Module,
                           optimizer: torch.optim.Optimizer, cfg: Config,
                           use_nms: bool = True,
@@ -162,7 +188,13 @@ def build_chap_train_step(model: torch.nn.Module,
     batch: {'image': [B, 1, *spatial] float, 'label': [B, *spatial] int} on
     the step's device, with the two-stream layout [labeled_bs labeled ;
     B - labeled_bs unlabeled]. ``draws`` (draw_step_uniforms) replaces every
-    random draw; without it the step draws from ``generator``. The step
+    random draw; without it the step draws from ``generator``. With W > 1
+    ranks (parallel/dist.py) the batch is this rank's rows of the global
+    one (``rank_rows``, four roles), the draws are those of the global
+    batch (this rank's rows are taken here, ``shard_step_draws``), and the
+    step computes the one-process step over the global batch: BN statistics,
+    K1's statistics, the CE and VAT means, the GradSim gradients and the
+    parameter gradients are summed over the ranks. The step
     updates ``state.model`` and ``state.optimizer`` in place and returns the
     seven metrics of chap_tpu's step as 0-d device tensors (no host sync).
     ``level_paths``: the GradSim level weights, ENCODER_LEVEL_PATHS for the
@@ -171,6 +203,10 @@ def build_chap_train_step(model: torch.nn.Module,
     device = resolve_device(device)
     num_classes = cfg.data.num_classes
     labeled_bs, sub_bs = _check_layout(cfg)
+    world = dist.world_size()
+    dist.check_rows(2 * labeled_bs, dist.CHAP_ROLES, world, "CHAP step")
+    # this rank's rows of each role (all of them at W = 1)
+    labeled_bs, sub_bs = labeled_bs // world, sub_bs // world
     semi = cfg.semi
     remat = cfg.optim.remat
     if next(model.parameters()).device.type != device.type:
@@ -222,8 +258,15 @@ def build_chap_train_step(model: torch.nn.Module,
                              "the step was built for")
         image = batch["image"]
         label = batch["label"].to(torch.int32)
+        if world > 1 and image.shape[0] != 2 * labeled_bs:
+            raise ValueError(f"batch of {image.shape[0]} rows; this rank "
+                             f"takes {2 * labeled_bs} (labeled_bs "
+                             f"{cfg.data.labeled_bs} x 2 over {world} ranks)")
         if draws is None:
-            draws = draw_step_uniforms(cfg, image.shape, generator, image.device)
+            draws = draw_step_uniforms(cfg, (image.shape[0] * world,)
+                                       + tuple(image.shape[1:]), generator,
+                                       image.device)
+        draws = shard_step_draws(draws)
         drop = draws["drop"]
         model.train()
 
@@ -295,6 +338,9 @@ def build_chap_train_step(model: torch.nn.Module,
         if semi.dropout and state.step % every == 0:
             grads_l = torch.autograd.grad(loss_l, weights, retain_graph=True)
             grads_u = torch.autograd.grad(loss_u, weights, retain_graph=True)
+            # this rank's parts of the global batch's gradients, summed
+            grads = dist.sum_tensors(grads_l + grads_u)
+            grads_l, grads_u = grads[:len(weights)], grads[len(weights):]
             # decay**every keeps the reference's averaging horizon
             sim_scores = update_grad_sim(sim_scores, grads_l, grads_u,
                                          decay=0.9 ** every)
@@ -302,6 +348,7 @@ def build_chap_train_step(model: torch.nn.Module,
         # ---- SGD update ------------------------------------------------------
         optimizer.zero_grad(set_to_none=True)
         total.backward()
+        dist.all_reduce_grads(model.parameters())
         for group in optimizer.param_groups:
             group["lr"] = lr_schedule(state.step)
         optimizer.step()

@@ -8,6 +8,11 @@ of its two outputs through K1 with one region (``dice_ce_supervised``: one
 forward and one backward launch each, so 2 + 2 a step), one SGD update, and
 the pass's batch statistics folded into the BN running stats. The dropout
 draws are made up front as in step_chap.py, so a test can feed chap_tpu's.
+
+With W > 1 ranks (parallel/dist.py) each rank takes a contiguous 1/W of the
+global batch (W must divide it), the draws are those of the global batch,
+and the step is the one-process step over it: K1's statistics and the BN
+statistics are global and the gradients are summed over the ranks.
 """
 from __future__ import annotations
 
@@ -18,6 +23,7 @@ import torch
 from chap_tpu_torch.config import Config
 from chap_tpu_torch.device import resolve_device
 from chap_tpu_torch.losses.dice import dice_ce_supervised
+from chap_tpu_torch.parallel import dist
 from chap_tpu_torch.train.state import TrainState, fold_batch_stats, make_lr_schedule
 from chap_tpu_torch.train.step_chap import (StepOutput, dropout_draws,
                                             uniform_sampler)
@@ -43,6 +49,8 @@ def build_supervised_train_step(model: torch.nn.Module,
     tensor."""
     device = resolve_device(device)
     num_classes = cfg.data.num_classes
+    world = dist.world_size()
+    dist.check_rows(cfg.data.batch_size, 1, world, "supervised step")
     if next(model.parameters()).device.type != device.type:
         raise ValueError(f"model is on {next(model.parameters()).device}, the "
                          f"step on {device}")
@@ -57,16 +65,24 @@ def build_supervised_train_step(model: torch.nn.Module,
                              "the step was built for")
         image = batch["image"]
         label = batch["label"].to(torch.int32)
+        if world > 1 and image.shape[0] * world != cfg.data.batch_size:
+            raise ValueError(f"batch of {image.shape[0]} rows; this rank "
+                             f"takes {cfg.data.batch_size // world} "
+                             f"(batch_size {cfg.data.batch_size} over {world} "
+                             f"ranks)")
         if draws is None:
-            draws = draw_supervised_uniforms(cfg, image.shape, generator,
-                                             image.device)
+            draws = draw_supervised_uniforms(
+                cfg, (image.shape[0] * world,) + tuple(image.shape[1:]),
+                generator, image.device)
+        drop_u = [dist.shard_rows(u) for u in draws["drop"]]
         model.train()
         stats: Dict = {}
-        o1, o2 = model(image, drop_u=draws["drop"], stats=stats)
+        o1, o2 = model(image, drop_u=drop_u, stats=stats)
         loss = (dice_ce_supervised(o1, label, num_classes)
                 + dice_ce_supervised(o2, label, num_classes))
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        dist.all_reduce_grads(model.parameters())
         for group in optimizer.param_groups:
             group["lr"] = lr_schedule(state.step)
         optimizer.step()

@@ -23,7 +23,19 @@ Orchestration only; the maths lives in the step:
 Modes: ``chap``, ``supervised`` and ``ablation`` (train/step_ablation.py;
 at each log step its disagreement ratio is appended to
 ``<snapshot>/disagreement.csv``, as chap_tpu's trainer_2d.py:174-178 does).
-One device: ``parallel.num_devices`` 0 (the default device) or 1.
+
+Data parallel over W ranks (parallel/dist.py, in place of chap_tpu's mesh,
+trainer_2d.py:46-49): ``chap`` and ``supervised`` under torchrun, or with a
+process group the caller initialised. Every rank builds the model from the
+same seed on its card, and rank 0's parameters and buffers are broadcast
+(they must already be equal); each rank holds the whole slice pool and
+takes its rows of every global batch draw (``rank_rows``: the four CHAP
+roles, or a contiguous 1/W for ``supervised``), and its step generator is
+seeded alike, so W ranks train the one-process run. Rank 0 alone writes
+metrics.jsonl, val.csv, the log and the checkpoints; ``--resume`` restores
+every rank from the same files; the best-checkpoint decision is rank 0's,
+broadcast. ``steps_per_sec`` stays the global rate (a step is the global
+batch). ``ablation`` runs on one rank (ROADMAP item 16c).
 
 ``model.dtype=bfloat16`` computes the model in bf16 over float32 parameters
 (models/layers.py), with the batches in bf16 as chap_tpu's (pool and host
@@ -44,12 +56,12 @@ from chap_tpu_torch.config import Config
 from chap_tpu_torch.data.datasets import build_datasets, patients_to_slices
 from chap_tpu_torch.data.device_data import build_device_batch_fn, build_device_pool
 from chap_tpu_torch.data.pipeline import BatchLoader, compact_batch, prefetch_to_device
-from chap_tpu_torch.data.sampler import TwoStreamBatchSampler
+from chap_tpu_torch.data.sampler import RankBatchSampler, TwoStreamBatchSampler
 from chap_tpu_torch.data.transforms import RandomGenerator
-from chap_tpu_torch.device import resolve_device
 from chap_tpu_torch.eval.eval2d import evaluate_volumes, make_predictor
 from chap_tpu_torch.models.factory import net_factory
 from chap_tpu_torch.models.layers import compute_dtype
+from chap_tpu_torch.parallel import dist
 from chap_tpu_torch.train.state import create_train_state, make_optimizer
 from chap_tpu_torch.train.step_ablation import build_ablation_train_step
 from chap_tpu_torch.train.step_chap import build_chap_train_step
@@ -72,19 +84,39 @@ def _synchronize(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+class _NoWriter:
+    """The writer of the ranks other than 0: they write no file."""
+
+    def write(self, step, scalars) -> None:
+        pass
+
+    def append_csv(self, path, row) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
+def _same_on_every_rank(model: torch.nn.Module, what: str) -> None:
+    """Broadcast rank 0's parameters and buffers; they must not change."""
+    if dist.broadcast_state(model):
+        raise RuntimeError(f"rank {dist.rank()}: the model {what} differs from "
+                           f"rank 0's; every rank must build and restore the "
+                           f"same state")
+
+
 def train(cfg: Config, snapshot_path: str, mode: str = "chap",
           max_steps: Optional[int] = None, resume: bool = False,
           device: Optional[Union[str, torch.device]] = None) -> dict:
     """Returns {'best_dice': float, 'steps': int}. ``device`` is the card
-    unless ``device="cpu"``."""
-    device = resolve_device(device)
+    unless ``device="cpu"``; with W > 1 ranks (module docstring) each rank
+    trains on its own card (``cuda:LOCAL_RANK``)."""
     if mode not in ("chap", "supervised", "ablation"):
         raise ValueError(f"unknown mode {mode!r} (chap | supervised | ablation)")
-    if cfg.parallel.num_devices not in (0, 1):
-        raise NotImplementedError(
-            f"parallel.num_devices={cfg.parallel.num_devices}: the port trains "
-            f"on one device; data parallelism over cards (DDP) is ROADMAP "
-            f"item 16")
+    rank, world, device = dist.init_distributed(cfg, device)
+    if mode == "ablation":
+        dist.refuse_data_parallel(cfg, "the ablation step", "16c")
+    main_rank = rank == 0
     dtype = compute_dtype(cfg.model.dtype)
     if mode == "ablation" and dtype != torch.float32:
         raise ValueError(f"model.dtype={cfg.model.dtype}: the ablation step "
@@ -98,6 +130,7 @@ def train(cfg: Config, snapshot_path: str, mode: str = "chap",
     torch.manual_seed(cfg.run.seed)
     model = net_factory(cfg.model.name, cfg.data.in_chns, num_classes,
                         cfg.model, device=device)
+    _same_on_every_rank(model, "built from run.seed")
     optimizer = make_optimizer(model, cfg.optim.base_lr, cfg.optim.momentum,
                                cfg.optim.weight_decay)
     state = create_train_state(model, optimizer, cfg.model.feature_chns)
@@ -105,6 +138,7 @@ def train(cfg: Config, snapshot_path: str, mode: str = "chap",
     ckpt = CheckpointManager(snapshot_path)
     best_performance = 0.0
     if resume and ckpt.restore_latest(state) is not None:
+        _same_on_every_rank(model, "restored from the latest checkpoint")
         # the historical best, so the first post-resume eval cannot clobber
         # the best slot (train_ours_2D.py:428-435 gating)
         best_performance = float(ckpt.load_meta().get("best_metric", 0.0))
@@ -127,7 +161,8 @@ def train(cfg: Config, snapshot_path: str, mode: str = "chap",
     labeled_slice = patients_to_slices(cfg.data.dataset, cfg.data.labeled_num)
     logger.info("Total slices %d, labeled slices %d", total_slices, labeled_slice)
 
-    writer = MetricsWriter(snapshot_path)
+    writer = MetricsWriter(snapshot_path) if main_rank else _NoWriter()
+    roles = dist.CHAP_ROLES if mode == "chap" else 1
     predictor = make_predictor(model, cfg.eval.model_type, device=device)
     max_iterations = max_steps or cfg.optim.max_iterations
     iter_num = start_iter = state.step
@@ -138,7 +173,8 @@ def train(cfg: Config, snapshot_path: str, mode: str = "chap",
         _synchronize(device)
         writer.write(start_iter, {"pool_build_s": time.perf_counter() - t0})
         batch_fn = build_device_batch_fn(total_slices, labeled_slice,
-                                         cfg.data.batch_size, cfg.data.labeled_bs)
+                                         cfg.data.batch_size, cfg.data.labeled_bs,
+                                         roles=roles, rank=rank, world=world)
 
         def batch_stream():
             gen = torch.Generator(device=device)
@@ -155,6 +191,10 @@ def train(cfg: Config, snapshot_path: str, mode: str = "chap",
                     cfg.data.batch_size,
                     cfg.data.batch_size - cfg.data.labeled_bs,
                     seed=cfg.run.seed + epoch_start)
+                if world > 1:
+                    # every rank builds the same global sampler and loads
+                    # only its rows
+                    sampler = RankBatchSampler(sampler, roles, rank, world)
                 loader = BatchLoader(db_train, sampler, cfg.data.num_workers)
                 yield from prefetch_to_device(
                     loader, device, size=2,
@@ -172,7 +212,7 @@ def train(cfg: Config, snapshot_path: str, mode: str = "chap",
             state, metrics = step_fn(state, batch, step_gen)
             iter_num += 1
 
-            if iter_num % cfg.run.log_every == 0:
+            if main_rank and iter_num % cfg.run.log_every == 0:
                 # one device->host copy for every logged scalar; the GradSim
                 # score statistics are computed on the device
                 names = list(metrics)
@@ -205,18 +245,24 @@ def train(cfg: Config, snapshot_path: str, mode: str = "chap",
                 performance = float(np.mean(metric_list, axis=0)[0])
                 mean_hd95 = float(np.mean(metric_list, axis=0)[1])
                 t_ckpt = time.perf_counter()
-                ckpt.save_latest(state)
+                if main_rank:
+                    ckpt.save_latest(state)
                 checkpoint_ms = (time.perf_counter() - t_ckpt) * 1e3
                 writer.write(iter_num, {"val_mean_dice": performance,
                                         "val_mean_hd95": mean_hd95,
                                         "steps_per_sec_since_eval": train_rate,
                                         "eval_s": eval_s,
                                         "checkpoint_ms": checkpoint_ms})
-                if performance > best_performance or not ckpt.has("best"):
+                # rank 0's decision (it alone sees the best slot), broadcast
+                improved = dist.broadcast_array(np.array(
+                    [main_rank and (performance > best_performance
+                                    or not ckpt.has("best"))]), device)[0]
+                if improved:
                     best_performance = performance
-                    ckpt.save_best(state)
-                    ckpt.save_meta({"best_metric": best_performance,
-                                    "best_iteration": iter_num})
+                    if main_rank:
+                        ckpt.save_best(state)
+                        ckpt.save_meta({"best_metric": best_performance,
+                                        "best_iteration": iter_num})
                     writer.append_csv(
                         f"{snapshot_path}/val.csv",
                         {"timestamp": time.strftime("%Y-%m-%d %H:%M:%S"),

@@ -31,7 +31,8 @@ in bf16 as chap_tpu's (volume pool and host loader, trainer_3d.py:228-250);
 the eval runs the engine at its default float32 input, so a bf16 model
 gives bf16 logits to K3, as chap_tpu's eval does. Checkpoints hold the
 float32 parameters.
-One device: ``parallel.num_devices`` 0 or 1.
+One rank: ``parallel.num_devices`` 0 or 1 and no process group of more than
+one rank; data parallelism for the 3D trainer is ROADMAP item 16b.
 """
 from __future__ import annotations
 
@@ -57,6 +58,7 @@ from chap_tpu_torch.models.factory import net_factory_3d
 from chap_tpu_torch.models.layers import compute_dtype, softmax
 from chap_tpu_torch.models.resvnet import ResVNet
 from chap_tpu_torch.models.vnet3d import VNetDS
+from chap_tpu_torch.parallel import dist
 from chap_tpu_torch.semi.gradsim import VNET_LEVEL_PATHS
 from chap_tpu_torch.train.state import (TrainState, create_train_state,
                                         fold_batch_stats, make_lr_schedule,
@@ -230,11 +232,7 @@ def train(cfg: Config, snapshot_path: str, max_steps: Optional[int] = None,
     if mode not in ("chap", "cps", "supervised"):
         raise ValueError(f"unknown 3D trainer mode {mode!r} (chap | cps | "
                          f"supervised)")
-    if cfg.parallel.num_devices not in (0, 1):
-        raise NotImplementedError(
-            f"parallel.num_devices={cfg.parallel.num_devices}: the port trains "
-            f"on one device; data parallelism over cards (DDP) is ROADMAP "
-            f"item 16")
+    dist.refuse_data_parallel(cfg, "the 3D trainer", "16b")
     if cfg.run.prng_impl != "threefry2x32":
         logger.warning("run.prng_impl=%r selects a JAX PRNG; ignored (the "
                        "port draws from torch.Generator)", cfg.run.prng_impl)

@@ -20,8 +20,9 @@ seeded from ``run.seed``. Besides chap_tpu's metric keys, each log record
 carries ``steps_per_sec`` and ``mb_feed_ms`` (the bank feeds' mean since the
 last log, copy and host ranking included), and each eval record
 ``model{1,2}_eval_s`` and ``checkpoint_ms``. No resume: chap_tpu's ACAL
-trainer has none. One device: ``parallel.num_devices`` 0 or 1. Float32
-only: ``model.dtype=bfloat16`` is refused (ROADMAP item 21b; the only
+trainer has none. One rank: ``parallel.num_devices`` 0 or 1 and no
+process group of more than one rank (data parallelism for it is ROADMAP
+item 16c). Float32 only: ``model.dtype=bfloat16`` is refused (ROADMAP item 21b; the only
 config of this trainer, configs/acdc_share_acal.yml, is float32).
 """
 from __future__ import annotations
@@ -43,6 +44,7 @@ from chap_tpu_torch.data.transforms import RandomGenerator
 from chap_tpu_torch.device import resolve_device
 from chap_tpu_torch.eval.eval2d import evaluate_volumes, make_predictor
 from chap_tpu_torch.models.factory import net_factory
+from chap_tpu_torch.parallel import dist
 from chap_tpu_torch.semi.memory_bank import ImageMemoryBank
 from chap_tpu_torch.train.step_share import (build_acal_steps,
                                              build_share_joint_step,
@@ -58,11 +60,7 @@ def train(cfg: Config, snapshot_path: str, max_steps: Optional[int] = None,
     """Returns {'best_dice_model1', 'best_dice_model2', 'steps'}. ``device``
     is the card unless ``device="cpu"``."""
     device = resolve_device(device)
-    if cfg.parallel.num_devices not in (0, 1):
-        raise NotImplementedError(
-            f"parallel.num_devices={cfg.parallel.num_devices}: the port trains "
-            f"on one device; data parallelism over cards (DDP) is ROADMAP "
-            f"item 16")
+    dist.refuse_data_parallel(cfg, "the ACAL trainer", "16c")
     if cfg.model.dtype != "float32":
         raise ValueError(f"model.dtype={cfg.model.dtype}: the ACAL trainer "
                          f"computes in float32 only; bf16 for it is ROADMAP "

@@ -192,8 +192,30 @@ Phases (any failure raises and the script exits non-zero):
                every K1 launch at bf16 logits, peak memory; torch.profiler
                over 1 LA and 1 unet_3D step, which must show bf16
                convolution kernels (``slice_bf16``, ``profile_bf16_*``)
+ 23. data      (runs before the report) chap_tpu_torch/parallel/dist.py on
+     parallel  the card at configs/acdc_chap.yml's values (batch 24 x
+               256^2, fp32): (b) two gloo ranks spawned on the one card
+               (NCCL puts no two ranks on one device), three bare CHAP
+               steps on each rank's rows of the global batches (TF32 off)
+               against this process's step on the whole batches from the
+               same weights and draws: metrics, parameters, BN running
+               statistics and GradSim scores within rtol 2e-3 (largest
+               gaps printed), 4 + 12 K1 and 1 K2 launches a step on each
+               rank, each rank's step ms and the ms of its step's
+               all-reduces replayed alone; (a) cli.train_2d under
+               ``torchrun --nproc_per_node 1`` (NCCL), 12 steps with evals
+               at 6 and 12, against the same run in this process: losses
+               within rtol 2e-3 (largest gap printed); (c) cli.train_2d in
+               the two gloo ranks: 12 steps and --resume to 18, one run dir
+               written by rank 0, the records, val.csv and eval dice of
+               W = 1's run (dice within 5e-3), 18 x (4 + 12 / 1) launches a
+               rank, and the eval of its final weights at W = 2 equal to
+               this process's eval of them, exactly. Prints the ``dist``
+               line (the gloo figures are two ranks sharing one card, not
+               a multi-card speed)
  22. report    the kernels line (JSON; K1 and K3 at bf16 logits have rows
-               of their own), the card line, and the last line
+               of their own; the 2D K1 / K2 rows carry phase 23's launches
+               on each rank), the card line, and the last line
                {"ok": true, "device": {...}}
 
 The 2D and 3D phases keep the counts and depths they had before the ACAL
@@ -223,6 +245,7 @@ import concurrent.futures
 import ctypes
 import json
 import math
+import multiprocessing as mp
 import os
 import re
 import shutil
@@ -241,7 +264,8 @@ from chap_tpu_torch.cli import train_3d as cli_train3d
 from chap_tpu_torch.cli import train_share_2d as cli_share
 from chap_tpu_torch.config import acdc_chap_config, load_config
 from chap_tpu_torch.data.datasets import (SyntheticSliceDataset, SyntheticVolumeDataset,
-                                          patients_to_slices, phantom_batch)
+                                          build_datasets, patients_to_slices,
+                                          phantom_batch)
 from chap_tpu_torch.data.device_data import build_device_batch_fn, build_device_pool
 from chap_tpu_torch.data.pipeline import to_device
 from chap_tpu_torch.eval import sliding_window as sw
@@ -255,6 +279,7 @@ from chap_tpu_torch.models.unet3d_dv import UNet3DDvSemi
 from chap_tpu_torch.models.vnet3d import DualDecoder3d, VNet, VNetDS
 from chap_tpu_torch.models.voxresnet import VoxResNet
 from chap_tpu_torch.ops import cuda_build, fused_losses
+from chap_tpu_torch.parallel import dist
 from chap_tpu_torch.semi import nms
 from chap_tpu_torch.semi.gradsim import VNET_LEVEL_PATHS
 from chap_tpu_torch.semi.memory_bank import ImageMemoryBank
@@ -2620,6 +2645,314 @@ def phase_trainer_zoo3d() -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 23: data parallelism (chap_tpu_torch/parallel/dist.py)
+# ---------------------------------------------------------------------------
+
+DIST_RUNS = os.path.join(RUNS_DIR, "dist")
+DIST_STEPS = 3
+# cli.train_2d at configs/acdc_chap.yml's values with an eval every 6 and a
+# log line every step; the synthetic pool cut to 256 slices (labeled_num 7
+# takes 136 of them) so that each rank builds its pool in a second
+DIST_OVERRIDES = ["eval.eval_every=6", "data.synthetic_val_volumes=2",
+                  "data.synthetic_train_size=256", "run.log_every=1",
+                  f"run.snapshot_root={DIST_RUNS}"]
+
+
+def dist_step_inputs(cfg):
+    """Phase 23's global batches and step draws, made alike in every
+    process on the card (numpy phantoms, Philox draws from a seed)."""
+    batches = [phantom_inputs(cfg, 40 + i, "cuda") for i in range(DIST_STEPS)]
+    draws = [draw_step_uniforms(cfg, batches[i]["image"].shape,
+                                torch.Generator(device="cuda").manual_seed(40 + i),
+                                "cuda") for i in range(DIST_STEPS)]
+    return batches, draws
+
+
+def dist_steps(init: dict, rows, cudnn: bool = True) -> dict:
+    """DIST_STEPS bare CHAP steps at acdc_chap.yml's values from ``init``
+    (TF32 off; with ``cudnn=False`` PyTorch's own convolutions and
+    BatchNorm in place of cuDNN's) on ``rows(batch)`` of each global batch,
+    after one warm-up step from the same start: metrics, step ms, the final
+    state dict (parameters and BN running statistics) and GradSim scores
+    (on the host), the launches and the collectives made."""
+    torch.backends.cudnn.enabled = cudnn
+    try:
+        return _dist_steps(init, rows)
+    finally:
+        torch.backends.cudnn.enabled = True
+
+
+def _dist_steps(init: dict, rows) -> dict:
+    set_tf32(False)
+    cfg = acdc_chap_config()
+    batches, draws = dist_step_inputs(cfg)
+    state, step = make_step(cfg, "cuda", state_dict=init)
+    step(state, rows(batches[0]), draws=draws[0])
+    state, step = make_step(cfg, "cuda", state_dict=init)
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    times, metrics = [], []
+    with dist.record_collectives() as collectives:
+        for batch, d in zip(batches, draws):
+            t0 = time.perf_counter()
+            m = step(state, rows(batch), draws=d).metrics
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            metrics.append({k: float(v) for k, v in m.items()})
+    return {"metrics": metrics, "step_ms": times, "launches": launch_counts(),
+            "params": {k: v.detach().cpu() for k, v in
+                       state.model.state_dict().items()},
+            "sim": [s.cpu() for s in state.sim_scores],
+            "collectives": list(collectives)}
+
+
+def dist_val_set():
+    """The synthetic val volumes of phase 23's trainer runs."""
+    cfg = acdc_chap_config()
+    cfg.data.dataset = "synthetic"
+    cfg.data.synthetic_val_volumes, cfg.data.synthetic_train_size = 2, 256
+    return build_datasets(cfg.data, None)[1]
+
+
+def dist_eval(save_dir: str) -> np.ndarray:
+    """evaluate_volumes of a run's latest weights at this process's W, with
+    TF32 on, as the trainer evaluates."""
+    set_tf32(True)
+    cfg = acdc_chap_config()
+    model = net_factory("dualdecoder", 1, 4, cfg.model, device="cuda")
+    state = create_train_state(model, make_optimizer(model, 0.01),
+                               cfg.model.feature_chns)
+    CheckpointManager(save_dir).restore_latest(state)
+    return evaluate_volumes(dist_val_set(), make_predictor(model, device="cuda"),
+                            4, tuple(cfg.data.image_size))
+
+
+def dist_rank_phase(init: dict, steps_done) -> dict:
+    """What each gloo rank on the card runs in phase 23: (b) the bare steps
+    on its rows, with the all-reduce ms of the same collectives replayed
+    alone after them, then ``steps_done`` set (the card is no longer the
+    ranks' alone); (c) cli.train_2d, 12 steps and --resume to 18 (TF32 on,
+    as phase 8), and the eval of its latest weights at W = 2."""
+    out = {"rank": dist.rank(), "world": dist.world_size()}
+    steps = dist_steps(init, lambda batch: {k: dist.shard_rows(v, 4)
+                                            for k, v in batch.items()})
+    buffers = {c: torch.zeros(c[0], dtype=c[1], device="cuda")
+               for c in set(steps["collectives"])}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for c in steps["collectives"]:
+        dist.all_reduce_(buffers[c])
+    torch.cuda.synchronize()
+    steps["allreduce_ms_per_step"] = (time.perf_counter() - t0) * 1e3 / DIST_STEPS
+    steps["collectives_per_step"] = len(steps["collectives"]) / DIST_STEPS
+    steps["allreduce_mb_per_step"] = sum(
+        n * torch.empty((), dtype=t).element_size()
+        for n, t in steps.pop("collectives")) / DIST_STEPS / 1e6
+    out["steps"] = steps
+    if dist.is_main():
+        steps_done.set()
+    torch.cuda.empty_cache()
+
+    set_tf32(True)
+    argv = TRAINER_FLAGS + DIST_OVERRIDES + ["--exp", "w2"]
+    zero_launch_counts()
+    first = cli_train.main(argv + ["--max_iterations", "12"])
+    resumed = cli_train.main(argv + ["--max_iterations", "18", "--resume"])
+    out["trainer"] = {"first": first, "resumed": resumed,
+                      "launches": launch_counts()}
+    out["eval_w2"] = dist_eval(resumed["save_dir"])
+    return out
+
+
+def dist_gaps(got: dict, want: dict, init: dict) -> dict:
+    """How far one run of dist_steps lies from another: the largest relative
+    gap of a metric over the steps; the parameters' update from ``init``,
+    the BN running statistics and the GradSim scores each as one vector,
+    |got - want| / |want| (norms); and the largest element gap of each of
+    the last three."""
+    def vec(state, keys, minus=None):
+        return torch.cat([(state[k].double() - (0 if minus is None else
+                                                 minus[k].double())).reshape(-1)
+                          for k in keys])
+
+    running = [k for k in want["params"] if k.endswith(("running_mean",
+                                                         "running_var"))]
+    params = [k for k, v in want["params"].items()
+              if v.is_floating_point() and k not in running]
+    pairs = {"update": (vec(got["params"], params, init),
+                        vec(want["params"], params, init)),
+             "running": (vec(got["params"], running), vec(want["params"], running)),
+             "sim": (torch.cat([x.double().reshape(-1) for x in got["sim"]]),
+                     torch.cat([x.double().reshape(-1) for x in want["sim"]]))}
+    out = {"metrics": max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-6)
+                          for g, w in zip(got["metrics"], want["metrics"])
+                          for k in METRICS)}
+    for name, (g, w) in pairs.items():
+        out[name] = float((g - w).norm() / w.norm())
+        out[name + "_max_abs"] = float((g - w).abs().max())
+    return out
+
+
+def phase_dist() -> dict:
+    """Phase 23: the port's data parallelism on the one card. (b) two gloo
+    ranks on the card (NCCL puts no two ranks on one device): three bare
+    CHAP steps against this process's step on the global batches; (a)
+    cli.train_2d under torchrun at W = 1 over NCCL against the same run in
+    this process; (c) the W = 2 trainer with a resume, its evals against
+    W = 1's. The gloo figures are of two ranks sharing one card, not a
+    multi-card speed."""
+    t_phase = time.perf_counter()
+    shutil.rmtree(DIST_RUNS, ignore_errors=True)
+    res = {"card": card_line()}
+
+    # (b)'s reference, this process's steps on the global batches, and its
+    # control: the same steps on PyTorch's own convolutions, which sum in
+    # another order (the step's discrete choices, the VAT direction, the
+    # top-k mask, LeakyReLU's kink under the GradSim cosines, amplify that)
+    torch.manual_seed(23)
+    init = {k: v.detach().cpu().clone() for k, v in net_factory(
+        "dualdecoder", 1, 4, acdc_chap_config().model,
+        device="cuda").state_dict().items()}
+    one = dist_steps(init, lambda batch: batch)
+    check(one["collectives"] == [], "one process makes no collective")
+    control = dist_gaps(dist_steps(init, lambda batch: batch, cudnn=False),
+                        one, init)
+    torch.cuda.empty_cache()
+
+    # (b) and (c) on two gloo ranks; the card is theirs until they have
+    # timed their steps, then (a) and the W = 1 trainer run beside (c)
+    t_spawn = time.perf_counter()
+    steps_done = mp.get_context("spawn").Event()
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    spawned = pool.submit(dist.spawn_ranks, dist_rank_phase, 2,
+                          (init, steps_done), backend="gloo", device="cuda",
+                          timeout=600)
+    pool.shutdown(wait=False)
+    while not steps_done.wait(1.0):
+        if spawned.done():
+            spawned.result()          # raises what the ranks raised
+            check(False, "the ranks ended before their timed steps")
+
+    # (a) torchrun, one rank over NCCL, beside the W = 1 run in this process
+    t0 = time.perf_counter()
+    launch = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "1", "-m", "chap_tpu_torch.cli.train_2d",
+         *TRAINER_FLAGS, *DIST_OVERRIDES, "--exp", "nccl1",
+         "--max_iterations", "12"], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    try:
+        # (a) and (c)'s reference: cli.train_2d in this process, 12 steps
+        # and --resume to 18
+        set_tf32(True)
+        argv = TRAINER_FLAGS + DIST_OVERRIDES + ["--exp", "w1"]
+        w1 = cli_train.main(argv + ["--max_iterations", "12"])
+        cli_train.main(argv + ["--max_iterations", "18", "--resume"])
+        said = launch.communicate(timeout=300)[0]
+    finally:
+        if launch.poll() is None:
+            launch.kill()
+            launch.wait()
+    torchrun_s = time.perf_counter() - t0
+    ranks = spawned.result()
+    res["spawn_s"] = time.perf_counter() - t_spawn
+    w1_records = _records(w1["save_dir"])
+    check(launch.returncode == 0, f"torchrun W = 1: {said[-4000:]}")
+    check("data parallel: backend nccl, rank 0 of 1" in said,
+          f"torchrun W = 1 joined an NCCL group: {said[-2000:]}")
+    nccl_dir = os.path.join(DIST_RUNS, "synthetic", "nccl1_7_labeled",
+                            "dualdecoder", "run_0")
+    nccl = {r["step"]: r["loss"] for r in _records(nccl_dir) if "loss" in r}
+    ref = {r["step"]: r["loss"] for r in w1_records
+           if "loss" in r and r["step"] <= 12}
+    check(sorted(nccl) == sorted(ref) == list(range(1, 13)),
+          f"torchrun W = 1 logged steps {sorted(nccl)}")
+    gap_a = max(abs(nccl[s] - ref[s]) / abs(ref[s]) for s in ref)
+    print(f"dist (a) torchrun W = 1 over NCCL: 12 losses, largest relative "
+          f"gap to one process {gap_a:.3e}", flush=True)
+    check(gap_a <= RTOL, f"torchrun W = 1 losses against one process: "
+                         f"largest relative gap {gap_a}")
+    res["a_nccl_w1"] = {"largest_rel_loss_gap": gap_a,
+                        "torchrun_s_beside_other_runs": torchrun_s}
+
+    want_launches = {k: v * DIST_STEPS for k, v in LAUNCHES_PER_STEP.items()}
+    gaps = [dist_gaps(got["steps"], one, init) for got in ranks]
+    print("dist (b) gloo W = 2 on one card against one process: gaps "
+          + json.dumps(gaps) + "; one process, native against cuDNN "
+          "convolutions: " + json.dumps(control), flush=True)
+    for got, gap in zip(ranks, gaps):
+        r = got["rank"]
+        check(got["world"] == 2, f"rank {r} in a group of 2")
+        check(got["steps"]["launches"] == want_launches,
+              f"rank {r} launches {got['steps']['launches']}, expected "
+              f"{want_launches}")
+        # the step parity bar; the GradSim scores, cosines of gradients,
+        # within it or within twice the one process's own gap
+        for name in ("metrics", "update", "running"):
+            check(gap[name] <= RTOL, f"W = 2 rank {r} {name} within rtol "
+                                     f"{RTOL} of one process: {gap}")
+        check(gap["sim"] <= max(RTOL, 2 * control["sim"]),
+              f"W = 2 rank {r} GradSim scores within rtol {RTOL} or twice "
+              f"the one process's own gap {control['sim']}: {gap}")
+    res["b_gloo_w2_steps"] = {
+        "gaps": gaps, "control_native_conv_gaps": control,
+        "one_process_step_ms": one["step_ms"],
+        "per_rank": [{k: got["steps"][k] for k in (
+            "step_ms", "launches", "collectives_per_step",
+            "allreduce_mb_per_step", "allreduce_ms_per_step")}
+            for got in ranks]}
+
+    # (c): rank 0 picked one run dir and wrote it once; evals as W = 1's
+    resumed = ranks[0]["trainer"]["resumed"]
+    check(all(got["trainer"]["resumed"] == resumed for got in ranks)
+          and resumed["steps"] == 18
+          and resumed["save_dir"] == ranks[0]["trainer"]["first"]["save_dir"],
+          f"W = 2 resume continues one run to 18: {resumed}")
+    check(os.listdir(os.path.dirname(resumed["save_dir"])) == ["run_0"],
+          "W = 2 trainer: one run dir")
+    w2_records = _records(resumed["save_dir"])
+    check([r["step"] for r in w2_records] == [r["step"] for r in w1_records],
+          "W = 2 writes W = 1's records, once")
+    want_launches = {k: v * 18 for k, v in LAUNCHES_PER_STEP.items()}
+    for got in ranks:
+        check(got["trainer"]["launches"] == want_launches,
+              f"W = 2 trainer launches {got['trainer']['launches']}")
+    dice = [{r["step"]: r["val_mean_dice"] for r in records
+             if "val_mean_dice" in r} for records in (w1_records, w2_records)]
+    check(sorted(dice[0]) == sorted(dice[1]) == [6, 12, 18],
+          f"evals at 6, 12, 18: {dice}")
+    dice_gap = max(abs(dice[1][s] - dice[0][s]) for s in dice[0])
+    val = [[row.split(",")[1:] for row in
+            open(os.path.join(d, "val.csv")).read().splitlines()[1:]]
+           for d in (w1["save_dir"], resumed["save_dir"])]
+    print(f"dist (c) gloo W = 2 trainer: val dice {dice[1]} against W = 1 "
+          f"{dice[0]}; val.csv (iteration, val_acc) {val}", flush=True)
+    check(dice_gap <= 5e-3, f"W = 2 eval dice within 5e-3 of W = 1: {dice}")
+    check([row[0] for row in val[0]] == [row[0] for row in val[1]]
+          and all(abs(float(a[1]) - float(b[1])) <= 5e-3
+                  for a, b in zip(*val)),
+          f"W = 2 val.csv as W = 1's: {val}")
+    eval_w1 = dist_eval(resumed["save_dir"])
+    for got in ranks:
+        check(np.array_equal(got["eval_w2"], eval_w1),
+              f"eval at W = 2 {got['eval_w2'].tolist()} equals W = 1's "
+              f"{eval_w1.tolist()} on the same weights")
+    res["c_gloo_w2_trainer"] = {
+        "val_dice_w1": dice[0], "val_dice_w2": dice[1],
+        "largest_val_dice_gap": dice_gap, "eval_w2_equals_w1": True,
+        # batch x steps over the wall time of the resumed segment, the card
+        # shared with the W = 1 runs of (a) and (c) for part of it
+        "window_slices_per_s_w2_beside_other_runs": [acdc_chap_config().data.batch_size
+                                   * r["steps_per_sec"]
+                                   for r in w2_records
+                                   if "steps_per_sec" in r][-1]}
+    res["phase_s"] = time.perf_counter() - t_phase
+    print("dist", json.dumps(res), flush=True)
+    shutil.rmtree(DIST_RUNS, ignore_errors=True)
+    return res
+
+
 def loop_breakdown(when: str, rounds: int = 2, n: int = 5) -> dict:
     """What the trainer's loop adds to the bare step, in one process at one
     moment: ms per step on phase 6's phantom batches and on batches the
@@ -2761,6 +3094,10 @@ def main() -> int:
     # phase 21: configs/la_chap.yml, pancreas_chap.yml and
     # brats_supervised.yml as written (bf16)
     slice_bf16 = phase_slice_bf16()
+    torch.cuda.empty_cache()
+    # phase 23: data parallelism (torchrun over NCCL at W = 1, two gloo
+    # ranks on the card)
+    dist_res = phase_dist()
 
     # phase 22: report
     def trainer_launches(run, name, logits=None):
@@ -2876,6 +3213,12 @@ def main() -> int:
                trainer_zoo["launches"]["test_all_case"],
                k3_bf16["brats_160x160x128"]["max_abs_err"]),
     ]
+    # phase 23's bare steps at W = 2: each gloo rank's launches
+    for row in kernels:
+        if row["name"] in ("K1_fwd", "K1_bwd", "K2_ccl"):
+            row["w2_launches_per_rank"] = [
+                r["launches"][row["name"]]
+                for r in dist_res["b_gloo_w2_steps"]["per_rank"]]
     for row in kernels:
         check(row["launches"] > 0, f"{row['name']} launched on its main path")
     print(card_line(), flush=True)
