@@ -21,16 +21,12 @@ import argparse
 import dataclasses
 import logging
 import os
-import pprint
 from typing import List, Optional
-
-import numpy as np
 
 from chap_tpu_torch.config import load_config
 from chap_tpu_torch.device import resolve_device
 from chap_tpu_torch.parallel import dist
-from chap_tpu_torch.utils.launch import (dump_config, init_save_folder,
-                                         setup_logging, write_doc)
+from chap_tpu_torch.utils.launch import open_run_dir
 
 
 def parse_args(argv: Optional[List[str]] = None):
@@ -97,28 +93,12 @@ def main(argv: Optional[List[str]] = None) -> dict:
     args = parse_args(argv)
     device = resolve_device(args.device)
     cfg = build_config(args)
-    with dist.process_group(cfg, device) as (rank, _, device):
+    with dist.process_group(cfg, device) as (_, _, device):
         snapshot_path = os.path.join(
             cfg.run.snapshot_root, cfg.data.dataset,
             f"{cfg.run.exp}_{cfg.data.labeled_num}_labeled")
-        base = os.path.join(snapshot_path, cfg.model.name)
-        run = 0
-        if rank == 0:
-            os.makedirs(snapshot_path, exist_ok=True)
-            save_dir = init_save_folder(snapshot_path, cfg.model.name,
-                                        reuse_last=args.resume)
-            run = int(save_dir.rsplit("_", 1)[1])
-        # rank 0's run dir on every rank
-        save_dir = os.path.join(base, "run_%d" % dist.broadcast_array(
-            np.array([run]), device)[0])
-        cfg_dict = dataclasses.asdict(cfg)
-        if rank == 0:
-            write_doc(save_dir, cfg.run.text)
-            dump_config(save_dir, cfg_dict)
-            setup_logging(save_dir)
-            logging.info("%s", pprint.pformat(cfg_dict))
-            logging.info("data parallel: %s, device %s", dist.describe(),
-                         device)
+        save_dir = open_run_dir(snapshot_path, cfg.model.name, args.resume,
+                                cfg.run.text, dataclasses.asdict(cfg), device)
 
         from chap_tpu_torch.train.trainer_2d import train
         result = train(cfg, save_dir, mode=args.mode, resume=args.resume,

@@ -7,6 +7,15 @@ patch and strides pinned from its name, and the snapshot layout
 Usage:
     python -m chap_tpu_torch.cli.train_3d --dataset LA --root_path data/LA \
         --labeled_num 8 [--cfg configs/la_chap.yml] [key.path=value ...]
+
+Data parallel over N cards (every mode; parallel/dist.py; N must divide
+``data.batch_size``, so N in {1, 2, 4} for la_chap.yml, pancreas_chap.yml and
+brats_supervised.yml):
+
+    torchrun --nproc_per_node N -m chap_tpu_torch.cli.train_3d ...
+
+NCCL on the cards, gloo with ``--device cpu``. Rank 0 picks the run dir and
+writes its files; the process group is destroyed at exit, also on error.
 """
 from __future__ import annotations
 
@@ -14,13 +23,12 @@ import argparse
 import dataclasses
 import logging
 import os
-import pprint
 from typing import List, Optional
 
 from chap_tpu_torch.config import apply_overrides, load_config
 from chap_tpu_torch.device import resolve_device
-from chap_tpu_torch.utils.launch import (dump_config, init_save_folder,
-                                         setup_logging, write_doc)
+from chap_tpu_torch.parallel import dist
+from chap_tpu_torch.utils.launch import open_run_dir
 
 PROTOCOLS = {
     "LA": dict(patch=(112, 112, 80), stride_xy=18, stride_z=4),
@@ -101,22 +109,19 @@ def main(argv: Optional[List[str]] = None) -> dict:
     args = parse_args(argv)
     device = resolve_device(args.device)
     cfg, dataset, method = build_config(args)
+    with dist.process_group(cfg, device) as (_, _, device):
+        snapshot_path = os.path.join(
+            cfg.run.snapshot_root, dataset,
+            f"{cfg.run.exp}_{cfg.data.labeled_num}_labeled")
+        model_dir = (cfg.model.name_3d if method == "supervised"
+                     else "dualdecoder3d")
+        save_dir = open_run_dir(snapshot_path, model_dir, args.resume,
+                                args.text, dataclasses.asdict(cfg), device)
 
-    snapshot_path = os.path.join(cfg.run.snapshot_root, dataset,
-                                 f"{cfg.run.exp}_{cfg.data.labeled_num}_labeled")
-    os.makedirs(snapshot_path, exist_ok=True)
-    model_dir = cfg.model.name_3d if method == "supervised" else "dualdecoder3d"
-    save_dir = init_save_folder(snapshot_path, model_dir, reuse_last=args.resume)
-    cfg_dict = dataclasses.asdict(cfg)
-    write_doc(save_dir, args.text)
-    dump_config(save_dir, cfg_dict)
-    setup_logging(save_dir)
-    logging.info("%s", pprint.pformat(cfg_dict))
-
-    from chap_tpu_torch.train.trainer_3d import train
-    result = train(cfg, save_dir, labeled_cases=cfg.data.labeled_num,
-                   mode=method, resume=args.resume, device=device)
-    logging.info("done: %s", result)
+        from chap_tpu_torch.train.trainer_3d import train
+        result = train(cfg, save_dir, labeled_cases=cfg.data.labeled_num,
+                       mode=method, resume=args.resume, device=device)
+        logging.info("done: %s", result)
     return {**result, "save_dir": save_dir}
 
 

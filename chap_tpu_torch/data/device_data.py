@@ -29,7 +29,8 @@ rot90 / flip index map), with no per-sample Python.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, NamedTuple, Optional, Tuple, Union
+from typing import (Callable, Dict, List, NamedTuple, Optional, Sequence,
+                    Tuple, Union)
 
 import numpy as np
 import torch
@@ -142,10 +143,19 @@ def draw_augment(batch_size: int, generator: torch.Generator
     return mode, k, ax, deg.float() * (math.pi / 180.0)
 
 
+def _rank_rows(batch_size: int, roles: Sequence[int], rank: int,
+               world: int) -> Optional[List[int]]:
+    """This rank's rows of every global batch (None at W = 1: all)."""
+    if world == 1:
+        return None
+    dist.check_batch(batch_size, world, "device batches")
+    return dist.rank_rows(batch_size, roles, rank, world)
+
+
 def build_device_batch_fn(num_slices: int, num_labeled: int, batch_size: int,
                           labeled_bs: int, augment: bool = True,
-                          roles: int = 1, rank: int = 0, world: int = 1
-                          ) -> Callable:
+                          roles: Sequence[int] = dist.ONE_ROLE, rank: int = 0,
+                          world: int = 1) -> Callable:
     """Returns batch_fn(pool, generator) -> {'image': [B,1,H,W], 'label':
     [B,H,W] uint8} with the two-stream layout [labeled_bs rows drawn from
     [0, num_labeled) ; the rest from [num_labeled, num_slices)]. Every draw
@@ -154,14 +164,13 @@ def build_device_batch_fn(num_slices: int, num_labeled: int, batch_size: int,
     Data parallel (``world`` > 1): every draw is made for the global batch,
     so each rank's generator, seeded alike, draws the same numbers; the rank
     then gathers and augments only its rows (parallel/dist.py ``rank_rows``
-    with ``roles`` equal roles: 4 for the CHAP step, 1 for the supervised
-    one) from the pool, which it holds whole. B is then the rank's rows."""
+    with ``roles``: ``CHAP_ROLES`` for the CHAP step, ``ONE_ROLE`` for the
+    supervised one) from the pool, which it holds whole. B is then the
+    rank's rows, which may be 0."""
     if not 0 < num_labeled < num_slices:
         raise ValueError(f"need 0 < num_labeled ({num_labeled}) < num_slices "
                          f"({num_slices}) for two streams")
-    rows = None
-    if world > 1:
-        rows = dist.rank_rows(batch_size, roles, rank, world)
+    rows = _rank_rows(batch_size, roles, rank, world)
 
     def batch_fn(pool: DevicePool, generator: torch.Generator
                  ) -> Dict[str, torch.Tensor]:
@@ -178,7 +187,7 @@ def build_device_batch_fn(num_slices: int, num_labeled: int, batch_size: int,
         idx = torch.cat([lab_idx, unlab_idx])
         params = draw_augment(batch_size, generator) if augment else None
         if rows is not None:
-            sel = torch.tensor(rows, device=dev)
+            sel = torch.tensor(rows, dtype=torch.int64, device=dev)
             idx = idx[sel]
             if params is not None:
                 params = tuple(p[sel] for p in params)
@@ -290,14 +299,20 @@ def draw_augment_3d(batch_size: int, generator: torch.Generator
 
 def build_device_patch_fn(num_volumes: int, num_labeled: int, batch_size: int,
                           labeled_bs: int, patch: Tuple[int, int, int],
-                          augment: bool = True) -> Callable:
+                          augment: bool = True,
+                          roles: Sequence[int] = dist.ONE_ROLE, rank: int = 0,
+                          world: int = 1) -> Callable:
     """Returns patch_fn(pool, generator) -> {'image': [B, 1, *patch],
     'label': [B, *patch] uint8}: two-stream volume ids (labeled ids <
     num_labeled), a uniform crop inside each volume's true extent and
-    RandomRotFlip, every draw from ``generator`` on the pool's device."""
+    RandomRotFlip, every draw from ``generator`` on the pool's device. Data
+    parallel (``world`` > 1), as ``build_device_batch_fn``: every draw is
+    made for the global batch and the rank cuts only its rows
+    (``rank_rows`` with ``roles``), B then being the rank's rows."""
     if not 0 < num_labeled < num_volumes:
         raise ValueError(f"need 0 < num_labeled ({num_labeled}) < num_volumes "
                          f"({num_volumes}) for two streams")
+    rows = _rank_rows(batch_size, roles, rank, world)
 
     def patch_fn(pool: DeviceVolumePool, generator: torch.Generator
                  ) -> Dict[str, torch.Tensor]:
@@ -315,6 +330,9 @@ def build_device_patch_fn(num_volumes: int, num_labeled: int, batch_size: int,
         else:
             k = torch.zeros(batch_size, dtype=torch.int64, device=dev)
             ax = torch.full((batch_size,), 3, dtype=torch.int64, device=dev)
+        if rows is not None:
+            sel = torch.tensor(rows, dtype=torch.int64, device=dev)
+            vids, starts, k, ax = vids[sel], starts[sel], k[sel], ax[sel]
         imgs, labs = gather_patches(pool, vids, starts, k, ax, patch)
         return {"image": imgs.unsqueeze(1), "label": labs}
 

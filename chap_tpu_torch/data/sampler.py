@@ -70,11 +70,11 @@ class RankBatchSampler:
     """Each rank's rows of every batch of a global batch sampler (the
     counterpart of chap_tpu's ProcessLocalBatchSampler, parallel/mesh.py):
     every rank builds the same global sampler (same seed) and loads only its
-    rows, chosen by parallel/dist.py ``rank_rows`` with ``roles`` equal roles
-    (4 for the CHAP step's [img_a ; img_b ; uimg_a ; uimg_b], 1 for the
-    supervised step), not chap_tpu's contiguous slice."""
+    rows, chosen by parallel/dist.py ``rank_rows`` with ``roles``
+    (``CHAP_ROLES`` for the CHAP step's pair-stream units, ``ONE_ROLE`` for
+    a contiguous 1/W), not chap_tpu's contiguous slice."""
 
-    def __init__(self, sampler, roles: int, rank: int, world: int):
+    def __init__(self, sampler, roles: Sequence[int], rank: int, world: int):
         self.sampler = sampler
         self.roles, self.rank, self.world = roles, rank, world
 

@@ -38,7 +38,7 @@ def working_uniform(u: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 def l2_normalize_batch(d: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     """Normalize each batch element's perturbation to unit L2 norm."""
-    norm = torch.linalg.vector_norm(d.reshape(d.shape[0], -1), dim=1)
+    norm = torch.linalg.vector_norm(d.flatten(1), dim=1)
     return d / (norm.reshape((-1,) + (1,) * (d.dim() - 1)) + eps)
 
 

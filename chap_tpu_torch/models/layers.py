@@ -378,8 +378,9 @@ class _GlobalBatchNorm(torch.autograd.Function):
     as SyncBatchNorm does (``all_reduce_partial``'s rule: every row's output
     depends on the other ranks' rows through the statistics); the weight and
     bias gradients stay this rank's part, which the step's
-    ``all_reduce_grads`` sums. Returns (y, mean, var); mean and var carry no
-    gradient."""
+    ``all_reduce_grads`` sums. A rank without rows (a CHAP step's empty
+    rank) contributes count 0 and zero sums, and still makes both
+    all-reduces. Returns (y, mean, var); mean and var carry no gradient."""
 
     @staticmethod
     def forward(ctx, x, weight, bias, eps):
@@ -387,7 +388,10 @@ class _GlobalBatchNorm(torch.autograd.Function):
         dims = (0,) + tuple(range(2, x.dim()))
         shape = (1, c) + (1,) * (x.dim() - 2)
         n = x.numel() // c
-        var_r, mean_r = torch.var_mean(x, dims, correction=0)
+        if n:
+            var_r, mean_r = torch.var_mean(x, dims, correction=0)
+        else:       # a rank without rows adds nothing (var_mean gives NaN)
+            var_r = mean_r = torch.zeros(c, dtype=x.dtype, device=x.device)
         ranks = torch.zeros((dist.world_size(), 2 * c + 1), dtype=x.dtype,
                             device=x.device)
         ranks[dist.rank(), :c] = mean_r

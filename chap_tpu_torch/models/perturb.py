@@ -10,8 +10,11 @@ convention. Per encoder level the draws come in chap_tpu's order:
     no scores, comp_drop      [u1 [B_u, C]]
     no scores, no comp_drop   [u1 [B_u, C], u2 [B_u, C]]
 
-Features are NCHW with batch = [labeled ; unlabeled] halves
-(labeled_bs = B // 2); only the unlabeled half is perturbed.
+Features are NCHW with batch = [clean ; perturbed] rows (``clean_rows``,
+B // 2 by default, as chap_tpu's labeled_bs = B // 2); only the second part
+is perturbed. In the CHAP step's channel-dropout pass over [uimg_a ;
+uimg_b] that keeps stream a clean; with W > 1 ranks a rank passes its own
+count of stream-a rows, which may differ from its stream-b rows or be 0.
 """
 from __future__ import annotations
 
@@ -64,8 +67,8 @@ def _drop_based_on_prob(drop_probs: torch.Tensor, comp: bool, draws: Draws,
         mask1 = (u1 < 1.0 - drop_probs).float()
         mask2 = (u2 < 1.0 - drop_probs).float()
     # the rescale's count and sums run over every rank's rows (W > 1)
-    numel = float(mask1.numel()) * dist.world_size()
-    sum1, sum2 = dist.global_sums(mask1.sum(), mask2.sum())
+    count = torch.full((), float(mask1.numel()), device=mask1.device)
+    sum1, sum2, numel = dist.global_sums(mask1.sum(), mask2.sum(), count)
     mask1 = mask1 * numel / (sum1 + 1e-8)
     mask2 = mask2 * numel / (sum2 + 1e-8)
     shape = _mask_shape(feat_ndim, mask1.shape[0], mask1.shape[1])
@@ -122,12 +125,14 @@ def perform_dropout(features: Sequence[torch.Tensor],
                     comp_drop: bool = False,
                     gate=None,
                     draws: Optional[Sequence[Draws]] = None,
+                    clean_rows: Optional[int] = None,
                     ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
     """Two perturbed feature pyramids for the two decoders.
 
     features: encoder pyramid, each [B, C, H, W]. ``draws``: per-level
     uniforms (module docstring); None draws them from the global
-    generator."""
+    generator. ``clean_rows``: the leading rows left unperturbed (B // 2
+    when None)."""
     if draws is None:
         has = [scores is not None and scores[i] is not None
                for i in range(len(features))]
@@ -140,7 +145,7 @@ def perform_dropout(features: Sequence[torch.Tensor],
     feature_fp2: List[torch.Tensor] = []
     for idx, feat in enumerate(features):
         b, c = feat.shape[0], feat.shape[1]
-        labeled_bs = b // 2
+        labeled_bs = b // 2 if clean_rows is None else clean_rows
         lab_feat = feat[:labeled_bs]
         unlab_feat = feat[labeled_bs:]
         if idx in level:

@@ -108,6 +108,7 @@ class DualDecoder(nn.Module):
                 scores: Optional[Sequence[Optional[torch.Tensor]]] = None,
                 comp_dropout: bool = False,
                 perturb_draws=None,
+                clean_rows: Optional[int] = None,
                 stop_encoder_grad: bool = False,
                 stats: Optional[Stats] = None):
         """x: [B, Cin, H, W]. Train mode (``model.train()``) normalises with
@@ -115,13 +116,15 @@ class DualDecoder(nn.Module):
         ``stop_encoder_grad`` detaches every pyramid level before the
         decoders (the ACAL decoder max-step); the encoder still runs as
         asked, its dropout draws and batch statistics included.
-        Returns (logits1, logits2)."""
+        ``clean_rows``: the rows the channel perturbation leaves clean
+        (models/perturb.py). Returns (logits1, logits2)."""
         feature = self.forward_encoder(x, drop_u, stats)
         if stop_encoder_grad:
             feature = [f.detach() for f in feature]
         if dropout_level is not None:
             f1, f2 = perform_dropout(feature, dropout_level, scores,
-                                     comp_dropout, draws=perturb_draws)
+                                     comp_dropout, draws=perturb_draws,
+                                     clean_rows=clean_rows)
             return self.decoder1(f1, stats), self.decoder2(f2, stats)
         return self.forward_decoders(feature, stats)
 

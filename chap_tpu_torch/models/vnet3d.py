@@ -368,8 +368,10 @@ class DualDecoder3d(nn.Module):
                 dropout_level: Optional[Sequence[int]] = None,
                 scores: Optional[Sequence[Optional[torch.Tensor]]] = None,
                 comp_dropout: bool = False, perturb_draws=None,
-                perturb_gate=None, stats: Optional[Stats] = None):
-        """x: [B, Cin, X, Y, Z] -> (logits1, logits2)."""
+                perturb_gate=None, clean_rows: Optional[int] = None,
+                stats: Optional[Stats] = None):
+        """x: [B, Cin, X, Y, Z] -> (logits1, logits2); ``clean_rows`` as in
+        models/perturb.py perform_dropout."""
         u_x5, u_1, u_2 = split_drop_u(drop_u, 3)
         features = self.encoder(x, u_x5, stats)
         if dropout_level is None:
@@ -377,5 +379,5 @@ class DualDecoder3d(nn.Module):
         else:
             f1, f2 = perform_dropout(features, dropout_level, scores,
                                      comp_dropout, gate=perturb_gate,
-                                     draws=perturb_draws)
+                                     draws=perturb_draws, clean_rows=clean_rows)
         return self.decoder1(f1, u_1, stats), self.decoder2(f2, u_2, stats)

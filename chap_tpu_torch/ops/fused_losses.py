@@ -62,6 +62,7 @@ logits' bytes halve; why is not yet known (ROADMAP §2).
 from __future__ import annotations
 
 import functools
+import math
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -381,12 +382,14 @@ def stats_kernel(logits: torch.Tensor, labels: torch.Tensor,
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1 forward on the card, two launches: ([R, 2] (dice, ce) per region,
     [R, 4, C_PAD] fp32 statistics (I, Z, Y, CE) per class). One region with
-    ``labels2=None``; else region 2 is (labels2, 1 - mask)."""
+    ``labels2=None``; else region 2 is (labels2, 1 - mask). Zero rows (a
+    data-parallel rank without any) launch one partials program that sums
+    nothing, so the statistics are zeros."""
     logits, labels, mask, labels2 = _prepare(logits, labels, mask, labels2)
     partials_k, finalize_k, _ = _kernels()
     c = logits.shape[1]
     n_pix = labels.numel()
-    hw = n_pix // logits.shape[0]          # the class stride
+    hw = math.prod(logits.shape[2:])       # the class stride
     c_pad = _next_pow2(c)
     r = 1 if labels2 is None else 2
     n_part = max(1, min(-(-n_pix // BLOCK),
@@ -425,12 +428,13 @@ def stats_grad_kernel(logits: torch.Tensor, labels: torch.Tensor,
     """K1 backward on the card, one launch: d/dlogits of
     sum_r g_dice_r dice_r + g_ce_r ce_r, same shape and dtype as logits.
     stats: the forward's [R, 4, C_PAD]; grads: 2R scalar tensors on the
-    device, (g_dice_1, g_ce_1[, g_dice_2, g_ce_2]), None for zero."""
+    device, (g_dice_1, g_ce_1[, g_dice_2, g_ce_2]), None for zero. Zero
+    rows launch nothing (and count nothing): the gradient is empty."""
     logits, labels, mask, labels2 = _prepare(logits, labels, mask, labels2)
     _, _, grad_k = _kernels()
     c = logits.shape[1]
     n_pix = labels.numel()
-    hw = n_pix // logits.shape[0]          # the class stride
+    hw = math.prod(logits.shape[2:])       # the class stride
     c_pad = _next_pow2(c)
     r = 1 if labels2 is None else 2
     if (tuple(stats.shape) != (r, 4, c_pad) or stats.dtype != torch.float32
@@ -441,6 +445,8 @@ def stats_grad_kernel(logits: torch.Tensor, labels: torch.Tensor,
     g = [zero if x is None else x.to(torch.float32) for x in grads]
     g += [zero] * (4 - len(g))
     grad = torch.empty_like(logits)
+    if n_pix == 0:          # a rank without rows: no pixel, no launch
+        return grad
     lab2 = labels if labels2 is None else labels2
     grad_k[(-(-n_pix // BLOCK),)](
         logits, labels, lab2, mask, stats, *g, grad, n_pix, hw,

@@ -44,14 +44,24 @@ card run the same code as NCCL ranks on many; a gather is an all-reduce of a
 zero-filled buffer of the global shape. At W = 1 every helper here is the
 identity and issues no collective.
 
-Layout (``rank_rows``): chap_tpu gives each process a contiguous slice of
-the global [labeled ; unlabeled] batch, which its one global program
-reassembles (mesh.py ProcessLocalBatchSampler). The port's per-rank step
-pairs rows by index across the CHAP batch's four roles (img_a, img_b,
-uimg_a, uimg_b of sub_bs rows each), so rank r holds rows [r s/W, (r+1) s/W)
-of every role: its local batch is itself a two-stream batch and no
-pseudo-label crosses ranks. W must divide sub_bs (CHAP) or the batch
-(supervised, one role).
+Layout (``rank_rows``): W must divide ``data.batch_size``, as chap_tpu's
+mesh requires (chap_tpu/train/trainer_2d.py:46-50). chap_tpu gives each
+process a contiguous slice of the global [labeled ; unlabeled] batch, which
+its one global program reassembles (mesh.py ProcessLocalBatchSampler). The
+port's per-rank eager step pairs rows by index across the CHAP batch's four
+roles (img_a, img_b, uimg_a, uimg_b of s = labeled_bs / 2 rows each), so it
+deals pair-stream units instead: unit 2p is stream a's pair (img_a[p],
+uimg_a[p]) and unit 2p + 1 stream b's (img_b[p], uimg_b[p]), U = 2s units,
+and rank r holds units [floor(r U / W), floor((r + 1) U / W)). Every pairing
+of the step (the BCP mix, the mix losses, a row's pseudo-labels, K2 maps and
+top-k mask) stays inside a unit, so no row crosses ranks and no collective
+is added; each pass gets one row a unit. A rank's two streams may differ
+by one row, and where U < W a rank may hold none (LA's batch 4 at W = 4):
+it still issues every collective. When W divides s this is rank r's rows
+[r s/W, (r+1) s/W) of every role. A batch of one stream (the supervised
+step, cps) is a contiguous 1/W of its rows. ``roles`` names the stream of
+each equal role of a batch: ``CHAP_ROLES`` (0, 1, 0, 1), the teacher's
+[uimg_a ; uimg_b] (0, 1), the student's mixed [b ; a] (1, 0), ``ONE_ROLE``.
 """
 from __future__ import annotations
 
@@ -72,8 +82,10 @@ from chap_tpu_torch.device import resolve_device
 
 logger = logging.getLogger(__name__)
 
-# roles of a CHAP batch [img_a ; img_b ; uimg_a ; uimg_b], each sub_bs rows
-CHAP_ROLES = 4
+# the stream of each role of a CHAP batch [img_a ; img_b ; uimg_a ; uimg_b],
+# each s = labeled_bs / 2 rows; and of a batch of one stream
+CHAP_ROLES = (0, 1, 0, 1)
+ONE_ROLE = (0,)
 
 
 def _active() -> bool:
@@ -329,44 +341,55 @@ def broadcast_array(value: np.ndarray, device: torch.device,
 # layout
 # ---------------------------------------------------------------------------
 
-def check_rows(rows: int, roles: int, world: int, what: str) -> None:
-    """``rows`` split into ``roles`` equal roles must give every one of
-    ``world`` ranks the same share of each role; ValueError stating the
-    rule otherwise."""
-    if rows % roles or (rows // roles) % world:
+def check_batch(batch_size: int, world: int, what: str) -> None:
+    """W must divide the global batch, as chap_tpu's mesh requires;
+    ValueError stating the rule otherwise."""
+    if batch_size % world:
         raise ValueError(
-            f"{what}: {world} ranks cannot share {rows} rows in {roles} "
-            f"role(s) of {rows / roles:g}: each rank holds the same rows of "
-            f"every role (rank r rows [r s/W, (r+1) s/W) of each role of s "
-            f"rows), so W must divide s = {rows / roles:g}")
+            f"{what}: {world} ranks cannot share a batch of {batch_size}: W "
+            f"must divide data.batch_size (chap_tpu's rule; here W in "
+            f"{[w for w in range(1, batch_size + 1) if batch_size % w == 0]})")
 
 
-def rank_rows(rows: int, roles: int = 1, rank_: Optional[int] = None,
-              world: Optional[int] = None) -> List[int]:
-    """The global rows that rank ``rank_`` of ``world`` holds of a batch of
-    ``rows`` made of ``roles`` equal roles, in role order (module
-    docstring). One role is a contiguous slice."""
+def stream_rows(s: int, stream: int = 0, streams: int = 1,
+                rank_: Optional[int] = None, world: Optional[int] = None
+                ) -> range:
+    """The positions p < ``s`` of ``stream`` (of ``streams``) whose unit
+    streams * p + stream rank ``rank_`` of ``world`` holds (module
+    docstring): a contiguous range, possibly empty."""
     rank_ = rank() if rank_ is None else rank_
     world = world_size() if world is None else world
-    check_rows(rows, roles, world, "layout")
-    s = rows // roles
-    per = s // world
-    return [role * s + rank_ * per + i for role in range(roles)
-            for i in range(per)]
+    units = streams * s
+    lo, hi = rank_ * units // world, (rank_ + 1) * units // world
+    return range(-(-(lo - stream) // streams), -(-(hi - stream) // streams))
 
 
-def shard_rows(x: Optional[torch.Tensor], roles: int = 1,
+def rank_rows(rows: int, roles: Sequence[int] = ONE_ROLE,
+              rank_: Optional[int] = None, world: Optional[int] = None
+              ) -> List[int]:
+    """The global rows that rank ``rank_`` of ``world`` holds of a batch of
+    ``rows`` made of len(roles) equal roles, ``roles`` giving each one's
+    stream (of 0 .. max(roles)), in role order (module docstring)."""
+    s, streams = rows // len(roles), max(roles) + 1
+    if rows % len(roles):
+        raise ValueError(f"{rows} rows do not split into {len(roles)} roles")
+    return [i * s + p for i, stream in enumerate(roles)
+            for p in stream_rows(s, stream, streams, rank_, world)]
+
+
+def shard_rows(x: Optional[torch.Tensor], roles: Sequence[int] = ONE_ROLE,
                rank_: Optional[int] = None, world: Optional[int] = None
                ) -> Optional[torch.Tensor]:
-    """This rank's rows of ``x`` (leading axis, ``roles`` equal roles); 0-d
-    tensors, scalars and None are shared and come back as they are, and at
-    W = 1 so does ``x``."""
+    """This rank's rows of ``x`` (leading axis, ``roles`` as in
+    ``rank_rows``); 0-d tensors, scalars and None are shared and come back
+    as they are, and at W = 1 so does ``x``."""
     world = world_size() if world is None else world
     if world == 1 or not isinstance(x, torch.Tensor) or x.dim() == 0:
         return x
     idx = rank_rows(x.shape[0], roles, rank_, world)
-    if idx == list(range(idx[0], idx[0] + len(idx))):
-        return x[idx[0]:idx[0] + len(idx)]
+    if not idx or idx == list(range(idx[0], idx[0] + len(idx))):
+        start = idx[0] if idx else 0
+        return x[start:start + len(idx)]
     return x[torch.tensor(idx, device=x.device)]
 
 

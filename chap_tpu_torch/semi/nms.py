@@ -210,7 +210,10 @@ def _kernel_for(x: torch.Tensor):
 def largest_cc_batch(segmentation: torch.Tensor, num_classes: int) -> torch.Tensor:
     """Per-class largest-CC cleanup of [B, H, W] or [B, X, Y, Z] integer
     label maps: K2 on a CUDA tensor, its plain version on a CPU tensor.
-    Keeps the dtype."""
+    Keeps the dtype. No maps (a data-parallel rank without rows) launch
+    nothing."""
+    if segmentation.shape[0] == 0:      # a rank without rows: no launch
+        return segmentation.clone()
     if segmentation.device.type == "cpu":
         return largest_cc_batch_plain(segmentation, num_classes)
     kernel = _kernel_for(segmentation)

@@ -22,7 +22,7 @@ def create_mask_v1(pseudo1: torch.Tensor, pseudo2: torch.Tensor,
     for g in grid:
         pooled += (g, scale_factor)
     patches = score.reshape(pooled).mean(dim=tuple(2 + 2 * i for i in range(len(grid))))
-    flat = patches.reshape(b, -1)
+    flat = patches.flatten(1)
     k = max(1, int(round(topk * flat.shape[1])))
     kth = torch.topk(flat, k, dim=1).values[:, -1]
     keep = (flat >= kth[:, None]).float().reshape((b,) + grid)

@@ -152,15 +152,20 @@ def draw_step_uniforms(cfg: Config, image_shape: Sequence[int],
     return draws
 
 
+# the stream of each role of the passes' rows (parallel/dist.py
+# ``rank_rows``): the teacher, channel-dropout and VAT passes run on
+# [uimg_a ; uimg_b], the student on the mixed [img_b/uimg_b ; uimg_a/img_a],
+# and the channel perturbation draws cover the perturbed uimg_b rows
+TEACHER_ROLES, STUDENT_ROLES, PERTURB_ROLES = (0, 1), (1, 0), (1,)
+
+
 def shard_step_draws(draws: Dict[str, object], rank: Optional[int] = None,
                      world: Optional[int] = None) -> Dict[str, object]:
     """This rank's part of ``draw_step_uniforms``'s draws for the global
-    batch (parallel/dist.py ``rank_rows``): every pass's dropout draws and
-    the VAT direction over the unlabeled rows [uimg_a ; uimg_b] (or the
-    mixed [img_b/uimg_b ; uimg_a/img_a] rows of the student pass), two roles;
-    the channel-perturbation draws over the perturbed uimg_b rows, one role;
-    the BCP box and the comp-drop swap (0-d) shared. The draws themselves
-    at W = 1."""
+    batch (parallel/dist.py ``rank_rows``, the rows of this rank's
+    pair-stream units in each pass: ``TEACHER_ROLES``, ``STUDENT_ROLES``,
+    ``PERTURB_ROLES``); the BCP box and the comp-drop swap (0-d) shared. The
+    draws themselves at W = 1."""
     world = dist.world_size() if world is None else world
     if world == 1:
         return draws
@@ -168,12 +173,14 @@ def shard_step_draws(draws: Dict[str, object], rank: Optional[int] = None,
     def rows(u, roles):
         return dist.shard_rows(u, roles, rank, world)
     out = dict(draws)
-    out["drop"] = {name: [rows(u, 2) for u in us]
+    out["drop"] = {name: [rows(u, STUDENT_ROLES if name == "student"
+                               else TEACHER_ROLES) for u in us]
                    for name, us in draws["drop"].items()}
     if "perturb" in draws:
-        out["perturb"] = [[rows(u, 1) for u in lvl] for lvl in draws["perturb"]]
+        out["perturb"] = [[rows(u, PERTURB_ROLES) for u in lvl]
+                          for lvl in draws["perturb"]]
     if "vat_d" in draws:
-        out["vat_d"] = rows(draws["vat_d"], 2)
+        out["vat_d"] = rows(draws["vat_d"], TEACHER_ROLES)
     return out
 
 
@@ -189,10 +196,13 @@ def build_chap_train_step(model: torch.nn.Module,
     the step's device, with the two-stream layout [labeled_bs labeled ;
     B - labeled_bs unlabeled]. ``draws`` (draw_step_uniforms) replaces every
     random draw; without it the step draws from ``generator``. With W > 1
-    ranks (parallel/dist.py) the batch is this rank's rows of the global
-    one (``rank_rows``, four roles), the draws are those of the global
-    batch (this rank's rows are taken here, ``shard_step_draws``), and the
-    step computes the one-process step over the global batch: BN statistics,
+    ranks (parallel/dist.py; W must divide ``data.batch_size``) the batch is
+    this rank's rows of the global one (``rank_rows`` with ``CHAP_ROLES``:
+    [img_a ; img_b ; uimg_a ; uimg_b] with n_a, n_b, n_a, n_b rows, the
+    rank's pair-stream units, possibly none), the draws are those of the
+    global batch (this rank's rows are taken here, ``shard_step_draws``),
+    and the step computes the one-process step over the global batch: BN
+    statistics,
     K1's statistics, the CE and VAT means, the GradSim gradients and the
     parameter gradients are summed over the ranks. The step
     updates ``state.model`` and ``state.optimizer`` in place and returns the
@@ -204,9 +214,17 @@ def build_chap_train_step(model: torch.nn.Module,
     num_classes = cfg.data.num_classes
     labeled_bs, sub_bs = _check_layout(cfg)
     world = dist.world_size()
-    dist.check_rows(2 * labeled_bs, dist.CHAP_ROLES, world, "CHAP step")
-    # this rank's rows of each role (all of them at W = 1)
-    labeled_bs, sub_bs = labeled_bs // world, sub_bs // world
+    if world > 1:
+        dist.check_batch(cfg.data.batch_size, world, "CHAP step")
+        if cfg.data.batch_size != 2 * labeled_bs:
+            raise ValueError(f"CHAP step: batch_size {cfg.data.batch_size} "
+                             f"must be twice labeled_bs {labeled_bs} (its "
+                             f"unlabeled half pairs the labeled one)")
+    # this rank's rows of stream a and of stream b in each role (all of them
+    # at W = 1)
+    n_a = len(dist.stream_rows(sub_bs, 0, 2))
+    n_b = len(dist.stream_rows(sub_bs, 1, 2))
+    n_l = n_a + n_b
     semi = cfg.semi
     remat = cfg.optim.remat
     if next(model.parameters()).device.type != device.type:
@@ -235,17 +253,17 @@ def build_chap_train_step(model: torch.nn.Module,
             return checkpoint(run, x, use_reentrant=False)
         return run(x)
 
-    def mix_losses(out_mix1, out_mix2, lab_a, lab_b, plab, loss_mask):
+    def mix_losses(out_mix1, out_mix2, lab_a, lab_b, plab, mask_a, mask_b):
         plab_a1, plab_b1, plab_a2, plab_b2 = plab
-        out_l1, out_unl1 = out_mix1[:sub_bs], out_mix1[sub_bs:]
-        out_l2, out_unl2 = out_mix2[:sub_bs], out_mix2[sub_bs:]
-        lu_out1, ll_in1, m1 = mix_loss(out_unl1, plab_a2, lab_a, loss_mask,
+        out_l1, out_unl1 = out_mix1[:n_b], out_mix1[n_b:]
+        out_l2, out_unl2 = out_mix2[:n_b], out_mix2[n_b:]
+        lu_out1, ll_in1, m1 = mix_loss(out_unl1, plab_a2, lab_a, mask_a,
                                        num_classes, u_weight=0.5, unlab=True)
-        lu_out2, ll_in2, m2 = mix_loss(out_unl2, plab_a1, lab_a, loss_mask,
+        lu_out2, ll_in2, m2 = mix_loss(out_unl2, plab_a1, lab_a, mask_a,
                                        num_classes, u_weight=0.5, unlab=True)
-        ll_out1, lu_in1, m3 = mix_loss(out_l1, lab_b, plab_b2, loss_mask,
+        ll_out1, lu_in1, m3 = mix_loss(out_l1, lab_b, plab_b2, mask_b,
                                        num_classes, u_weight=0.5)
-        ll_out2, lu_in2, m4 = mix_loss(out_l2, lab_b, plab_b1, loss_mask,
+        ll_out2, lu_in2, m4 = mix_loss(out_l2, lab_b, plab_b1, mask_b,
                                        num_classes, u_weight=0.5)
         return (m1 + m2 + m3 + m4, ll_in1 + ll_in2 + ll_out1 + ll_out2,
                 lu_in1 + lu_in2 + lu_out1 + lu_out2)
@@ -258,20 +276,22 @@ def build_chap_train_step(model: torch.nn.Module,
                              "the step was built for")
         image = batch["image"]
         label = batch["label"].to(torch.int32)
-        if world > 1 and image.shape[0] != 2 * labeled_bs:
+        if world > 1 and image.shape[0] != 2 * n_l:
             raise ValueError(f"batch of {image.shape[0]} rows; this rank "
-                             f"takes {2 * labeled_bs} (labeled_bs "
-                             f"{cfg.data.labeled_bs} x 2 over {world} ranks)")
+                             f"takes {2 * n_l} ({n_a} + {n_b} of the "
+                             f"labeled and of the unlabeled half: its "
+                             f"pair-stream units of batch_size "
+                             f"{cfg.data.batch_size} over {world} ranks)")
         if draws is None:
-            draws = draw_step_uniforms(cfg, (image.shape[0] * world,)
-                                       + tuple(image.shape[1:]), generator,
-                                       image.device)
+            rows = image.shape[0] if world == 1 else cfg.data.batch_size
+            draws = draw_step_uniforms(cfg, (rows,) + tuple(image.shape[1:]),
+                                       generator, image.device)
         draws = shard_step_draws(draws)
         drop = draws["drop"]
         model.train()
 
         # ---- teacher pass + largest-CC NMS (no gradient) -------------------
-        uimg_ab = image[labeled_bs:]
+        uimg_ab = image[n_l:]
         with torch.no_grad():
             pre_ab1, pre_ab2, t_stats = apply_model(uimg_ab, drop["teacher"], True)
             # in the logits' dtype, argmax on it (bf16 near-ties go to the
@@ -283,22 +303,22 @@ def build_chap_train_step(model: torch.nn.Module,
             knowledge = (cross_entropy_per_pixel(pre_ab1, pseudo2)
                          + cross_entropy_per_pixel(pre_ab2, pseudo1))
             pseudo_all = torch.cat([
-                pre_ab1[:sub_bs].argmax(1), pre_ab1[sub_bs:].argmax(1),
-                pre_ab2[:sub_bs].argmax(1), pre_ab2[sub_bs:].argmax(1),
+                pre_ab1[:n_a].argmax(1), pre_ab1[n_a:].argmax(1),
+                pre_ab2[:n_a].argmax(1), pre_ab2[n_a:].argmax(1),
             ]).to(torch.int32)
             if use_nms:
                 pseudo_all = largest_cc_batch(pseudo_all, num_classes)
-        plab = tuple(pseudo_all[i * sub_bs:(i + 1) * sub_bs] for i in range(4))
+        plab = torch.split(pseudo_all, [n_a, n_b, n_a, n_b])
 
         # ---- BCP mixing -----------------------------------------------------
-        img_a, img_b = image[:sub_bs], image[sub_bs:labeled_bs]
-        uimg_a = image[labeled_bs:labeled_bs + sub_bs]
-        uimg_b = image[labeled_bs + sub_bs:]
-        lab_a, lab_b = label[:sub_bs], label[sub_bs:labeled_bs]
+        img_a, img_b = image[:n_a], image[n_a:n_l]
+        uimg_a, uimg_b = image[n_l:n_l + n_a], image[n_l + n_a:]
+        lab_a, lab_b = label[:n_a], label[n_a:n_l]
         spatial = tuple(image.shape[2:])
         img_mask = generate_mask_nd(spatial, draws["bcp_starts"],
                                     device=image.device)
-        loss_mask = img_mask[None].expand(sub_bs, *spatial).float().contiguous()
+        mask_a, mask_b = (img_mask[None].expand(n, *spatial).float().contiguous()
+                          for n in (n_a, n_b))
         net_input_unl = mix_images(uimg_a, img_a, img_mask)
         net_input_l = mix_images(img_b, uimg_b, img_mask)
         net_input_mix = torch.cat([net_input_l, net_input_unl])
@@ -312,7 +332,7 @@ def build_chap_train_step(model: torch.nn.Module,
         out_mix1, out_mix2, s_stats = apply_model(net_input_mix, drop["student"],
                                                   True)
         bcp_loss, loss_l, loss_u = mix_losses(out_mix1, out_mix2, lab_a, lab_b,
-                                              plab, loss_mask)
+                                              plab, mask_a, mask_b)
         pass_stats = [t_stats, s_stats]
         zero = torch.zeros((), device=image.device)
         fp_loss = vat = zero
@@ -320,7 +340,7 @@ def build_chap_train_step(model: torch.nn.Module,
             fp1, fp2, f_stats = apply_model(
                 uimg_ab, drop["fp"], True, dropout_level=DROPOUT_LEVELS,
                 scores=list(state.sim_scores), comp_dropout=semi.comp_drop,
-                perturb_draws=draws["perturb"])
+                perturb_draws=draws["perturb"], clean_rows=n_a)
             fp_loss = cross_entropy(fp1, pseudo2) + cross_entropy(fp2, pseudo1)
             pass_stats.append(f_stats)
         if semi.adv_noise:

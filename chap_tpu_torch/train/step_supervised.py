@@ -10,7 +10,7 @@ the pass's batch statistics folded into the BN running stats. The dropout
 draws are made up front as in step_chap.py, so a test can feed chap_tpu's.
 
 With W > 1 ranks (parallel/dist.py) each rank takes a contiguous 1/W of the
-global batch (W must divide it), the draws are those of the global batch,
+global batch (``ONE_ROLE``; W must divide it), the draws are those of the global batch,
 and the step is the one-process step over it: K1's statistics and the BN
 statistics are global and the gradients are summed over the ranks.
 """
@@ -27,6 +27,14 @@ from chap_tpu_torch.parallel import dist
 from chap_tpu_torch.train.state import TrainState, fold_batch_stats, make_lr_schedule
 from chap_tpu_torch.train.step_chap import (StepOutput, dropout_draws,
                                             uniform_sampler)
+
+
+def check_rank_rows(image: torch.Tensor, cfg: Config, world: int) -> None:
+    """With W > 1 ranks a one-stream step takes its 1/W of the batch."""
+    if world > 1 and image.shape[0] * world != cfg.data.batch_size:
+        raise ValueError(f"batch of {image.shape[0]} rows; this rank takes "
+                         f"{cfg.data.batch_size // world} (batch_size "
+                         f"{cfg.data.batch_size} over {world} ranks)")
 
 
 def draw_supervised_uniforms(cfg: Config, image_shape: Sequence[int],
@@ -50,7 +58,7 @@ def build_supervised_train_step(model: torch.nn.Module,
     device = resolve_device(device)
     num_classes = cfg.data.num_classes
     world = dist.world_size()
-    dist.check_rows(cfg.data.batch_size, 1, world, "supervised step")
+    dist.check_batch(cfg.data.batch_size, world, "supervised step")
     if next(model.parameters()).device.type != device.type:
         raise ValueError(f"model is on {next(model.parameters()).device}, the "
                          f"step on {device}")
@@ -65,15 +73,11 @@ def build_supervised_train_step(model: torch.nn.Module,
                              "the step was built for")
         image = batch["image"]
         label = batch["label"].to(torch.int32)
-        if world > 1 and image.shape[0] * world != cfg.data.batch_size:
-            raise ValueError(f"batch of {image.shape[0]} rows; this rank "
-                             f"takes {cfg.data.batch_size // world} "
-                             f"(batch_size {cfg.data.batch_size} over {world} "
-                             f"ranks)")
+        check_rank_rows(image, cfg, world)
         if draws is None:
+            rows = image.shape[0] if world == 1 else cfg.data.batch_size
             draws = draw_supervised_uniforms(
-                cfg, (image.shape[0] * world,) + tuple(image.shape[1:]),
-                generator, image.device)
+                cfg, (rows,) + tuple(image.shape[1:]), generator, image.device)
         drop_u = [dist.shard_rows(u) for u in draws["drop"]]
         model.train()
         stats: Dict = {}

@@ -29,9 +29,10 @@ trainer_2d.py:46-49): ``chap`` and ``supervised`` under torchrun, or with a
 process group the caller initialised. Every rank builds the model from the
 same seed on its card, and rank 0's parameters and buffers are broadcast
 (they must already be equal); each rank holds the whole slice pool and
-takes its rows of every global batch draw (``rank_rows``: the four CHAP
-roles, or a contiguous 1/W for ``supervised``), and its step generator is
-seeded alike, so W ranks train the one-process run. Rank 0 alone writes
+takes its rows of every global batch draw (``rank_rows``: its pair-stream
+units of the CHAP batch, or a contiguous 1/W for ``supervised``; W must
+divide ``data.batch_size``), and its step generator is seeded alike, so W
+ranks train the one-process run. Rank 0 alone writes
 metrics.jsonl, val.csv, the log and the checkpoints; ``--resume`` restores
 every rank from the same files; the best-checkpoint decision is rank 0's,
 broadcast. ``steps_per_sec`` stays the global rate (a step is the global
@@ -162,7 +163,7 @@ def train(cfg: Config, snapshot_path: str, mode: str = "chap",
     logger.info("Total slices %d, labeled slices %d", total_slices, labeled_slice)
 
     writer = MetricsWriter(snapshot_path) if main_rank else _NoWriter()
-    roles = dist.CHAP_ROLES if mode == "chap" else 1
+    roles = dist.CHAP_ROLES if mode == "chap" else dist.ONE_ROLE
     predictor = make_predictor(model, cfg.eval.model_type, device=device)
     max_iterations = max_steps or cfg.optim.max_iterations
     iter_num = start_iter = state.step

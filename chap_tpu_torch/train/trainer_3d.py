@@ -31,8 +31,21 @@ in bf16 as chap_tpu's (volume pool and host loader, trainer_3d.py:228-250);
 the eval runs the engine at its default float32 input, so a bf16 model
 gives bf16 logits to K3, as chap_tpu's eval does. Checkpoints hold the
 float32 parameters.
-One rank: ``parallel.num_devices`` 0 or 1 and no process group of more than
-one rank; data parallelism for the 3D trainer is ROADMAP item 16b.
+
+Data parallel over W ranks (parallel/dist.py, in place of chap_tpu's mesh,
+trainer_3d.py:152-156), as train/trainer_2d.py: under torchrun or in a
+process group the caller initialised, W dividing ``data.batch_size``; every
+rank builds the model from the same seed (rank 0's state broadcast, and it
+must not change), cuts its rows of every global patch draw (``rank_rows``:
+its pair-stream units for ``chap``, a contiguous 1/W for ``cps`` and
+``supervised``) and seeds its step generator alike, so W ranks train the
+one-process run; at LA's batch 4 and W = 4 two ranks hold no row and still
+make every collective. The cps and supervised steps sum K1's statistics,
+the cps mean and the gradients over the ranks; BatchNorm models normalise
+over every rank's rows (instance and group norms are per sample). The
+sliding-window eval deals its patch batches to the ranks
+(eval/sliding_window.py). Rank 0 alone writes metrics.jsonl, val.csv and
+the checkpoints; the best-checkpoint decision is rank 0's, broadcast.
 """
 from __future__ import annotations
 
@@ -41,6 +54,7 @@ import logging
 import time
 from typing import Dict, Optional, Sequence, Union
 
+import numpy as np
 import torch
 
 from chap_tpu_torch.config import Config
@@ -48,7 +62,7 @@ from chap_tpu_torch.data.datasets import SyntheticVolumeDataset, Volume3dDataset
 from chap_tpu_torch.data.device_data import (build_device_patch_fn,
                                              build_device_volume_pool)
 from chap_tpu_torch.data.pipeline import BatchLoader, compact_batch, prefetch_to_device
-from chap_tpu_torch.data.sampler import TwoStreamBatchSampler
+from chap_tpu_torch.data.sampler import RankBatchSampler, TwoStreamBatchSampler
 from chap_tpu_torch.data.transforms3d import RandomGenerator3D
 from chap_tpu_torch.device import resolve_device
 from chap_tpu_torch.eval.sliding_window import test_all_case
@@ -65,8 +79,10 @@ from chap_tpu_torch.train.state import (TrainState, create_train_state,
                                         make_optimizer)
 from chap_tpu_torch.train.step_chap import (StepOutput, build_chap_train_step,
                                             level_channels, uniform_sampler)
-from chap_tpu_torch.train.step_supervised import draw_supervised_uniforms
-from chap_tpu_torch.train.trainer_2d import _synchronize, batch_stream_seed
+from chap_tpu_torch.train.step_supervised import (check_rank_rows,
+                                                  draw_supervised_uniforms)
+from chap_tpu_torch.train.trainer_2d import (_NoWriter, _same_on_every_rank,
+                                             _synchronize, batch_stream_seed)
 from chap_tpu_torch.utils.checkpoint import CheckpointManager
 from chap_tpu_torch.utils.metrics_writer import MetricsWriter
 from chap_tpu_torch.utils.ramps import sigmoid_rampup
@@ -96,10 +112,12 @@ def _check_device(model: torch.nn.Module, device: torch.device) -> None:
 
 
 def _sgd(state: TrainState, loss: torch.Tensor, lr_schedule, stats) -> None:
-    """One SGD update from ``loss`` at the schedule's LR, then the pass's
-    batch statistics into the BN running stats."""
+    """One SGD update from ``loss`` at the schedule's LR (the gradients
+    summed over the ranks), then the pass's batch statistics into the BN
+    running stats."""
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    dist.all_reduce_grads(state.model.parameters())
     for group in state.optimizer.param_groups:
         group["lr"] = lr_schedule(state.step)
     state.optimizer.step()
@@ -115,37 +133,49 @@ def build_cps3d_train_step(model: torch.nn.Module,
     rows (K1, R = 1), plus each decoder's CE against the other's argmax on
     the unlabeled rows, weighted by the consistency ramp. Returns
     ``step(state, batch, generator=None, draws=None) -> StepOutput``;
-    metrics loss, sup_loss, cons_loss."""
+    metrics loss, sup_loss, cons_loss. With W > 1 ranks the batch is this
+    rank's contiguous 1/W of the global one (``rank_rows``), its labeled
+    rows those below ``labeled_bs``, possibly none; the draws are the
+    global batch's, and K1's statistics, the cps mean and the gradients
+    are summed over the ranks."""
     device = resolve_device(device)
     _check_device(model, device)
     num_classes, lbs, semi = cfg.data.num_classes, cfg.data.labeled_bs, cfg.semi
     lr_schedule = make_lr_schedule(cfg.optim.base_lr, cfg.optim.max_iterations,
                                    cfg.optim.poly_power)
+    world = dist.world_size()
+    local_lbs = lbs
+    if world > 1:
+        dist.check_batch(cfg.data.batch_size, world, "cps step")
+        local_lbs = sum(i < lbs for i in dist.rank_rows(cfg.data.batch_size))
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
              generator: Optional[torch.Generator] = None,
              draws: Optional[Dict[str, object]] = None) -> StepOutput:
         image = batch["image"]
         label = batch["label"].to(torch.int32)
-        if image.shape[0] <= lbs:
+        rows = image.shape[0] if world == 1 else cfg.data.batch_size
+        if rows <= lbs:
             raise ValueError(
-                f"batch size {image.shape[0]} must exceed labeled_bs={lbs}: "
+                f"batch size {rows} must exceed labeled_bs={lbs}: "
                 f"the tail of each batch is the unlabeled stream, and a mean "
                 f"over an empty unlabeled slice is silently NaN")
+        check_rank_rows(image, cfg, world)
         if draws is None:
-            draws = draw_supervised_uniforms(cfg, image.shape, generator,
-                                             image.device)
+            draws = draw_supervised_uniforms(cfg, (rows,) + tuple(image.shape[1:]),
+                                             generator, image.device)
         model.train()
         stats: Dict = {}
-        o1, o2 = model(image, drop_u=draws["drop"], stats=stats)
-        sup1 = dice_ce_supervised(o1[:lbs], label[:lbs], num_classes)
-        sup2 = dice_ce_supervised(o2[:lbs], label[:lbs], num_classes)
+        o1, o2 = model(image, drop_u=[dist.shard_rows(u) for u in draws["drop"]],
+                       stats=stats)
+        sup1 = dice_ce_supervised(o1[:local_lbs], label[:local_lbs], num_classes)
+        sup2 = dice_ce_supervised(o2[:local_lbs], label[:local_lbs], num_classes)
         # argmax of the softmax in the logits' dtype, as chap_tpu's
         # (trainer_3d.py:77-82): in bf16 its rounding makes ties
-        pseudo1 = softmax(o1[lbs:].detach(), 1).argmax(dim=1)
-        pseudo2 = softmax(o2[lbs:].detach(), 1).argmax(dim=1)
-        ps1 = cross_entropy_per_pixel(o1[lbs:], pseudo2).mean()
-        ps2 = cross_entropy_per_pixel(o2[lbs:], pseudo1).mean()
+        pseudo1 = softmax(o1[local_lbs:].detach(), 1).argmax(dim=1)
+        pseudo2 = softmax(o2[local_lbs:].detach(), 1).argmax(dim=1)
+        ps1 = dist.global_mean(cross_entropy_per_pixel(o1[local_lbs:], pseudo2))
+        ps2 = dist.global_mean(cross_entropy_per_pixel(o2[local_lbs:], pseudo1))
         w = semi.consistency * sigmoid_rampup(state.step // 150,
                                               semi.consistency_rampup)
         total = sup1 + sup2 + w * (ps1 + ps2)
@@ -190,7 +220,8 @@ def build_supervised3d_train_step(model: torch.nn.Module,
     over the whole batch (K1, R = 1, one launch an output); a model with
     several outputs (DualDecoder3d, unet_3D_dv_semi) averages their losses.
     Refuses vnet_ds and resvnet, whose extra outputs are no segmentations.
-    Metrics loss, sup_loss."""
+    With W > 1 ranks the batch is this rank's contiguous 1/W and the draws
+    the global batch's, as in the cps step. Metrics loss, sup_loss."""
     for cls, (key, why) in _NOT_SUPERVISABLE.items():
         if isinstance(model, cls):
             raise ValueError(f"net_factory_3d key {key!r} cannot train in the "
@@ -200,18 +231,24 @@ def build_supervised3d_train_step(model: torch.nn.Module,
     num_classes = cfg.data.num_classes
     lr_schedule = make_lr_schedule(cfg.optim.base_lr, cfg.optim.max_iterations,
                                    cfg.optim.poly_power)
+    world = dist.world_size()
+    if world > 1:
+        dist.check_batch(cfg.data.batch_size, world, "supervised 3D step")
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
              generator: Optional[torch.Generator] = None,
              draws: Optional[Dict[str, object]] = None) -> StepOutput:
         image = batch["image"]
         label = batch["label"].to(torch.int32)
+        check_rank_rows(image, cfg, world)
         if draws is None:
-            draws = draw_model_uniforms(model, image.shape, generator,
-                                        image.device)
+            rows = image.shape[0] if world == 1 else cfg.data.batch_size
+            draws = draw_model_uniforms(model, (rows,) + tuple(image.shape[1:]),
+                                        generator, image.device)
         model.train()
         stats: Dict = {}
-        out = model(image, drop_u=draws["drop"], stats=stats)
+        out = model(image, drop_u=[dist.shard_rows(u) for u in draws["drop"]],
+                    stats=stats)
         outs = out if isinstance(out, (tuple, list)) else (out,)
         loss = sum(dice_ce_supervised(o, label, num_classes)
                    for o in outs) / len(outs)
@@ -227,12 +264,14 @@ def train(cfg: Config, snapshot_path: str, max_steps: Optional[int] = None,
           device: Optional[Union[str, torch.device]] = None) -> dict:
     """mode: ``chap`` (the full method), ``cps`` or ``supervised`` (model
     ``cfg.model.name_3d``). Returns {'best_dice': float, 'steps': int}.
-    ``device`` is the card unless ``device="cpu"``."""
-    device = resolve_device(device)
+    ``device`` is the card unless ``device="cpu"``; with W > 1 ranks
+    (module docstring) each rank trains on its own card
+    (``cuda:LOCAL_RANK``)."""
     if mode not in ("chap", "cps", "supervised"):
         raise ValueError(f"unknown 3D trainer mode {mode!r} (chap | cps | "
                          f"supervised)")
-    dist.refuse_data_parallel(cfg, "the 3D trainer", "16b")
+    rank, world, device = dist.init_distributed(cfg, device)
+    main_rank = rank == 0
     if cfg.run.prng_impl != "threefry2x32":
         logger.warning("run.prng_impl=%r selects a JAX PRNG; ignored (the "
                        "port draws from torch.Generator)", cfg.run.prng_impl)
@@ -244,6 +283,7 @@ def train(cfg: Config, snapshot_path: str, max_steps: Optional[int] = None,
     model_name = cfg.model.name_3d if mode == "supervised" else "dualdecoder"
     model = net_factory_3d(model_name, cfg.data.in_chns, num_classes,
                            mode="train", cfg=cfg.model, device=device)
+    _same_on_every_rank(model, "built from run.seed")
     optimizer = make_optimizer(model, cfg.optim.base_lr, cfg.optim.momentum,
                                cfg.optim.weight_decay)
     sim_chns = level_channels(cfg, 3) if mode == "chap" else ()
@@ -252,6 +292,7 @@ def train(cfg: Config, snapshot_path: str, max_steps: Optional[int] = None,
     ckpt = CheckpointManager(snapshot_path)
     best = 0.0
     if resume and ckpt.restore_latest(state) is not None:
+        _same_on_every_rank(model, "restored from the latest checkpoint")
         # the historical best, so the first post-resume eval cannot clobber
         # the best slot (train_ours_2D.py:428-435 gating)
         best = float(ckpt.load_meta().get("best_metric", 0.0))
@@ -282,7 +323,8 @@ def train(cfg: Config, snapshot_path: str, max_steps: Optional[int] = None,
         volumes = [train_ds[i] for i in range(len(train_ds))]
         val_ds = Volume3dDataset(cfg.data.root_path, "test.list")
 
-    writer = MetricsWriter(snapshot_path)
+    writer = MetricsWriter(snapshot_path) if main_rank else _NoWriter()
+    roles = dist.CHAP_ROLES if mode == "chap" else dist.ONE_ROLE
     max_iterations = max_steps or cfg.optim.max_iterations
     iter_num = start_iter = state.step
 
@@ -293,7 +335,7 @@ def train(cfg: Config, snapshot_path: str, max_steps: Optional[int] = None,
         writer.write(start_iter, {"pool_build_s": time.perf_counter() - t0})
         patch_fn = build_device_patch_fn(
             len(volumes), min(labeled_cases, len(volumes)), cfg.data.batch_size,
-            cfg.data.labeled_bs, patch)
+            cfg.data.labeled_bs, patch, roles=roles, rank=rank, world=world)
 
         def batch_stream():
             gen = torch.Generator(device=device)
@@ -314,6 +356,10 @@ def train(cfg: Config, snapshot_path: str, max_steps: Optional[int] = None,
                     labeled_idx, unlabeled_idx, cfg.data.batch_size,
                     cfg.data.batch_size - cfg.data.labeled_bs,
                     seed=cfg.run.seed + epoch_start)
+                if world > 1:
+                    # every rank builds the same global sampler and loads
+                    # only its rows
+                    sampler = RankBatchSampler(sampler, roles, rank, world)
                 loader = BatchLoader(dataset, sampler, cfg.data.num_workers)
                 yield from prefetch_to_device(
                     loader, device, size=2,
@@ -323,7 +369,8 @@ def train(cfg: Config, snapshot_path: str, max_steps: Optional[int] = None,
 
     def save_latest() -> float:
         t = time.perf_counter()
-        ckpt.save_latest(state)
+        if main_rank:
+            ckpt.save_latest(state)
         return (time.perf_counter() - t) * 1e3
 
     step_gen = torch.Generator(device=device)
@@ -337,7 +384,7 @@ def train(cfg: Config, snapshot_path: str, max_steps: Optional[int] = None,
                 break
             state, metrics = step_fn(state, batch, step_gen)
             iter_num += 1
-            if iter_num % cfg.run.log_every == 0:
+            if main_rank and iter_num % cfg.run.log_every == 0:
                 names = list(metrics)
                 scalars = dict(zip(names, torch.stack(
                     [metrics[k].float() for k in names]).tolist()))
@@ -358,11 +405,16 @@ def train(cfg: Config, snapshot_path: str, max_steps: Optional[int] = None,
                 writer.write(iter_num, {"val_mean_dice": dice, "eval_s": eval_s,
                                         "steps_per_sec_since_eval": rate,
                                         "checkpoint_ms": save_latest()})
-                if dice > best or not ckpt.has("best"):
+                # rank 0's decision (it alone sees the best slot), broadcast
+                improved = dist.broadcast_array(np.array(
+                    [main_rank and (dice > best or not ckpt.has("best"))]),
+                    device)[0]
+                if improved:
                     best = dice
-                    ckpt.save_best(state)
-                    ckpt.save_meta({"best_metric": best,
-                                    "best_iteration": iter_num})
+                    if main_rank:
+                        ckpt.save_best(state)
+                        ckpt.save_meta({"best_metric": best,
+                                        "best_iteration": iter_num})
                     writer.append_csv(
                         f"{snapshot_path}/val.csv",
                         {"timestamp": time.strftime("%Y-%m-%d %H:%M:%S"),

@@ -10,7 +10,13 @@ from __future__ import annotations
 import json
 import logging
 import os
+import pprint
 import sys
+
+import numpy as np
+import torch
+
+from chap_tpu_torch.parallel import dist
 
 
 def init_save_folder(snapshot_path: str, model: str,
@@ -66,3 +72,25 @@ def dump_config(save_dir: str, cfg_dict: dict) -> None:
     # the training script (reference copies train_*.py, train_ours_2D.py:559)
     with open(_provenance_path(save_dir, "config", "json"), "w") as f:
         json.dump(cfg_dict, f, indent=2, default=str)
+
+
+def open_run_dir(snapshot_path: str, model: str, reuse_last: bool, text: str,
+                 cfg_dict: dict, device: torch.device) -> str:
+    """A training CLI's run dir ``<snapshot_path>/<model>/run_N`` on every
+    rank: rank 0 picks it (``init_save_folder``), writes doc.txt and
+    config.json, starts log.txt and logs the config and the process group;
+    the other ranks get its path by broadcast and write nothing."""
+    run = 0
+    if dist.is_main():
+        os.makedirs(snapshot_path, exist_ok=True)
+        run = int(init_save_folder(snapshot_path, model, reuse_last)
+                  .rsplit("_", 1)[1])
+    save_dir = os.path.join(snapshot_path, model, "run_%d" % (
+        dist.broadcast_array(np.array([run]), device)[0]))
+    if dist.is_main():
+        write_doc(save_dir, text)
+        dump_config(save_dir, cfg_dict)
+        setup_logging(save_dir)
+        logging.info("%s", pprint.pformat(cfg_dict))
+        logging.info("data parallel: %s, device %s", dist.describe(), device)
+    return save_dir

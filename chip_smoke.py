@@ -193,29 +193,43 @@ Phases (any failure raises and the script exits non-zero):
                over 1 LA and 1 unet_3D step, which must show bf16
                convolution kernels (``slice_bf16``, ``profile_bf16_*``)
  23. data      (runs before the report) chap_tpu_torch/parallel/dist.py on
-     parallel  the card at configs/acdc_chap.yml's values (batch 24 x
-               256^2, fp32): (b) two gloo ranks spawned on the one card
-               (NCCL puts no two ranks on one device), three bare CHAP
-               steps on each rank's rows of the global batches (TF32 off)
-               against this process's step on the whole batches from the
-               same weights and draws: metrics, parameters, BN running
-               statistics and GradSim scores within rtol 2e-3 (largest
-               gaps printed), 4 + 12 K1 and 1 K2 launches a step on each
-               rank, each rank's step ms and the ms of its step's
-               all-reduces replayed alone; (a) cli.train_2d under
-               ``torchrun --nproc_per_node 1`` (NCCL), 12 steps with evals
-               at 6 and 12, against the same run in this process: losses
-               within rtol 2e-3 (largest gap printed); (c) cli.train_2d in
-               the two gloo ranks: 12 steps and --resume to 18, one run dir
+     parallel  the one card, W gloo ranks spawned on it (NCCL puts no two
+               ranks on one device). First which ops of the models take a
+               batch of 0 rows on the card (``zero_rows``; a rank may hold
+               none) and K1 / K2 at 0 rows (1 / 0 forward / backward K1
+               launches, 0 K2). Then three bare steps on each rank's rows
+               of the global batches (TF32 off) against this process's
+               steps on the whole batches from the same weights and draws,
+               every gap (metrics, the parameter update, BN running
+               statistics and GradSim scores as vectors) within rtol 2e-3
+               or twice this process's own gap between PyTorch's native and
+               cuDNN's convolutions, measured in the same call, and each
+               rank's launches asserted (K1's backward and K2 only where
+               the rank holds rows): (b) W = 2 and (d) W = 4 at
+               configs/acdc_chap.yml's values (batch 24 x 256^2, fp32),
+               with each W = 2 rank's all-reduces replayed alone; (e) W = 2
+               and W = 4 at configs/la_chap.yml's values in fp32 (batch 4
+               x 112x112x80; at W = 4 ranks 0 and 2 hold no row) and W = 2
+               as written (bf16, timed; within twice this process's
+               bf16-against-fp32 gap); (f) W = 2 at brats_supervised.yml's
+               unet_3D step (96^3, fp32); (g) test_all_case at W = 2 over
+               two 160x160x96 volumes (stride 18 / 4, sw_batch 16) against
+               W = 1's label maps (under 0.1% of voxels may differ; the
+               count printed) with each rank's K3 launches; (a)
+               cli.train_2d (12 steps) and (h) cli.train_3d at
+               configs/la_chap.yml as written (4 steps) under ``torchrun
+               --nproc_per_node 1`` (NCCL) against the same runs in this
+               process: losses within rtol 2e-3; (c) cli.train_2d in the
+               two gloo ranks: 12 steps and --resume to 18, one run dir
                written by rank 0, the records, val.csv and eval dice of
                W = 1's run (dice within 5e-3), 18 x (4 + 12 / 1) launches a
                rank, and the eval of its final weights at W = 2 equal to
                this process's eval of them, exactly. Prints the ``dist``
-               line (the gloo figures are two ranks sharing one card, not
-               a multi-card speed)
+               line (the gloo figures are ranks sharing one card, not a
+               multi-card speed)
  22. report    the kernels line (JSON; K1 and K3 at bf16 logits have rows
-               of their own; the 2D K1 / K2 rows carry phase 23's launches
-               on each rank), the card line, and the last line
+               of their own; the K1 / K2 / K3 rows carry phase 23's
+               launches on each rank), the card line, and the last line
                {"ok": true, "device": {...}}
 
 The 2D and 3D phases keep the counts and depths they had before the ACAL
@@ -2657,39 +2671,118 @@ DIST_STEPS = 3
 DIST_OVERRIDES = ["eval.eval_every=6", "data.synthetic_val_volumes=2",
                   "data.synthetic_train_size=256", "run.log_every=1",
                   f"run.snapshot_root={DIST_RUNS}"]
+# (h): cli.train_3d at configs/la_chap.yml as written (bf16), a log line a
+# step
+DIST3D_STEPS = 4
+DIST3D_OVERRIDES = ["data.patch_size_3d=[112,112,80]", "run.log_every=1",
+                    f"run.snapshot_root={DIST_RUNS}"]
+# the bare steps phase 23 runs at W ranks against this process, by kind
+DIST_KINDS = {"acdc": "2D CHAP, configs/acdc_chap.yml, fp32",
+              "la": "3D CHAP, configs/la_chap.yml in fp32",
+              "la_bf16": "3D CHAP, configs/la_chap.yml as written (bf16)",
+              "brats": "unet_3D supervised, configs/brats_supervised.yml in fp32"}
 
 
-def dist_step_inputs(cfg):
-    """Phase 23's global batches and step draws, made alike in every
-    process on the card (numpy phantoms, Philox draws from a seed)."""
-    batches = [phantom_inputs(cfg, 40 + i, "cuda") for i in range(DIST_STEPS)]
-    draws = [draw_step_uniforms(cfg, batches[i]["image"].shape,
-                                torch.Generator(device="cuda").manual_seed(40 + i),
-                                "cuda") for i in range(DIST_STEPS)]
+def dist_config(kind: str):
+    return {"acdc": acdc_chap_config, "la": lambda: la_config(F32),
+            "la_bf16": la_config, "brats": lambda: brats_config(F32)}[kind]()
+
+
+def dist_roles(kind: str):
+    """The roles of a kind's batch (parallel/dist.py ``rank_rows``)."""
+    return dist.ONE_ROLE if kind == "brats" else dist.CHAP_ROLES
+
+
+def dist_rows(kind: str):
+    """A rank's rows of a global batch of the kind."""
+    return lambda batch: {k: dist.shard_rows(v, dist_roles(kind))
+                          for k, v in batch.items()}
+
+
+def dist_init(kind: str) -> dict:
+    """The kind's model built from a seed: its state dict on the host (the
+    bf16 LA step takes la's float32 parameters)."""
+    cfg = dist_config(kind)
+    torch.manual_seed(23)
+    if kind == "acdc":
+        model = net_factory("dualdecoder", 1, 4, cfg.model, device="cuda")
+    else:
+        model = net_factory_3d(cfg.model.name_3d, 1, cfg.data.num_classes,
+                               "train", cfg.model, device="cuda")
+    return {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+
+
+def dist_make(kind: str, state_dict: dict):
+    cfg = dist_config(kind)
+    if kind == "acdc":
+        return make_step(cfg, "cuda", state_dict=state_dict)
+    if kind == "brats":
+        state, step = make_zoo_step(cfg.model.name_3d, cfg)
+        state.model.load_state_dict(state_dict)
+        return state, step
+    return make_step_3d(cfg, "cuda", state_dict=state_dict)
+
+
+def dist_step_inputs(kind: str):
+    """Phase 23's global batches and step draws of a kind, made alike in
+    every process on the card (numpy phantoms, Philox draws from a seed)."""
+    cfg = dist_config(kind)
+    gens = [torch.Generator(device="cuda").manual_seed(40 + i)
+            for i in range(DIST_STEPS)]
+    if kind == "acdc":
+        batches = [phantom_inputs(cfg, 40 + i, "cuda") for i in range(DIST_STEPS)]
+    else:
+        batches = [phantom_patches(cfg, 40 + i, "cuda") for i in range(DIST_STEPS)]
+    if kind == "la_bf16":      # the pool's dtype for a bf16 model
+        batches = [{**b, "image": b["image"].bfloat16()} for b in batches]
+    if kind == "brats":
+        shapes = net_factory_3d(cfg.model.name_3d, 1, cfg.data.num_classes,
+                                "train", cfg.model, device="cpu").dropout_shapes(
+            cfg.data.batch_size, cfg.data.patch_size_3d)
+        draws = [{"drop": [torch.rand(sh, generator=g, device="cuda")
+                           for sh in shapes]} for g in gens]
+    else:
+        draws = [draw_step_uniforms(cfg, b["image"].shape, g, "cuda")
+                 for b, g in zip(batches, gens)]
     return batches, draws
 
 
-def dist_steps(init: dict, rows, cudnn: bool = True) -> dict:
-    """DIST_STEPS bare CHAP steps at acdc_chap.yml's values from ``init``
-    (TF32 off; with ``cudnn=False`` PyTorch's own convolutions and
-    BatchNorm in place of cuDNN's) on ``rows(batch)`` of each global batch,
-    after one warm-up step from the same start: metrics, step ms, the final
-    state dict (parameters and BN running statistics) and GradSim scores
-    (on the host), the launches and the collectives made."""
+def dist_expected_launches(kind: str, rank_: int, world: int) -> dict:
+    """A rank's kernel launches over DIST_STEPS bare steps. The CHAP step's
+    four mix_loss calls are two a stream: a call over 0 rows still
+    launches K1's forward (one program, zero statistics) but no backward,
+    and a rank with no row launches no K2."""
+    if kind == "brats":
+        per = supervised_launches(1)
+    else:
+        per = dict(LAUNCHES_PER_STEP if kind == "acdc" else LAUNCHES_PER_STEP_3D)
+        s = dist_config(kind).data.labeled_bs // 2
+        n_a, n_b = (len(dist.stream_rows(s, k, 2, rank_, world)) for k in (0, 1))
+        per["K1_bwd"] = per["K1_bwd"] * (2 * (n_a > 0) + 2 * (n_b > 0)) // 4
+        per["K2_ccl" if kind == "acdc" else "K2_ccl3d"] = int(n_a + n_b > 0)
+    return {k: v * DIST_STEPS for k, v in per.items()}
+
+
+def dist_steps(init: dict, rows, cudnn: bool = True, kind: str = "acdc") -> dict:
+    """DIST_STEPS bare steps of ``kind`` (DIST_KINDS) from ``init`` (TF32
+    off; with ``cudnn=False`` PyTorch's own convolutions and BatchNorm in
+    place of cuDNN's) on ``rows(batch)`` of each global batch, after one
+    warm-up step from the same start: metrics, step ms, the final state
+    dict (parameters and BN running statistics) and GradSim scores (on the
+    host), the launches and the collectives made."""
     torch.backends.cudnn.enabled = cudnn
     try:
-        return _dist_steps(init, rows)
+        return _dist_steps(init, rows, kind)
     finally:
         torch.backends.cudnn.enabled = True
 
 
-def _dist_steps(init: dict, rows) -> dict:
+def _dist_steps(init: dict, rows, kind: str) -> dict:
     set_tf32(False)
-    cfg = acdc_chap_config()
-    batches, draws = dist_step_inputs(cfg)
-    state, step = make_step(cfg, "cuda", state_dict=init)
+    batches, draws = dist_step_inputs(kind)
+    state, step = dist_make(kind, init)
     step(state, rows(batches[0]), draws=draws[0])
-    state, step = make_step(cfg, "cuda", state_dict=init)
+    state, step = dist_make(kind, init)
     torch.cuda.synchronize()
     zero_launch_counts()
     times, metrics = [], []
@@ -2700,11 +2793,34 @@ def _dist_steps(init: dict, rows) -> dict:
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
             metrics.append({k: float(v) for k, v in m.items()})
-    return {"metrics": metrics, "step_ms": times, "launches": launch_counts(),
-            "params": {k: v.detach().cpu() for k, v in
-                       state.model.state_dict().items()},
-            "sim": [s.cpu() for s in state.sim_scores],
-            "collectives": list(collectives)}
+    out = {"metrics": metrics, "step_ms": times, "launches": launch_counts(),
+           "launches_bf16": bf16_launch_counts(),
+           "rows": rows(batches[0])["image"].shape[0],
+           "params": {k: v.detach().cpu() for k, v in
+                      state.model.state_dict().items()},
+           "sim": [s.cpu() for s in state.sim_scores],
+           "collectives": list(collectives)}
+    del state, step, batches, draws
+    torch.cuda.empty_cache()
+    return out
+
+
+def collective_figures(steps: dict, replay: bool = False) -> None:
+    """Replace a rank's record of collectives by its all-reduces and MB a
+    step, and with ``replay`` the ms of the same all-reduces made alone."""
+    if replay:
+        buffers = {c: torch.zeros(c[0], dtype=c[1], device="cuda")
+                   for c in set(steps["collectives"])}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for c in steps["collectives"]:
+            dist.all_reduce_(buffers[c])
+        torch.cuda.synchronize()
+        steps["allreduce_ms_per_step"] = (time.perf_counter() - t0) * 1e3 / DIST_STEPS
+    steps["collectives_per_step"] = len(steps["collectives"]) / DIST_STEPS
+    steps["allreduce_mb_per_step"] = sum(
+        n * torch.empty((), dtype=t).element_size()
+        for n, t in steps.pop("collectives")) / DIST_STEPS / 1e6
 
 
 def dist_val_set():
@@ -2728,28 +2844,171 @@ def dist_eval(save_dir: str) -> np.ndarray:
                             4, tuple(cfg.data.image_size))
 
 
-def dist_rank_phase(init: dict, steps_done) -> dict:
-    """What each gloo rank on the card runs in phase 23: (b) the bare steps
-    on its rows, with the all-reduce ms of the same collectives replayed
-    alone after them, then ``steps_done`` set (the card is no longer the
-    ranks' alone); (c) cli.train_2d, 12 steps and --resume to 18 (TF32 on,
-    as phase 8), and the eval of its latest weights at W = 2."""
-    out = {"rank": dist.rank(), "world": dist.world_size()}
-    steps = dist_steps(init, lambda batch: {k: dist.shard_rows(v, 4)
-                                            for k, v in batch.items()})
-    buffers = {c: torch.zeros(c[0], dtype=c[1], device="cuda")
-               for c in set(steps["collectives"])}
-    torch.cuda.synchronize()
+def dist_eval_cases() -> list:
+    """(g)'s two phantom volumes of 160x160x96 [X, Y, Z] (80 LA patches
+    each at stride 18 / 4)."""
+    vols = SyntheticVolumeDataset((96, 160, 160), 2, length=2, seed=23)
+    return [{"image": vols[i]["image"].transpose(2, 1, 0),
+             "label": vols[i]["label"].transpose(2, 1, 0)} for i in range(2)]
+
+
+def dist_eval_weights(init: dict) -> dict:
+    """The LA model from ``init`` with the BN running statistics of one
+    train-mode pass over phantom patches, so its label maps are not one
+    class."""
+    cfg = la_config(F32)
+    model = net_factory_3d("dualdecoder", 1, 2, "train", cfg.model, device="cuda")
+    model.load_state_dict(init)
+    stats = {}
+    with torch.no_grad():
+        model.train()(phantom_patches(cfg, 77, "cuda")["image"], stats=stats)
+    for m in model.modules():
+        if m.__class__.__name__ == "BatchNorm3d":
+            m.running_mean.copy_(stats[m.stats_key][0])
+            m.running_var.copy_(stats[m.stats_key][1])
+    return {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+
+
+def dist_eval_3d(weights: dict) -> dict:
+    """test_all_case of the LA model (fp32, TF32 off) over (g)'s volumes at
+    the LA protocol (stride 18 / 4, configs/la_chap.yml's sw_batch 16) at
+    this process's W: per-case metrics, its K3 launches, and each volume's
+    label map from the engine."""
+    set_tf32(False)
+    cfg = la_config(F32)
+    model = net_factory_3d("dualdecoder", 1, 2, "train", cfg.model, device="cuda")
+    model.load_state_dict(weights)
+    cases = dist_eval_cases()
+    per_case = []
+    zero_launch_counts()
     t0 = time.perf_counter()
-    for c in steps["collectives"]:
-        dist.all_reduce_(buffers[c])
-    torch.cuda.synchronize()
-    steps["allreduce_ms_per_step"] = (time.perf_counter() - t0) * 1e3 / DIST_STEPS
-    steps["collectives_per_step"] = len(steps["collectives"]) / DIST_STEPS
-    steps["allreduce_mb_per_step"] = sum(
-        n * torch.empty((), dtype=t).element_size()
-        for n, t in steps.pop("collectives")) / DIST_STEPS / 1e6
-    out["steps"] = steps
+    metrics = sw.test_all_case(model, cases, 2, LA_PATCH, 18, 4,
+                               sw_batch=cfg.eval.sw_batch, per_case=per_case,
+                               device="cuda")
+    eval_s = time.perf_counter() - t0
+    launches = launch_counts()["K3_sw"]
+    engine = sw.SlidingWindowEngine(model, LA_PATCH, cfg.eval.sw_batch,
+                                    device="cuda")
+    maps = [engine.predict(c["image"], 18, 4, 2) for c in cases]
+    return {"metrics": metrics, "per_case": [m for _, m in per_case],
+            "maps": maps, "launches": launches, "eval_s": eval_s}
+
+
+def dist_eval_launches(rank_: int, world: int) -> int:
+    """K3 launches of a rank in test_all_case over (g)'s volumes: one a
+    batch of 16 patches in which it holds any."""
+    per_rank = la_config().eval.sw_batch // world
+    n = 0
+    for c in dist_eval_cases():
+        grid = sw.compute_grid(c["image"].shape, LA_PATCH, 18, 4).shape[0]
+        n += len(range(rank_ * per_rank, grid, per_rank * world))
+    return n
+
+
+def zero_row_ops() -> dict:
+    """Which PyTorch ops of the port's models take a batch of 0 rows on the
+    card, forward and backward (a data-parallel rank without rows runs
+    them): {op: "ok" or the error}. Then K1 (R = 1 and 2) and K2 (2D, 3D)
+    at 0 rows through their wrappers: K1's forward launches one program
+    that sums nothing (zero statistics, the plain version's losses within
+    1e-6), its backward and K2 launch nothing."""
+    import torch.nn.functional as F
+
+    def x(shape, dtype=torch.float32):
+        return torch.zeros(shape, device="cuda", dtype=dtype, requires_grad=True)
+
+    def w(*shape, dtype=torch.float32):
+        return torch.randn(shape, device="cuda", dtype=dtype).requires_grad_(True)
+
+    def run(fn, *args):
+        out = fn(*args)
+        out.float().sum().backward()
+        torch.cuda.synchronize()
+
+    up = dict(scale_factor=2, align_corners=True)
+    ops = {
+        "conv3d": lambda: run(F.conv3d, x((0, 4, 8, 8, 8)), w(6, 4, 3, 3, 3)),
+        "conv3d_bf16": lambda: run(F.conv3d, x((0, 4, 8, 8, 8), torch.bfloat16),
+                                   w(6, 4, 3, 3, 3, dtype=torch.bfloat16)),
+        "conv3d_stride2": lambda: run(lambda a, b: F.conv3d(a, b, stride=2),
+                                      x((0, 4, 8, 8, 8)), w(6, 4, 2, 2, 2)),
+        "conv_transpose3d": lambda: run(lambda a, b: F.conv_transpose3d(
+            a, b, stride=2), x((0, 4, 8, 8, 8)), w(4, 6, 2, 2, 2)),
+        "conv2d": lambda: run(F.conv2d, x((0, 4, 16, 16)), w(6, 4, 3, 3)),
+        "conv_transpose2d": lambda: run(lambda a, b: F.conv_transpose2d(
+            a, b, stride=2), x((0, 4, 16, 16)), w(4, 6, 2, 2)),
+        "upsample_trilinear": lambda: run(lambda a: F.interpolate(
+            a, mode="trilinear", **up), x((0, 4, 8, 8, 8))),
+        "upsample_bilinear": lambda: run(lambda a: F.interpolate(
+            a, mode="bilinear", **up), x((0, 4, 16, 16))),
+        "max_pool3d": lambda: run(lambda a: F.max_pool3d(a, 2), x((0, 4, 8, 8, 8))),
+        "max_pool2d": lambda: run(lambda a: F.max_pool2d(a, 2), x((0, 4, 16, 16))),
+        "avg_pool3d": lambda: run(lambda a: F.avg_pool3d(a, 2), x((0, 4, 8, 8, 8))),
+        "instance_norm3d": lambda: run(F.instance_norm, x((0, 4, 8, 8, 8))),
+        "group_norm3d": lambda: run(lambda a: F.group_norm(a, 2), x((0, 4, 8, 8, 8))),
+        "batch_norm_eval": lambda: run(lambda a: F.batch_norm(
+            a, torch.zeros(4, device="cuda"), torch.ones(4, device="cuda")),
+            x((0, 4, 8, 8, 8))),
+        "batch_norm_train": lambda: run(lambda a: F.batch_norm(
+            a, None, None, training=True), x((0, 4, 8, 8, 8))),
+        "softmax_argmax": lambda: run(lambda a: torch.softmax(a, 1)
+                                      + a.argmax(1, keepdim=True), x((0, 2, 8, 8, 8))),
+    }
+    res = {}
+    for name, fn in ops.items():
+        try:
+            fn()
+            res[name] = "ok"
+        except Exception as e:     # the finding is which ops refuse
+            res[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+    print("zero_rows ops", json.dumps(res), flush=True)
+
+    # the kernels' wrappers at 0 rows
+    for regions in (1, 2):
+        logits, labels, labels2, mask = k1_inputs((0, 2, 8, 8, 8), 3)
+        cpu = logits.detach().cpu().requires_grad_(True)
+        want = fused_losses.region_dice_ce(cpu, labels.cpu(), mask.cpu(),
+                                           None if regions == 1 else labels2.cpu())
+        x_ = logits.clone().requires_grad_(True)
+        before = launch_counts()
+        got = fused_losses.region_dice_ce(x_, labels, mask,
+                                          None if regions == 1 else labels2)
+        sum(got).backward()
+        torch.cuda.synchronize()
+        delta = launches_since(before)
+        check(delta["K1_fwd"] == 1 and delta["K1_bwd"] == 0,
+              f"K1 R = {regions} at 0 rows: 1 forward launch, no backward: {delta}")
+        # the finalize kernel's fp32 division s / s rounds (1 - 1.3e-8)
+        check(all(abs(float(g) - float(v)) <= 1e-6 for g, v in zip(got, want)),
+              f"K1 R = {regions} at 0 rows: losses {got} against plain {want}")
+        check(tuple(x_.grad.shape) == (0, 2, 8, 8, 8), "K1 gradient at 0 rows")
+    for shape in ((0, 16, 16), (0, 16, 16, 8)):
+        before = launch_counts()
+        out = nms.largest_cc_batch(torch.zeros(shape, dtype=torch.int32,
+                                               device="cuda"), 4)
+        check(tuple(out.shape) == shape and sum(launches_since(before).values()) == 0,
+              f"K2 at 0 maps {shape}: no launch")
+    res["kernels"] = ("K1 forward 1 launch (zero statistics, the plain "
+                      "losses), backward 0; K2 2D / 3D 0 launches")
+    return res
+
+
+def dist_rank_phase(inits: dict, eval_weights: dict, steps_done) -> dict:
+    """What each gloo rank on the card runs in phase 23 at W = 2: (b) the
+    bare 2D steps on its rows, with the all-reduce ms of the same
+    collectives replayed alone after them; (e) the LA steps in fp32 and as
+    written (bf16), (f) the BraTS unet_3D steps, (g) the sliding-window
+    eval; then ``steps_done`` set (the card is no longer the ranks' alone);
+    (c) cli.train_2d, 12 steps and --resume to 18 (TF32 on, as phase 8),
+    and the eval of its latest weights at W = 2."""
+    out = {"rank": dist.rank(), "world": dist.world_size()}
+    out["acdc"] = dist_steps(inits["acdc"], dist_rows("acdc"))
+    collective_figures(out["acdc"], replay=True)
+    for kind in ("la", "la_bf16", "brats"):
+        out[kind] = dist_steps(inits["la" if kind == "la_bf16" else kind],
+                               dist_rows(kind), kind=kind)
+        collective_figures(out[kind])
+    out["eval3d"] = dist_eval_3d(eval_weights)
     if dist.is_main():
         steps_done.set()
     torch.cuda.empty_cache()
@@ -2765,12 +3024,24 @@ def dist_rank_phase(init: dict, steps_done) -> dict:
     return out
 
 
+def dist_rank_phase4(inits: dict) -> dict:
+    """What each gloo rank runs at W = 4: (d) the bare 2D steps (three
+    pairs of each stream a rank) and (e) the LA steps in fp32 (ranks 0 and
+    2 hold no row)."""
+    out = {"rank": dist.rank(), "world": dist.world_size()}
+    for kind in ("acdc", "la"):
+        out[kind] = dist_steps(inits[kind], dist_rows(kind), kind=kind)
+        collective_figures(out[kind])
+    return out
+
+
 def dist_gaps(got: dict, want: dict, init: dict) -> dict:
     """How far one run of dist_steps lies from another: the largest relative
     gap of a metric over the steps; the parameters' update from ``init``,
     the BN running statistics and the GradSim scores each as one vector,
     |got - want| / |want| (norms); and the largest element gap of each of
-    the last three."""
+    the last three (a model without BN, or a step without GradSim, has no
+    such entry)."""
     def vec(state, keys, minus=None):
         return torch.cat([(state[k].double() - (0 if minus is None else
                                                  minus[k].double())).reshape(-1)
@@ -2781,127 +3052,216 @@ def dist_gaps(got: dict, want: dict, init: dict) -> dict:
     params = [k for k, v in want["params"].items()
               if v.is_floating_point() and k not in running]
     pairs = {"update": (vec(got["params"], params, init),
-                        vec(want["params"], params, init)),
-             "running": (vec(got["params"], running), vec(want["params"], running)),
-             "sim": (torch.cat([x.double().reshape(-1) for x in got["sim"]]),
-                     torch.cat([x.double().reshape(-1) for x in want["sim"]]))}
+                        vec(want["params"], params, init))}
+    if running:
+        pairs["running"] = (vec(got["params"], running),
+                            vec(want["params"], running))
+    if want["sim"]:
+        pairs["sim"] = (torch.cat([x.double().reshape(-1) for x in got["sim"]]),
+                        torch.cat([x.double().reshape(-1) for x in want["sim"]]))
     out = {"metrics": max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-6)
                           for g, w in zip(got["metrics"], want["metrics"])
-                          for k in METRICS)}
+                          for k in w)}
     for name, (g, w) in pairs.items():
         out[name] = float((g - w).norm() / w.norm())
         out[name + "_max_abs"] = float((g - w).abs().max())
     return out
 
 
+def hold_ranks(kind: str, ranks: list, one: dict, init: dict, bars: dict,
+               world: int) -> dict:
+    """Each rank's steps of ``kind`` against this process's: every gap
+    within its bar, the rank's launches as dist_expected_launches says
+    (at bf16 logits every K1 launch for la_bf16). Returns the figures."""
+    gaps = [dist_gaps(got[kind], one, init) for got in ranks]
+    print(f"dist {kind} W = {world} against one process: gaps "
+          + json.dumps(gaps) + "; bars " + json.dumps(bars), flush=True)
+    for got, gap in zip(ranks, gaps):
+        r = got["rank"]
+        check(got["world"] == world, f"rank {r} in a group of {world}")
+        want = dist_expected_launches(kind, r, world)
+        check(got[kind]["launches"] == want,
+              f"{kind} W = {world} rank {r} launches {got[kind]['launches']}, "
+              f"expected {want}")
+        if kind == "la_bf16":
+            bf16 = got[kind]["launches_bf16"]
+            check(bf16["K1_fwd"] == want["K1_fwd"] and bf16["K1_bwd"] == want["K1_bwd"],
+                  f"la_bf16 rank {r}: every K1 launch at bf16 logits {bf16}")
+        for name in gap:
+            if name in bars:
+                check(gap[name] <= bars[name],
+                      f"{kind} W = {world} rank {r} {name} gap {gap[name]} "
+                      f"over its bar {bars[name]}: {gap}")
+    return {"gaps": gaps, "bars": bars, "one_process_step_ms": one["step_ms"],
+            "per_rank": [{k: got[kind][k] for k in (
+                "rows", "step_ms", "launches", "collectives_per_step",
+                "allreduce_mb_per_step") + (("allreduce_ms_per_step",)
+                                             if "allreduce_ms_per_step" in got[kind]
+                                             else ())}
+                for got in ranks]}
+
+
+def control_bars(control: dict) -> dict:
+    """Twice the one process's own gap (native against cuDNN
+    convolutions), or rtol 2e-3 where that is larger."""
+    return {k: max(RTOL, 2 * v) for k, v in control.items()
+            if not k.endswith("_max_abs")}
+
+
+def torchrun(module: str, argv: list) -> subprocess.Popen:
+    """``module`` under torchrun --nproc_per_node 1 (NCCL), started now."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "1", "-m", module, *argv],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def torchrun_losses(launch: subprocess.Popen, said: str, run_dir: str,
+                    ref: dict, what: str) -> float:
+    """Check a torchrun W = 1 run against the same run in this process:
+    an NCCL group, the same logged steps, losses within rtol 2e-3; returns
+    the largest relative gap."""
+    check(launch.returncode == 0, f"{what}: {said[-4000:]}")
+    check("data parallel: backend nccl, rank 0 of 1" in said,
+          f"{what} joined an NCCL group: {said[-2000:]}")
+    got = {r["step"]: r["loss"] for r in _records(run_dir) if "loss" in r}
+    check(sorted(got) == sorted(ref), f"{what} logged steps {sorted(got)}")
+    gap = max(abs(got[s] - ref[s]) / abs(ref[s]) for s in ref)
+    print(f"dist {what}: {len(ref)} losses, largest relative gap to one "
+          f"process {gap:.3e}", flush=True)
+    check(gap <= RTOL, f"{what} losses against one process: largest "
+                       f"relative gap {gap}")
+    return gap
+
+
 def phase_dist() -> dict:
-    """Phase 23: the port's data parallelism on the one card. (b) two gloo
-    ranks on the card (NCCL puts no two ranks on one device): three bare
-    CHAP steps against this process's step on the global batches; (a)
-    cli.train_2d under torchrun at W = 1 over NCCL against the same run in
-    this process; (c) the W = 2 trainer with a resume, its evals against
-    W = 1's. The gloo figures are of two ranks sharing one card, not a
-    multi-card speed."""
+    """Phase 23: the port's data parallelism on the one card, W gloo ranks
+    sharing it (NCCL puts no two ranks on one device): (b) W = 2 and (d) W
+    = 4, three bare 2D CHAP steps against this process's steps on the
+    global batches; (e) the LA CHAP step at W = 2 and 4 (fp32, ranks
+    without rows at W = 4) and at W = 2 as written (bf16, timed); (f) the
+    BraTS unet_3D supervised step at W = 2; (g) the sliding-window eval at
+    W = 2 against W = 1's maps; (a) cli.train_2d and (h) cli.train_3d under
+    torchrun at W = 1 over NCCL against the same runs in this process; (c)
+    the W = 2 2D trainer with a resume, its evals against W = 1's. The
+    gloo figures are of ranks sharing one card, not a multi-card speed."""
     t_phase = time.perf_counter()
     shutil.rmtree(DIST_RUNS, ignore_errors=True)
-    res = {"card": card_line()}
+    res = {"card": card_line(), "zero_rows": zero_row_ops()}
 
-    # (b)'s reference, this process's steps on the global batches, and its
+    # the references, this process's steps on the global batches, and their
     # control: the same steps on PyTorch's own convolutions, which sum in
     # another order (the step's discrete choices, the VAT direction, the
-    # top-k mask, LeakyReLU's kink under the GradSim cosines, amplify that)
-    torch.manual_seed(23)
-    init = {k: v.detach().cpu().clone() for k, v in net_factory(
-        "dualdecoder", 1, 4, acdc_chap_config().model,
-        device="cuda").state_dict().items()}
-    one = dist_steps(init, lambda batch: batch)
-    check(one["collectives"] == [], "one process makes no collective")
-    control = dist_gaps(dist_steps(init, lambda batch: batch, cudnn=False),
-                        one, init)
+    # top-k mask, LeakyReLU's kink under the GradSim cosines, the argmax
+    # pseudo-labels, amplify that)
+    inits = {kind: dist_init(kind) for kind in ("acdc", "la", "brats")}
+    one, bars = {}, {}
+    for kind in ("acdc", "la", "brats"):
+        one[kind] = dist_steps(inits[kind], lambda batch: batch, kind=kind)
+        check(one[kind]["collectives"] == [], "one process makes no collective")
+        control = dist_gaps(dist_steps(inits[kind], lambda batch: batch,
+                                       cudnn=False, kind=kind),
+                            one[kind], inits[kind])
+        bars[kind] = control_bars(control)
+        res[f"control_{kind}"] = control
+    # the bf16 step at W ranks against this process's bf16 step: within
+    # twice this process's bf16-against-fp32 gap
+    one["la_bf16"] = dist_steps(inits["la"], lambda batch: batch, kind="la_bf16")
+    res["bf16_vs_fp32_la"] = dist_gaps(one["la_bf16"], one["la"], inits["la"])
+    bars["la_bf16"] = control_bars(res["bf16_vs_fp32_la"])
+    eval_weights = dist_eval_weights(inits["la"])
+    eval_w1 = dist_eval_3d(eval_weights)
+    check(all(len(np.unique(m)) > 1 for m in eval_w1["maps"]),
+          "(g) label maps of more than one class")
     torch.cuda.empty_cache()
+    res["references_s"] = time.perf_counter() - t_phase
 
-    # (b) and (c) on two gloo ranks; the card is theirs until they have
-    # timed their steps, then (a) and the W = 1 trainer run beside (c)
+    # the W = 2 ranks; the card is theirs until they have timed their steps
+    # and the eval, then (a), (h) and the W = 1 trainer runs beside (c)
     t_spawn = time.perf_counter()
     steps_done = mp.get_context("spawn").Event()
     pool = concurrent.futures.ThreadPoolExecutor(1)
     spawned = pool.submit(dist.spawn_ranks, dist_rank_phase, 2,
-                          (init, steps_done), backend="gloo", device="cuda",
-                          timeout=600)
+                          (inits, eval_weights, steps_done), backend="gloo",
+                          device="cuda", timeout=900)
     pool.shutdown(wait=False)
     while not steps_done.wait(1.0):
         if spawned.done():
             spawned.result()          # raises what the ranks raised
             check(False, "the ranks ended before their timed steps")
 
-    # (a) torchrun, one rank over NCCL, beside the W = 1 run in this process
+    # (a) cli.train_2d and (h) cli.train_3d under torchrun, one rank over
+    # NCCL, beside the same runs in this process
     t0 = time.perf_counter()
-    launch = subprocess.Popen(
-        [sys.executable, "-m", "torch.distributed.run", "--standalone",
-         "--nproc_per_node", "1", "-m", "chap_tpu_torch.cli.train_2d",
-         *TRAINER_FLAGS, *DIST_OVERRIDES, "--exp", "nccl1",
-         "--max_iterations", "12"], stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True)
+    launch = torchrun("chap_tpu_torch.cli.train_2d", [
+        *TRAINER_FLAGS, *DIST_OVERRIDES, "--exp", "nccl1", "--max_iterations", "12"])
+    launch3d = torchrun("chap_tpu_torch.cli.train_3d", [
+        *TRAINER3D_FLAGS, *DIST3D_OVERRIDES, "--exp", "nccl1_3d",
+        "--max_iterations", str(DIST3D_STEPS)])
     try:
-        # (a) and (c)'s reference: cli.train_2d in this process, 12 steps
-        # and --resume to 18
         set_tf32(True)
         argv = TRAINER_FLAGS + DIST_OVERRIDES + ["--exp", "w1"]
         w1 = cli_train.main(argv + ["--max_iterations", "12"])
         cli_train.main(argv + ["--max_iterations", "18", "--resume"])
+        w1_3d = cli_train3d.main(TRAINER3D_FLAGS + DIST3D_OVERRIDES + [
+            "--exp", "w1_3d", "--max_iterations", str(DIST3D_STEPS)])
         said = launch.communicate(timeout=300)[0]
+        said3d = launch3d.communicate(timeout=300)[0]
     finally:
-        if launch.poll() is None:
-            launch.kill()
-            launch.wait()
+        for p in (launch, launch3d):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
     torchrun_s = time.perf_counter() - t0
     ranks = spawned.result()
     res["spawn_s"] = time.perf_counter() - t_spawn
     w1_records = _records(w1["save_dir"])
-    check(launch.returncode == 0, f"torchrun W = 1: {said[-4000:]}")
-    check("data parallel: backend nccl, rank 0 of 1" in said,
-          f"torchrun W = 1 joined an NCCL group: {said[-2000:]}")
-    nccl_dir = os.path.join(DIST_RUNS, "synthetic", "nccl1_7_labeled",
-                            "dualdecoder", "run_0")
-    nccl = {r["step"]: r["loss"] for r in _records(nccl_dir) if "loss" in r}
-    ref = {r["step"]: r["loss"] for r in w1_records
-           if "loss" in r and r["step"] <= 12}
-    check(sorted(nccl) == sorted(ref) == list(range(1, 13)),
-          f"torchrun W = 1 logged steps {sorted(nccl)}")
-    gap_a = max(abs(nccl[s] - ref[s]) / abs(ref[s]) for s in ref)
-    print(f"dist (a) torchrun W = 1 over NCCL: 12 losses, largest relative "
-          f"gap to one process {gap_a:.3e}", flush=True)
-    check(gap_a <= RTOL, f"torchrun W = 1 losses against one process: "
-                         f"largest relative gap {gap_a}")
+    gap_a = torchrun_losses(
+        launch, said, os.path.join(DIST_RUNS, "synthetic", "nccl1_7_labeled",
+                                   "dualdecoder", "run_0"),
+        {r["step"]: r["loss"] for r in w1_records
+         if "loss" in r and r["step"] <= 12}, "(a) torchrun W = 1 cli.train_2d")
     res["a_nccl_w1"] = {"largest_rel_loss_gap": gap_a,
                         "torchrun_s_beside_other_runs": torchrun_s}
+    la_labeled = la_config().data.labeled_num
+    gap_h = torchrun_losses(
+        launch3d, said3d, os.path.join(DIST_RUNS, "synthetic",
+                                       f"nccl1_3d_{la_labeled}_labeled",
+                                       "dualdecoder3d", "run_0"),
+        {r["step"]: r["loss"] for r in _records(w1_3d["save_dir"]) if "loss" in r},
+        "(h) torchrun W = 1 cli.train_3d")
+    res["h_nccl_w1_3d"] = {"largest_rel_loss_gap": gap_h, "steps": DIST3D_STEPS,
+                           "config": "configs/la_chap.yml as written (bf16)"}
 
-    want_launches = {k: v * DIST_STEPS for k, v in LAUNCHES_PER_STEP.items()}
-    gaps = [dist_gaps(got["steps"], one, init) for got in ranks]
-    print("dist (b) gloo W = 2 on one card against one process: gaps "
-          + json.dumps(gaps) + "; one process, native against cuDNN "
-          "convolutions: " + json.dumps(control), flush=True)
-    for got, gap in zip(ranks, gaps):
-        r = got["rank"]
-        check(got["world"] == 2, f"rank {r} in a group of 2")
-        check(got["steps"]["launches"] == want_launches,
-              f"rank {r} launches {got['steps']['launches']}, expected "
-              f"{want_launches}")
-        # the step parity bar; the GradSim scores, cosines of gradients,
-        # within it or within twice the one process's own gap
-        for name in ("metrics", "update", "running"):
-            check(gap[name] <= RTOL, f"W = 2 rank {r} {name} within rtol "
-                                     f"{RTOL} of one process: {gap}")
-        check(gap["sim"] <= max(RTOL, 2 * control["sim"]),
-              f"W = 2 rank {r} GradSim scores within rtol {RTOL} or twice "
-              f"the one process's own gap {control['sim']}: {gap}")
-    res["b_gloo_w2_steps"] = {
-        "gaps": gaps, "control_native_conv_gaps": control,
-        "one_process_step_ms": one["step_ms"],
-        "per_rank": [{k: got["steps"][k] for k in (
-            "step_ms", "launches", "collectives_per_step",
-            "allreduce_mb_per_step", "allreduce_ms_per_step")}
-            for got in ranks]}
+    # (b), (e) at W = 2, (f)
+    res["b_gloo_w2_steps"] = hold_ranks("acdc", ranks, one["acdc"],
+                                        inits["acdc"], bars["acdc"], 2)
+    res["e_gloo_w2_la"] = hold_ranks("la", ranks, one["la"], inits["la"],
+                                     bars["la"], 2)
+    res["e_gloo_w2_la_bf16"] = hold_ranks("la_bf16", ranks, one["la_bf16"],
+                                          inits["la"], bars["la_bf16"], 2)
+    res["f_gloo_w2_brats"] = hold_ranks("brats", ranks, one["brats"],
+                                        inits["brats"], bars["brats"], 2)
+
+    # (g): every rank's label maps against W = 1's
+    total = sum(m.size for m in eval_w1["maps"])
+    g_res = {"voxels": total, "eval_s_w1": eval_w1["eval_s"], "per_rank": []}
+    for got in ranks:
+        r, ev = got["rank"], got["eval3d"]
+        differ = sum(int((a != b).sum()) for a, b in zip(ev["maps"], eval_w1["maps"]))
+        check(differ <= 1e-3 * total,
+              f"(g) W = 2 rank {r}: {differ} of {total} voxels differ from W = 1")
+        check(ev["launches"] == dist_eval_launches(r, 2),
+              f"(g) rank {r} K3 launches {ev['launches']}, expected "
+              f"{dist_eval_launches(r, 2)}")
+        metric_gap = float(np.abs(np.asarray(ev["metrics"]) - eval_w1["metrics"]).max())
+        g_res["per_rank"].append({"voxels_differing": differ,
+                                  "largest_metric_gap": metric_gap,
+                                  "launches": ev["launches"],
+                                  "eval_s": ev["eval_s"]})
+    print("dist (g) sliding-window eval W = 2 against W = 1: "
+          + json.dumps(g_res), flush=True)
+    res["g_gloo_w2_eval3d"] = g_res
 
     # (c): rank 0 picked one run dir and wrote it once; evals as W = 1's
     resumed = ranks[0]["trainer"]["resumed"]
@@ -2933,11 +3293,11 @@ def phase_dist() -> dict:
           and all(abs(float(a[1]) - float(b[1])) <= 5e-3
                   for a, b in zip(*val)),
           f"W = 2 val.csv as W = 1's: {val}")
-    eval_w1 = dist_eval(resumed["save_dir"])
+    eval_w1_2d = dist_eval(resumed["save_dir"])
     for got in ranks:
-        check(np.array_equal(got["eval_w2"], eval_w1),
+        check(np.array_equal(got["eval_w2"], eval_w1_2d),
               f"eval at W = 2 {got['eval_w2'].tolist()} equals W = 1's "
-              f"{eval_w1.tolist()} on the same weights")
+              f"{eval_w1_2d.tolist()} on the same weights")
     res["c_gloo_w2_trainer"] = {
         "val_dice_w1": dice[0], "val_dice_w2": dice[1],
         "largest_val_dice_gap": dice_gap, "eval_w2_equals_w1": True,
@@ -2947,6 +3307,18 @@ def phase_dist() -> dict:
                                    * r["steps_per_sec"]
                                    for r in w2_records
                                    if "steps_per_sec" in r][-1]}
+    del ranks
+    torch.cuda.empty_cache()
+
+    # (d) and (e) at W = 4
+    t_spawn = time.perf_counter()
+    ranks4 = dist.spawn_ranks(dist_rank_phase4, 4, (inits,), backend="gloo",
+                              device="cuda", timeout=600)
+    res["spawn4_s"] = time.perf_counter() - t_spawn
+    res["d_gloo_w4_steps"] = hold_ranks("acdc", ranks4, one["acdc"],
+                                        inits["acdc"], bars["acdc"], 4)
+    res["e_gloo_w4_la"] = hold_ranks("la", ranks4, one["la"], inits["la"],
+                                     bars["la"], 4)
     res["phase_s"] = time.perf_counter() - t_phase
     print("dist", json.dumps(res), flush=True)
     shutil.rmtree(DIST_RUNS, ignore_errors=True)
@@ -3213,12 +3585,27 @@ def main() -> int:
                trainer_zoo["launches"]["test_all_case"],
                k3_bf16["brats_160x160x128"]["max_abs_err"]),
     ]
-    # phase 23's bare steps at W = 2: each gloo rank's launches
+    # phase 23's bare steps and eval at W gloo ranks: each rank's launches
+    # (3 steps; a rank without rows launches K1's forward over nothing and
+    # neither K1's backward nor K2)
+    per_rank = {"K1_fwd": ("b_gloo_w2_steps", "d_gloo_w4_steps"),
+                "K1_bwd": ("b_gloo_w2_steps", "d_gloo_w4_steps"),
+                "K2_ccl": ("b_gloo_w2_steps", "d_gloo_w4_steps"),
+                "K1_fwd_3d": ("e_gloo_w2_la", "e_gloo_w4_la"),
+                "K1_bwd_3d": ("e_gloo_w2_la", "e_gloo_w4_la"),
+                "K2_ccl3d": ("e_gloo_w2_la", "e_gloo_w4_la"),
+                "K1_fwd_brats": ("f_gloo_w2_brats",),
+                "K1_bwd_brats": ("f_gloo_w2_brats",),
+                "K1_fwd_bf16": ("e_gloo_w2_la_bf16",),
+                "K1_bwd_bf16": ("e_gloo_w2_la_bf16",)}
     for row in kernels:
-        if row["name"] in ("K1_fwd", "K1_bwd", "K2_ccl"):
-            row["w2_launches_per_rank"] = [
-                r["launches"][row["name"]]
-                for r in dist_res["b_gloo_w2_steps"]["per_rank"]]
+        for key in per_rank.get(row["name"], ()):
+            name = row["name"][:6] if row["name"].startswith("K1") else row["name"]
+            row[f"{key}_launches_per_rank"] = [
+                r["launches"][name] for r in dist_res[key]["per_rank"]]
+        if row["name"] == "K3_sw":
+            row["g_gloo_w2_eval3d_launches_per_rank"] = [
+                r["launches"] for r in dist_res["g_gloo_w2_eval3d"]["per_rank"]]
     for row in kernels:
         check(row["launches"] > 0, f"{row['name']} launched on its main path")
     print(card_line(), flush=True)

@@ -180,5 +180,9 @@ def test_k3_dispatch_never_runs_the_plain_version_off_the_cpu(monkeypatch):
 
 
 def test_engine_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 16"):
-        sw.SlidingWindowEngine(Threshold(), PATCH, mesh=object(), device="cpu")
+    """The engine takes float32 or bf16 patches; chap_tpu's ``mesh`` is
+    accepted (the process group deals the patches, here one process)."""
+    with pytest.raises(ValueError, match="is not float32 or bfloat16"):
+        sw.SlidingWindowEngine(Threshold(), PATCH, compute_dtype=torch.float16,
+                               device="cpu")
+    sw.SlidingWindowEngine(Threshold(), PATCH, mesh=object(), device="cpu")

@@ -5,7 +5,9 @@ One spawn of two ranks (``dist.spawn_ranks``) runs every case of this file
 (tests/torch_dist_cases.py); the one-process reference is the same function
 called here, in a process without a group (W = 1, where every reduction is
 the identity). The inputs are global, made from seeds with numpy, and each
-rank takes its rows (``rank_rows``).
+rank takes its rows (``rank_rows``). The 2D cases, and the 3D trainer's cps
+and supervised steps and its sliding-window eval (the 3D CHAP step at LA's
+layout is in tests/test_torch_parallel4.py, at W = 4).
 
 Bars: float32 summation noise. W = 2 sums each statistic in two halves, and
 BatchNorm takes Flax's one-pass variance where the one-process port takes
@@ -28,9 +30,11 @@ import torch
 import torch_dist_cases as cases
 from chap_tpu_torch.config import Config
 from chap_tpu_torch.data.datasets import SyntheticVolumeDataset, phantom_batch
-from chap_tpu_torch.data.device_data import DevicePool, build_device_batch_fn
+from chap_tpu_torch.data.device_data import (DevicePool, DeviceVolumePool,
+                                             build_device_batch_fn,
+                                             build_device_patch_fn)
 from chap_tpu_torch.data.sampler import RankBatchSampler, TwoStreamBatchSampler
-from chap_tpu_torch.models.factory import net_factory
+from chap_tpu_torch.models.factory import net_factory, net_factory_3d
 from chap_tpu_torch.parallel import dist
 from chap_tpu_torch.train.state import bn_running_stats
 from chap_tpu_torch.train.step_chap import draw_step_uniforms, shard_step_draws
@@ -43,6 +47,7 @@ C, B, LB, HW = 4, 8, 4, 32
 CHNS = (4, 8, 16, 16, 32)
 STEPS = 3
 RTOL, ATOL = 1e-5, 1e-5
+LOSS_RTOL = 2e-3        # the port's loss parity bar (ROADMAP, tests/test_pallas_ops.py:60)
 
 
 def _cfg(remat=False):
@@ -55,18 +60,106 @@ def _cfg(remat=False):
     return cfg
 
 
+# the 3D cases: test_torch_step3d.py's sizes
+C3, B3, LB3, NF, PATCH = 2, 4, 2, 4, (32, 32, 16)
+SUPERVISED_3D = ("vnet", "unet_3D")     # BatchNorm, instance norm
+
+
+def _cfg3d(name_3d="dualdecoder"):
+    cfg = Config()
+    cfg.data.num_classes, cfg.data.batch_size = C3, B3
+    cfg.data.labeled_bs = LB3
+    cfg.data.patch_size_3d = PATCH
+    cfg.model.n_filters_3d, cfg.model.name_3d = NF, name_3d
+    cfg.eval.stride_xy, cfg.eval.stride_z = 8, 4
+    return cfg
+
+
+def phantom_patches(rs, b, patch=PATCH):
+    """Two-class cuboid phantoms [b, 1, *patch] and labels [b, *patch]."""
+    label = np.zeros((b, *patch), np.int64)
+    for i in range(b):
+        lo = rs.randint(2, 6, 3)
+        hi = lo + rs.randint(6, 10, 3)
+        label[i, lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]] = 1
+    image = (label / 2.0 + rs.normal(0, 0.3, label.shape)).astype(np.float32)
+    return {"image": torch.from_numpy(image[:, None]),
+            "label": torch.from_numpy(label)}
+
+
+def float64(x):
+    """``x``'s floating tensors (in dicts and lists) in float64."""
+    if isinstance(x, torch.Tensor):
+        return x.double() if x.is_floating_point() else x
+    if isinstance(x, dict):
+        return {k: float64(v) for k, v in x.items()}
+    if isinstance(x, list):
+        return [float64(v) for v in x]
+    return x
+
+
+def _inputs_3d():
+    """The 3D cases: two cps steps and two supervised steps of a BatchNorm
+    and an instance-norm model, and test_all_case over two phantom
+    volumes (12 and 8 patches, so a rank gets no patch of a short last
+    batch).
+
+    The steps run in float64 (model and inputs): in float32 the 3D steps'
+    argmax pseudo-labels amplify W = 2's other summation order, since at
+    initialisation many of the 2-class voxels' logits tie to float32
+    rounding and each flipped voxel moves a mean over the 32,768 of a batch
+    by about 1e-4 (measured: the cps loss of step 2 2.4e-4 relative off
+    one process); in float64 W = 2 and one process agree to 1e-8 (the
+    all-reduced sums are float32), which checks the layout and every
+    reduction at this file's bars."""
+    rs = np.random.RandomState(3)
+    batches = [phantom_patches(rs, B3) for _ in range(2)]
+    out = []
+    for name in ("dualdecoder",) + SUPERVISED_3D:
+        cfg = _cfg3d(name)
+        torch.manual_seed(4)
+        init = net_factory_3d(name, 1, C3, cfg=cfg.model,
+                              device="cpu").state_dict()
+        draws = [{"drop": [torch.from_numpy(rs.rand(*s).astype(np.float32))
+                           for s in net_factory_3d(
+                               name, 1, C3, cfg=cfg.model,
+                               device="cpu").dropout_shapes(B3, PATCH)]}
+                 for _ in batches]
+        mode = "cps3d" if name == "dualdecoder" else "supervised3d"
+        out.append((f"{mode}_{name}", "run_steps",
+                    (cfg, float64(init), [], float64(batches), float64(draws),
+                     mode)))
+    # eval weights: the dualdecoder with the running stats of one batch
+    cfg = _cfg3d()
+    torch.manual_seed(4)
+    model = net_factory_3d("dualdecoder", 1, C3, cfg=cfg.model, device="cpu")
+    stats = {}
+    with torch.no_grad():
+        model.train()(batches[0]["image"], stats=stats)
+    for key, (mean, var) in bn_running_stats(model).items():
+        mean.copy_(stats[key][0])
+        var.copy_(stats[key][1])
+    cases_3d = []
+    for shape in ((40, 40, 24), (40, 32, 24)):
+        vol = phantom_patches(rs, 1, shape)
+        cases_3d.append({"image": vol["image"][0, 0].numpy(),
+                         "label": vol["label"][0].numpy()})
+    evaluated = {k: v.clone() for k, v in model.state_dict().items()}
+    out.append(("eval3d", "evaluation_3d", (cfg, evaluated, cases_3d, PATCH, 8)))
+    return out
+
+
 def _sim0():
     return [torch.from_numpy(np.linspace(-0.5, 0.5, c).astype(np.float32))
             for c in CHNS]
 
 
-def _inputs():
-    """Every global input of the cases: (name, function, arguments)."""
-    rs = np.random.RandomState(0)
+def step_cases():
+    """The 2D CHAP and supervised cases: STEPS steps of batch B from one
+    initialisation, (name, function, arguments) each."""
     cfg = _cfg()
     torch.manual_seed(0)
     init = net_factory("dualdecoder", 1, C, cfg.model, device="cpu").state_dict()
-    sim = _sim0()
     batches = []
     for i in range(STEPS):
         images, labels = phantom_batch(np.random.RandomState(10 + i), B, HW, C)
@@ -78,6 +171,24 @@ def _inputs():
     sup_draws = [draw_supervised_uniforms(cfg, (B, 1, HW, HW),
                                           torch.Generator().manual_seed(i))
                  for i in range(STEPS)]
+    return [("chap", "run_steps", (cfg, init, _sim0(), batches, chap_draws)),
+            ("chap_remat", "run_steps", (_cfg(remat=True), init, _sim0(),
+                                         batches[:2], chap_draws[:2])),
+            ("supervised", "run_steps", (cfg, init, _sim0(), batches,
+                                         sup_draws, "supervised"))]
+
+
+def _inputs():
+    """Every global input of the cases: (name, function, arguments)."""
+    rs = np.random.RandomState(0)
+    cfg = _cfg()
+    torch.manual_seed(0)
+    init = net_factory("dualdecoder", 1, C, cfg.model, device="cpu").state_dict()
+    batches = []
+    for i in range(STEPS):
+        images, labels = phantom_batch(np.random.RandomState(10 + i), B, HW, C)
+        batches.append({"image": torch.from_numpy(images),
+                        "label": torch.from_numpy(labels)})
     x = torch.from_numpy(rs.randn(8, 5).astype(np.float32))
     w = torch.from_numpy(rs.randn(8, 5).astype(np.float32))
     bn_x = torch.from_numpy((rs.randn(8, 6, 5, 5) * 2 + 1).astype(np.float32))
@@ -105,13 +216,8 @@ def _inputs():
         ("bn_float32", "batch_norm", (bn_x, bn_w, *bn_p, torch.float32)),
         ("bn_bfloat16", "batch_norm", (bn_x, bn_w, *bn_p, torch.bfloat16)),
         ("k1", "k1_plain", (logits, labels[0], mask, labels[1], coef)),
-        ("chap", "run_steps", (cfg, init, sim, batches, chap_draws)),
-        ("chap_remat", "run_steps", (_cfg(remat=True), init, sim,
-                                     batches[:2], chap_draws[:2])),
-        ("supervised", "run_steps", (cfg, init, sim, batches, sup_draws,
-                                     "supervised")),
         ("eval", "evaluation", (cfg, evaluated, volumes, (32, 32))),
-    ]
+    ] + step_cases() + _inputs_3d()
 
 
 def _cli(root):
@@ -125,6 +231,16 @@ def _cli(root):
     return ("cli", "train_and_resume", (argv, 2, 4))
 
 
+def _cli_3d(root):
+    """cli.train_3d: 2 CHAP steps on synthetic volumes, resumed to 3."""
+    argv = ["--device", "cpu", "--dataset", "synthetic", "--exp", "dist",
+            "--adv_noise", "--dropout", "--labeled_num", "4", "--batch_size",
+            str(B3), "--labeled_bs", str(LB3), "--num_classes", str(C3),
+            "data.patch_size_3d=[16,16,16]", "model.n_filters_3d=2",
+            f"run.snapshot_root={root}", "run.log_every=1"]
+    return ("cli3d", "train_and_resume", (argv, 2, 3, "train_3d"))
+
+
 @pytest.fixture(scope="module")
 def results(tmp_path_factory):
     """(one-process results, [rank 0's, rank 1's]) of every case."""
@@ -133,10 +249,11 @@ def results(tmp_path_factory):
     # the ranks run while this process computes the one-process results
     pool = concurrent.futures.ThreadPoolExecutor(1)
     ranks = pool.submit(dist.spawn_ranks, cases.run_cases, W, (
-        specs + [_cli(tmp / "two"), ("refusals", "refusals", (str(tmp),))],),
-        timeout=300)
+        specs + [_cli(tmp / "two"), _cli_3d(tmp / "two"),
+                 ("refusals", "refusals", (str(tmp),))],), timeout=300)
     pool.shutdown(wait=False)
-    one = cases.run_cases(copy.deepcopy(specs) + [_cli(tmp / "one")])
+    one = cases.run_cases(copy.deepcopy(specs) + [_cli(tmp / "one"),
+                                                  _cli_3d(tmp / "one")])
     return one, ranks.result()
 
 
@@ -146,16 +263,21 @@ def _close(got, want, rtol=0.0, atol=ATOL, what=""):
                                atol=atol, err_msg=what)
 
 
-def _rows(x, r, roles=1):
+def _rows(x, r, roles=dist.ONE_ROLE):
     return dist.shard_rows(x, roles, r, W)
 
 
-def gathered_rows(parts, roles=1):
+def gathered_rows(parts, roles=dist.ONE_ROLE):
     """The global batch from every rank's rows (``parts`` in rank order),
-    the inverse of ``dist.shard_rows``: each role's rows, rank after rank."""
-    chunks = [p.chunk(roles) for p in parts]
-    return torch.cat([chunks[r][role] for role in range(roles)
-                      for r in range(len(parts))])
+    the inverse of ``dist.shard_rows``: each row put back at its global
+    index (``rank_rows``); every global row must come from one rank."""
+    world = len(parts)
+    rows = sum(p.shape[0] for p in parts)
+    index = [i for r in range(world) for i in dist.rank_rows(rows, roles, r, world)]
+    assert sorted(index) == list(range(rows))
+    out = torch.empty((rows,) + tuple(parts[0].shape[1:]), dtype=parts[0].dtype)
+    out[torch.tensor(index, dtype=torch.int64)] = torch.cat(parts)
+    return out
 
 
 def test_reductions_forward_and_gradient(results):
@@ -209,7 +331,9 @@ def test_k1_region_dice_ce_over_every_rank(results):
         _close(got["k1"][1], _rows(grad, r), RTOL, 1e-8)
 
 
-def _hold_steps(one, ranks, name):
+def hold_steps(one, ranks, name):
+    """Every rank's steps against the one-process steps (the bars above),
+    and the same collectives on every rank."""
     want = one[name]
     for got in ranks:
         got = got[name]
@@ -224,7 +348,8 @@ def _hold_steps(one, ranks, name):
         for g, w in zip(got["sim"], want["sim"]):
             _close(g, w, 0.0, ATOL, "sim_scores")
     # every rank issued the same collectives in the same order
-    assert ranks[0][name]["collectives"] == ranks[1][name]["collectives"]
+    assert all(got[name]["collectives"] == ranks[0][name]["collectives"]
+               for got in ranks)
     assert len(ranks[0][name]["collectives"]) > 0
     assert want["collectives"] == []
 
@@ -235,7 +360,7 @@ def test_chap_steps_match_one_process(results, name):
     so sub_bs 2 and one row of each role a rank), remat off and on: metrics,
     every parameter, the BN running statistics and the GradSim scores."""
     one, ranks = results
-    _hold_steps(one, ranks, name)
+    hold_steps(one, ranks, name)
     # the GradSim scores moved away from their start
     assert any(float((s - w).abs().max()) > 1e-3
                for s, w in zip(one[name]["sim"], _sim0()))
@@ -243,7 +368,37 @@ def test_chap_steps_match_one_process(results, name):
 
 def test_supervised_steps_match_one_process(results):
     one, ranks = results
-    _hold_steps(one, ranks, "supervised")
+    hold_steps(one, ranks, "supervised")
+
+
+@pytest.mark.parametrize("name", ["cps3d_dualdecoder"] + [
+    f"supervised3d_{m}" for m in SUPERVISED_3D])
+def test_3d_steps_match_one_process(results, name):
+    """trainer_3d's cps step (each rank holding one labeled or one
+    unlabeled row) and its supervised step on a BatchNorm model (vnet, BN
+    over both ranks) and an instance-norm one (unet_3D, per sample): two
+    steps each, metrics, parameters and BN running statistics."""
+    one, ranks = results
+    hold_steps(one, ranks, name)
+
+
+def test_sliding_window_eval_at_two_ranks(results):
+    """SlidingWindowEngine and test_all_case at W = 2: each batch of 8
+    patches dealt 4 and 4 (the second volume's 8 patches one batch, the
+    first's 12 two, the second of which rank 1 gets nothing of), one
+    all-reduce of the maps a volume. Every rank returns W = 1's label maps
+    and per-case metrics: no voxel differs here, though the scores are
+    summed in another order."""
+    one, ranks = results
+    metrics, per_case, maps = one["eval3d"]
+    assert all(len(np.unique(m)) > 1 for m in maps)
+    for got in ranks:
+        g_metrics, g_per_case, g_maps = got["eval3d"]
+        for g, w in zip(g_maps, maps):
+            np.testing.assert_array_equal(g, w)
+        np.testing.assert_array_equal(g_metrics, metrics)
+        for g, w in zip(g_per_case, per_case):
+            np.testing.assert_array_equal(g, w)
 
 
 def test_eval2d_is_the_same_at_every_world_size(results):
@@ -280,27 +435,112 @@ def test_cli_trains_and_resumes_at_two_ranks(results):
     assert got0["best_dice"] == pytest.approx(want["best_dice"], abs=1e-6)
 
 
+def test_cli_3d_trains_and_resumes_at_two_ranks(results):
+    """cli.train_3d in the ranks' process group (the CHAP step over one
+    pair-stream unit a rank): rank 0 picks the run dir and writes every
+    file, both ranks return the same result, and the losses are the
+    one-process run's."""
+    one, ranks = results
+    _, want, want_records = one["cli3d"]
+    (first0, got0, records), (first1, got1, none) = ranks[0]["cli3d"], ranks[1]["cli3d"]
+    assert first0 == first1 == got0["save_dir"] == got1["save_dir"]
+    assert got0 == got1 and got0["steps"] == 3 and none is None
+    run = got0["save_dir"]
+    assert os.listdir(os.path.dirname(run)) == ["run_0"]
+    with open(os.path.join(run, "log.txt")) as f:
+        log = f.read()
+    assert "resumed from step 2" in log and "backend gloo, rank 0 of 2" in log
+    assert [r["step"] for r in records] == [r["step"] for r in want_records]
+    losses = [(g["loss"], w["loss"]) for g, w in zip(records, want_records)
+              if "loss" in w]
+    assert len(losses) == 3
+    # the first two steps within float32 noise; the 3D CHAP step's argmax
+    # pseudo-labels then amplify W = 2's other summation order (see
+    # _inputs_3d; measured 2.5e-4 relative at step 3), held to the port's
+    # loss parity bar
+    for (g, w), rtol in zip(losses, (RTOL, RTOL, LOSS_RTOL)):
+        _close(g, w, rtol, 1e-6, "loss")
+
+
 def test_refusals_at_two_ranks(results):
+    """At W = 2: a batch of 3 (the CHAP and supervised steps, the 3D
+    trainer), an sw_batch of 3, the parallel options and the paths still
+    on one rank (ROADMAP item 16c)."""
     said = results[1][0]["refusals"]
     assert results[1][1]["refusals"] == said
-    assert "W must divide s = 1" in said["chap_layout"]
-    assert "W must divide s = 3" in said["supervised_layout"]
+    for name in ("chap_layout", "supervised_layout", "trainer_3d_layout"):
+        assert "W must divide data.batch_size" in said[name], name
+        assert "cannot share a batch of 3" in said[name], name
+    assert "sw_batch % W == 0" in said["sw_batch"]
     assert "must equal the world size" in said["num_devices"]
     assert "must divide the world size 2" in said["dcn_axis_size"]
-    assert "ROADMAP item 16b" in said["trainer_3d"]
     for name in ("trainer_share", "ablation"):
         assert "ROADMAP item 16c" in said[name]
 
 
 def test_layout_refuses_what_it_cannot_share():
-    """W must divide each role: acdc_chap.yml's sub_bs 6 takes W in
-    {1, 2, 3, 6}; four ranks would split 6 pairs."""
-    for world in (1, 2, 3, 6):
-        rows = [i for r in range(world) for i in dist.rank_rows(24, 4, r, world)]
-        assert sorted(rows) == list(range(24))
-    for world in (4, 5, 12):
-        with pytest.raises(ValueError, match="W must divide s = 6"):
-            dist.rank_rows(24, 4, 0, world)
+    """W must divide the batch, chap_tpu's rule: acdc_chap.yml's batch of
+    24 takes W in {1, 2, 3, 4, 6, 8, 12, 24}, la_chap.yml's 4 W in {1, 2,
+    4}; any other W is refused with the rule."""
+    for batch, worlds in ((24, (1, 2, 3, 4, 6, 8, 12, 24)), (4, (1, 2, 4))):
+        for world in range(1, batch + 1):
+            if world in worlds:
+                dist.check_batch(batch, world, "layout")
+                continue
+            with pytest.raises(ValueError,
+                               match=f"W must divide data.batch_size .*{list(worlds)}"):
+                dist.check_batch(batch, world, "layout")
+
+
+@pytest.mark.parametrize("world", [1, 2, 3, 4, 6, 8, 12])
+def test_pair_stream_units_rebuild_the_global_batch_and_draws(world):
+    """At batch 24 (s = 6, U = 12 units): every rank's rows are whole
+    pair-stream units (img_a[p] with uimg_a[p], img_b[p] with uimg_b[p];
+    each rank's units [floor(r U / W), floor((r + 1) U / W))), and the
+    ranks' rows, put back by unit, rebuild the global batch, its device
+    draw and the step draws of every pass."""
+    batch, s = 24, 6
+    held = []
+    for r in range(world):
+        rows = dist.rank_rows(batch, dist.CHAP_ROLES, r, world)
+        units = sorted({2 * (i % s) + (i // s) % 2 for i in rows})
+        assert units == list(range(r * 2 * s // world,
+                                   (r + 1) * 2 * s // world))
+        for u in units:      # both rows of a unit: labeled and unlabeled
+            p, stream = divmod(u, 2)
+            assert {stream * s + p, (2 + stream) * s + p} <= set(rows)
+        assert len(rows) == 2 * len(units)
+        held += units
+    assert sorted(held) == list(range(2 * s))
+    cfg = _cfg()
+    cfg.data.batch_size, cfg.data.labeled_bs = batch, batch // 2
+    images = torch.rand(60, HW, HW, generator=torch.Generator().manual_seed(0))
+    pool = DevicePool(images, (images * 4).to(torch.uint8))
+    whole = build_device_batch_fn(60, 20, batch, batch // 2)(
+        pool, torch.Generator().manual_seed(7))
+    parts = [build_device_batch_fn(60, 20, batch, batch // 2,
+                                   roles=dist.CHAP_ROLES, rank=r, world=world)(
+                 pool, torch.Generator().manual_seed(7)) for r in range(world)]
+    for k in ("image", "label"):
+        torch.testing.assert_close(gathered_rows([p[k] for p in parts],
+                                                 dist.CHAP_ROLES),
+                                   whole[k], rtol=0, atol=0)
+    draws = draw_step_uniforms(cfg, (batch, 1, HW, HW),
+                               torch.Generator().manual_seed(3))
+    parts = [shard_step_draws(draws, r, world) for r in range(world)]
+    roles = {"student": (1, 0)}
+    for name, us in draws["drop"].items():
+        for i, u in enumerate(us):
+            if u is not None:
+                torch.testing.assert_close(gathered_rows(
+                    [p["drop"][name][i] for p in parts], roles.get(name, (0, 1))),
+                    u, rtol=0, atol=0)
+    torch.testing.assert_close(gathered_rows(
+        [p["vat_d"] for p in parts], (0, 1)), draws["vat_d"], rtol=0, atol=0)
+    for lvl, us in enumerate(draws["perturb"]):
+        for i, u in enumerate(us):
+            torch.testing.assert_close(gathered_rows(
+                [p["perturb"][lvl][i] for p in parts], (1,)), u, rtol=0, atol=0)
 
 
 def test_rank_rows_reassemble_the_global_batch_and_draws():
@@ -311,7 +551,7 @@ def test_rank_rows_reassemble_the_global_batch_and_draws():
     pool = DevicePool(images, (images * 4).to(torch.uint8))
     whole = build_device_batch_fn(40, 12, B, LB)(
         pool, torch.Generator().manual_seed(7))
-    for roles in (4, 1):
+    for roles in (dist.CHAP_ROLES, dist.ONE_ROLE):
         parts = [build_device_batch_fn(40, 12, B, LB, roles=roles, rank=r,
                                        world=W)(pool, torch.Generator().manual_seed(7))
                  for r in range(W)]
@@ -327,13 +567,28 @@ def test_rank_rows_reassemble_the_global_batch_and_draws():
         for i, u in enumerate(us):
             if u is not None:
                 torch.testing.assert_close(gathered_rows(
-                    [p["drop"][name][i] for p in parts], 2), u, rtol=0, atol=0)
+                    [p["drop"][name][i] for p in parts],
+                    (1, 0) if name == "student" else (0, 1)), u, rtol=0, atol=0)
     torch.testing.assert_close(gathered_rows(
-        [p["vat_d"] for p in parts], 2), draws["vat_d"], rtol=0, atol=0)
+        [p["vat_d"] for p in parts], (0, 1)), draws["vat_d"], rtol=0, atol=0)
     for lvl, us in enumerate(draws["perturb"]):
         for i, u in enumerate(us):
             torch.testing.assert_close(gathered_rows(
-                [p["perturb"][lvl][i] for p in parts], 1), u, rtol=0, atol=0)
+                [p["perturb"][lvl][i] for p in parts], (1,)), u, rtol=0, atol=0)
+    # the 3D patch function: its rank's rows of the same global draw
+    vols = torch.rand(6, 40, 40, 24, generator=torch.Generator().manual_seed(1))
+    vpool = DeviceVolumePool(vols, (vols * 2).to(torch.uint8),
+                             torch.tensor([[40, 40, 24]] * 6))
+    whole = build_device_patch_fn(6, 3, B, LB, PATCH)(
+        vpool, torch.Generator().manual_seed(9))
+    for roles in (dist.CHAP_ROLES, dist.ONE_ROLE):
+        parts = [build_device_patch_fn(6, 3, B, LB, PATCH, roles=roles,
+                                       rank=r, world=W)(
+                     vpool, torch.Generator().manual_seed(9)) for r in range(W)]
+        for k in ("image", "label"):
+            torch.testing.assert_close(gathered_rows([p[k] for p in parts],
+                                                     roles), whole[k],
+                                       rtol=0, atol=0)
 
 
 def test_rank_batch_sampler_loads_each_ranks_rows():
@@ -342,7 +597,7 @@ def test_rank_batch_sampler_loads_each_ranks_rows():
     def sampler():
         return TwoStreamBatchSampler(range(20), range(20, 60), B, B - LB, seed=3)
     whole = list(sampler())
-    for roles in (4, 1):
+    for roles in (dist.CHAP_ROLES, dist.ONE_ROLE):
         parts = [list(RankBatchSampler(sampler(), roles, r, W)) for r in range(W)]
         for i, batch in enumerate(whole):
             got = gathered_rows([torch.tensor(p[i]) for p in parts], roles)

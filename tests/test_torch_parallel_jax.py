@@ -3,6 +3,8 @@ against chap_tpu's CHAP step on a 2-device CPU mesh (parallel/mesh.py, built
 as tests/test_parallel.py builds it), from the same Flax weights (carried by
 ``state_dict_from_flax``) with the same draws fed to both, as
 tests/test_torch_step.py holds the one-process step; the same bars.
+tests/test_torch_parallel4.py holds W = 4 (one pair-stream unit a rank) to a
+4-device mesh with the functions here.
 
 chap_tpu's mesh step is one GSPMD program over the global batch; the port's
 ranks each take their rows of it (``rank_rows``) and sum every statistic
@@ -39,9 +41,10 @@ torch.set_num_threads(1)
 W = 2
 
 
-@pytest.fixture(scope="module")
-def steps():
-    """(chap_tpu's step on a 2-device mesh, the port's two ranks' results)."""
+def chap_tpu_inputs():
+    """(chap_tpu's model, optimizer and train state, the port's case
+    running the same step from the same weights and draws on a rank's
+    rows)."""
     images, labels, perturb, vat_u, sim = _inputs()
     cfg = _configure(JaxConfig())
     model = jax_net_factory("dualdecoder", 1, C, cfg.model)
@@ -53,18 +56,22 @@ def steps():
     state = state.replace(sim_scores=tuple(jnp.asarray(s) for s in sim))
     variables = jax.device_get({"params": state.params,
                                 "batch_stats": state.batch_stats})
-    # the port's ranks run while chap_tpu compiles its step
     port_cfg = _configure(Config())
     init = state_dict_from_flax(variables["params"], variables["batch_stats"])
     batches = [{"image": torch.from_numpy(images), "label": torch.from_numpy(labels)}]
-    spec = [("chap", "run_steps", (port_cfg, init,
-                                   [torch.from_numpy(s) for s in sim], batches,
-                                   [_draws(perturb, vat_u)]))]
-    pool = concurrent.futures.ThreadPoolExecutor(1)
-    ranks = pool.submit(dist.spawn_ranks, cases.run_cases, W, (spec,), timeout=300)
-    pool.shutdown(wait=False)
+    spec = ("chap_tpu", "run_steps", (port_cfg, init,
+                                      [torch.from_numpy(s) for s in sim], batches,
+                                      [_draws(perturb, vat_u)]))
+    return (cfg, model, opt, state), spec
+
+
+def chap_tpu_mesh_step(built, world):
+    """chap_tpu's CHAP step on a ``world``-device CPU mesh, its draws fed
+    as tests/test_torch_step.py feeds them."""
+    cfg, model, opt, state = built
+    images, labels, perturb, vat_u, _ = _inputs()
     mask = np.asarray(generate_mask_nd((HW, HW), STARTS))
-    mesh = build_mesh(num_devices=W)
+    mesh = build_mesh(num_devices=world)
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jax_step_chap, "generate_mask_nd",
                    lambda rng, spatial: jnp.asarray(mask))
@@ -78,16 +85,16 @@ def steps():
                                     batch_sharding(mesh, 4)),
             "label": jax.device_put(jnp.asarray(labels.astype(np.uint8)),
                                     batch_sharding(mesh, 3))}
-        want = jax.device_get(step(replicate(mesh, state), batch,
+        return jax.device_get(step(replicate(mesh, state), batch,
                                    jax.random.PRNGKey(42)))
-    return want, ranks.result()
 
 
-def test_chap_step_at_two_ranks_matches_chap_tpu_on_a_two_device_mesh(steps):
-    want, ranks = steps
+def hold_to_chap_tpu(want, ranks):
+    """Every rank's step against chap_tpu's mesh step, at
+    tests/test_torch_step.py's bars."""
     after = state_dict_from_flax(want.state.params, want.state.batch_stats)
     for got in ranks:
-        got = got["chap"]
+        got = got["chap_tpu"]
         for k in METRICS:
             np.testing.assert_allclose(got["metrics"][0][k], float(want.metrics[k]),
                                        rtol=2e-3, atol=1e-6, err_msg=k)
@@ -100,3 +107,19 @@ def test_chap_step_at_two_ranks_matches_chap_tpu_on_a_two_device_mesh(steps):
         for g, w in zip(got["sim"], want.state.sim_scores):
             np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-3, rtol=0)
     assert int(want.state.step) == 1
+
+
+@pytest.fixture(scope="module")
+def steps():
+    """(chap_tpu's step on a 2-device mesh, the port's two ranks' results)."""
+    built, spec = chap_tpu_inputs()
+    # the port's ranks run while chap_tpu compiles its step
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    ranks = pool.submit(dist.spawn_ranks, cases.run_cases, W, ([spec],),
+                        timeout=300)
+    pool.shutdown(wait=False)
+    return chap_tpu_mesh_step(built, W), ranks.result()
+
+
+def test_chap_step_at_two_ranks_matches_chap_tpu_on_a_two_device_mesh(steps):
+    hold_to_chap_tpu(*steps)

@@ -12,39 +12,67 @@ import torch
 
 from chap_tpu_torch.config import Config
 from chap_tpu_torch.eval.eval2d import evaluate_volumes, make_predictor, predict_volume
-from chap_tpu_torch.models.factory import net_factory
+from chap_tpu_torch.eval.sliding_window import SlidingWindowEngine, test_all_case
+from chap_tpu_torch.models.factory import net_factory, net_factory_3d
 from chap_tpu_torch.models.layers import BatchNorm2d, set_compute_dtype
 from chap_tpu_torch.ops.fused_losses import region_dice_ce
 from chap_tpu_torch.parallel import dist
+from chap_tpu_torch.semi.gradsim import VNET_LEVEL_PATHS
 from chap_tpu_torch.train.state import TrainState, bn_running_stats, make_optimizer
 from chap_tpu_torch.train.step_chap import build_chap_train_step
 from chap_tpu_torch.train.step_supervised import build_supervised_train_step
+from chap_tpu_torch.train.trainer_3d import (build_cps3d_train_step,
+                                             build_supervised3d_train_step)
 
 
-def model_from(cfg, state_dict):
-    model = net_factory(cfg.model.name, cfg.data.in_chns, cfg.data.num_classes,
-                        cfg.model, device="cpu")
+def model_from(cfg, state_dict, name=None):
+    """The 2D model ``cfg.model.name``, or the 3D ``name``, from
+    ``state_dict`` (in float64 if it is)."""
+    if name is None:
+        model = net_factory(cfg.model.name, cfg.data.in_chns,
+                            cfg.data.num_classes, cfg.model, device="cpu")
+    else:
+        model = net_factory_3d(name, cfg.data.in_chns, cfg.data.num_classes,
+                               mode="train", cfg=cfg.model, device="cpu")
+    if any(v.dtype == torch.float64 for v in state_dict.values()):
+        model.double()      # a float64 run of the port's own ops
     model.load_state_dict(state_dict)
     return model
 
 
+# mode: (3D model key or None for the 2D one, step builder, batch roles)
+STEPS = {
+    "chap": (None, lambda m, o, c: build_chap_train_step(m, o, c, device="cpu"),
+             dist.CHAP_ROLES),
+    "supervised": (None, lambda m, o, c: build_supervised_train_step(
+        m, o, c, device="cpu"), dist.ONE_ROLE),
+    "chap3d": ("dualdecoder", lambda m, o, c: build_chap_train_step(
+        m, o, c, level_paths=VNET_LEVEL_PATHS, device="cpu"), dist.CHAP_ROLES),
+    "cps3d": ("dualdecoder", lambda m, o, c: build_cps3d_train_step(
+        m, o, c, device="cpu"), dist.ONE_ROLE),
+    "supervised3d": ("name_3d", lambda m, o, c: build_supervised3d_train_step(
+        m, o, c, device="cpu"), dist.ONE_ROLE),
+}
+
+
 def run_steps(cfg, state_dict, sim, batches, draws, mode="chap"):
-    """``len(batches)`` steps of ``mode`` from ``state_dict`` (and GradSim
-    scores ``sim``) on this rank's rows of the global ``batches`` with the
-    global ``draws``. Returns per-step metrics, the final state (parameters,
-    BN running stats, scores) and the sequence of all-reduces made."""
-    model = model_from(cfg, state_dict)
+    """``len(batches)`` steps of ``mode`` (``STEPS``) from ``state_dict``
+    (and GradSim scores ``sim``) on this rank's rows of the global
+    ``batches`` with the global ``draws``. Returns per-step metrics, the
+    final state (parameters, BN running stats, scores), the sequence of
+    all-reduces made and this rank's rows of each batch."""
+    name, build, roles = STEPS[mode]
+    model = model_from(cfg, state_dict,
+                       cfg.model.name_3d if name == "name_3d" else name)
     opt = make_optimizer(model, cfg.optim.base_lr, cfg.optim.momentum,
                          cfg.optim.weight_decay)
     state = TrainState(0, model, opt, [s.clone() for s in sim])
-    if mode == "chap":
-        step, roles = build_chap_train_step(model, opt, cfg, device="cpu"), 4
-    else:
-        step, roles = build_supervised_train_step(model, opt, cfg, device="cpu"), 1
-    metrics = []
+    step = build(model, opt, cfg)
+    metrics, local_rows = [], []
     with dist.record_collectives() as record:
         for batch, d in zip(batches, draws):
             rows = {k: dist.shard_rows(v, roles) for k, v in batch.items()}
+            local_rows.append(rows["image"].shape[0])
             out = step(state, rows, draws=copy.deepcopy(d))
             metrics.append({k: float(v) for k, v in out.metrics.items()})
     return {"metrics": metrics,
@@ -52,7 +80,7 @@ def run_steps(cfg, state_dict, sim, batches, draws, mode="chap"):
             "running": {k: (m.clone(), v.clone()) for k, (m, v)
                         in bn_running_stats(model).items()},
             "sim": [s.clone() for s in state.sim_scores],
-            "collectives": list(record)}
+            "collectives": list(record), "rows": local_rows}
 
 
 def reductions(x, w):
@@ -114,14 +142,31 @@ def evaluation(cfg, state_dict, dataset, patch):
     return evaluate_volumes(dataset, predict, cfg.data.num_classes, patch), maps
 
 
-def train_and_resume(argv, steps, resumed_steps):
-    """cli.train_2d for ``steps`` steps, then ``--resume`` to
+def evaluation_3d(cfg, state_dict, cases, patch, sw_batch):
+    """test_all_case of the 3D model ``cfg.model.name_3d`` over ``cases``
+    (its per-case metrics) and each case's label map from the engine."""
+    model = model_from(cfg, state_dict, cfg.model.name_3d)
+    per_case = []
+    metrics = test_all_case(model, cases, cfg.data.num_classes, patch,
+                            cfg.eval.stride_xy, cfg.eval.stride_z,
+                            sw_batch=sw_batch, per_case=per_case,
+                            device="cpu")
+    engine = SlidingWindowEngine(model, patch, sw_batch, device="cpu")
+    maps = [engine.predict(case["image"], cfg.eval.stride_xy,
+                           cfg.eval.stride_z, cfg.data.num_classes)
+            for case in cases]
+    return metrics, [m for _, m in per_case], maps
+
+
+def train_and_resume(argv, steps, resumed_steps, cli="train_2d"):
+    """chap_tpu_torch.cli.``cli`` for ``steps`` steps, then ``--resume`` to
     ``resumed_steps``, in a process group the caller initialised (or in one
     process): the run dir and its metrics.jsonl records."""
+    import importlib
     import json
     import os
 
-    from chap_tpu_torch.cli import train_2d as cli_train
+    cli_train = importlib.import_module(f"chap_tpu_torch.cli.{cli}")
 
     first = cli_train.main(argv + ["--max_iterations", str(steps)])
     second = cli_train.main(argv + ["--max_iterations", str(resumed_steps),
@@ -148,14 +193,18 @@ def refusals(tmp):
             said[name] = None
 
     cfg = Config()
-    cfg.data.batch_size, cfg.data.labeled_bs = 4, 2     # sub_bs 1
+    cfg.data.batch_size, cfg.data.labeled_bs = 3, 2
     model = net_factory("dualdecoder", 1, 4, cfg.model, device="cpu")
     opt = make_optimizer(model, 0.01)
     expect("chap_layout", ValueError,
            lambda: build_chap_train_step(model, opt, cfg, device="cpu"))
-    cfg.data.batch_size = 3
     expect("supervised_layout", ValueError,
            lambda: build_supervised_train_step(model, opt, cfg, device="cpu"))
+    expect("trainer_3d_layout", ValueError,
+           lambda: trainer_3d.train(cfg, tmp, device="cpu"))
+    expect("sw_batch", ValueError,
+           lambda: SlidingWindowEngine(model, (16, 16, 16), sw_batch=3,
+                                       device="cpu"))
     cfg = Config()
     cfg.parallel.num_devices = 3
     expect("num_devices", ValueError,
@@ -165,8 +214,6 @@ def refusals(tmp):
     expect("dcn_axis_size", ValueError,
            lambda: dist.init_distributed(cfg, "cpu"))
     cfg = Config()
-    expect("trainer_3d", NotImplementedError,
-           lambda: trainer_3d.train(cfg, tmp, device="cpu"))
     expect("trainer_share", NotImplementedError,
            lambda: trainer_share.train(cfg, tmp, device="cpu"))
     expect("ablation", NotImplementedError,
