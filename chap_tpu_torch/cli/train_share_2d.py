@@ -13,6 +13,15 @@ config says (ROADMAP §3).
 Usage:
     python -m chap_tpu_torch.cli.train_share_2d --cfg configs/acdc_share_acal.yml \
         --acal [--device cpu] [key.path=value ...]
+
+Data parallel over N cards (parallel/dist.py; N must divide
+``data.batch_size``, and with ``--acal`` labeled_bs and the unlabeled rows
+too):
+
+    torchrun --nproc_per_node N -m chap_tpu_torch.cli.train_share_2d ...
+
+NCCL on the cards, gloo with ``--device cpu``. Rank 0 picks the run dir and
+writes its files; the process group is destroyed at exit, also on error.
 """
 from __future__ import annotations
 
@@ -20,13 +29,12 @@ import argparse
 import dataclasses
 import logging
 import os
-import pprint
 from typing import List, Optional
 
 from chap_tpu_torch.config import load_config
 from chap_tpu_torch.device import resolve_device
-from chap_tpu_torch.utils.launch import (dump_config, init_save_folder,
-                                         setup_logging, write_doc)
+from chap_tpu_torch.parallel import dist
+from chap_tpu_torch.utils.launch import open_run_dir
 
 
 def parse_args(argv: Optional[List[str]] = None):
@@ -87,20 +95,16 @@ def main(argv: Optional[List[str]] = None) -> dict:
     args = parse_args(argv)
     device = resolve_device(args.device)
     cfg = build_config(args)
+    with dist.process_group(cfg, device) as (_, _, device):
+        snapshot_path = os.path.join(
+            cfg.run.snapshot_root, cfg.data.dataset,
+            f"{cfg.run.exp}_{cfg.data.labeled_num}_labeled")
+        save_dir = open_run_dir(snapshot_path, "acalnet", False, cfg.run.text,
+                                dataclasses.asdict(cfg), device)
 
-    snapshot_path = os.path.join(cfg.run.snapshot_root, cfg.data.dataset,
-                                 f"{cfg.run.exp}_{cfg.data.labeled_num}_labeled")
-    os.makedirs(snapshot_path, exist_ok=True)
-    save_dir = init_save_folder(snapshot_path, "acalnet")
-    cfg_dict = dataclasses.asdict(cfg)
-    write_doc(save_dir, cfg.run.text)
-    dump_config(save_dir, cfg_dict)
-    setup_logging(save_dir)
-    logging.info("%s", pprint.pformat(cfg_dict))
-
-    from chap_tpu_torch.train.trainer_share import train
-    result = train(cfg, save_dir, device=device)
-    logging.info("done: %s", result)
+        from chap_tpu_torch.train.trainer_share import train
+        result = train(cfg, save_dir, device=device)
+        logging.info("done: %s", result)
     return {**result, "save_dir": save_dir}
 
 

@@ -29,8 +29,7 @@ rot90 / flip index map), with no per-sample Python.
 from __future__ import annotations
 
 import math
-from typing import (Callable, Dict, List, NamedTuple, Optional, Sequence,
-                    Tuple, Union)
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -143,7 +142,7 @@ def draw_augment(batch_size: int, generator: torch.Generator
     return mode, k, ax, deg.float() * (math.pi / 180.0)
 
 
-def _rank_rows(batch_size: int, roles: Sequence[int], rank: int,
+def _rank_rows(batch_size: int, roles: dist.Layout, rank: int,
                world: int) -> Optional[List[int]]:
     """This rank's rows of every global batch (None at W = 1: all)."""
     if world == 1:
@@ -154,7 +153,7 @@ def _rank_rows(batch_size: int, roles: Sequence[int], rank: int,
 
 def build_device_batch_fn(num_slices: int, num_labeled: int, batch_size: int,
                           labeled_bs: int, augment: bool = True,
-                          roles: Sequence[int] = dist.ONE_ROLE, rank: int = 0,
+                          roles: dist.Layout = dist.ONE_ROLE, rank: int = 0,
                           world: int = 1) -> Callable:
     """Returns batch_fn(pool, generator) -> {'image': [B,1,H,W], 'label':
     [B,H,W] uint8} with the two-stream layout [labeled_bs rows drawn from
@@ -165,8 +164,8 @@ def build_device_batch_fn(num_slices: int, num_labeled: int, batch_size: int,
     so each rank's generator, seeded alike, draws the same numbers; the rank
     then gathers and augments only its rows (parallel/dist.py ``rank_rows``
     with ``roles``: ``CHAP_ROLES`` for the CHAP step, ``ONE_ROLE`` for the
-    supervised one) from the pool, which it holds whole. B is then the
-    rank's rows, which may be 0."""
+    supervised one, ``Halves`` for the ablation one) from the pool, which it
+    holds whole. B is then the rank's rows, which may be 0."""
     if not 0 < num_labeled < num_slices:
         raise ValueError(f"need 0 < num_labeled ({num_labeled}) < num_slices "
                          f"({num_slices}) for two streams")
@@ -300,7 +299,7 @@ def draw_augment_3d(batch_size: int, generator: torch.Generator
 def build_device_patch_fn(num_volumes: int, num_labeled: int, batch_size: int,
                           labeled_bs: int, patch: Tuple[int, int, int],
                           augment: bool = True,
-                          roles: Sequence[int] = dist.ONE_ROLE, rank: int = 0,
+                          roles: dist.Layout = dist.ONE_ROLE, rank: int = 0,
                           world: int = 1) -> Callable:
     """Returns patch_fn(pool, generator) -> {'image': [B, 1, *patch],
     'label': [B, *patch] uint8}: two-stream volume ids (labeled ids <

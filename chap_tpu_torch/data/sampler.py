@@ -13,7 +13,7 @@ from typing import Iterator, List, Sequence
 
 import numpy as np
 
-from chap_tpu_torch.parallel.dist import rank_rows
+from chap_tpu_torch.parallel.dist import Layout, rank_rows
 
 
 class TwoStreamBatchSampler:
@@ -72,9 +72,10 @@ class RankBatchSampler:
     every rank builds the same global sampler (same seed) and loads only its
     rows, chosen by parallel/dist.py ``rank_rows`` with ``roles``
     (``CHAP_ROLES`` for the CHAP step's pair-stream units, ``ONE_ROLE`` for
-    a contiguous 1/W), not chap_tpu's contiguous slice."""
+    a contiguous 1/W, ``Halves`` for each half on its own), not chap_tpu's
+    contiguous slice."""
 
-    def __init__(self, sampler, roles: Sequence[int], rank: int, world: int):
+    def __init__(self, sampler, roles: Layout, rank: int, world: int):
         self.sampler = sampler
         self.roles, self.rank, self.world = roles, rank, world
 

@@ -1,6 +1,6 @@
 """Data parallelism over ranks with torch.distributed (port of
-chap_tpu/parallel/mesh.py for the 2D CHAP and supervised trainers and the 2D
-eval).
+chap_tpu/parallel/mesh.py for every trainer, the 2D eval and the
+sliding-window eval).
 
 The contract: W ranks compute what one process computes over the global
 batch, which is what chap_tpu's mesh computes (its sharded step is one GSPMD
@@ -62,6 +62,11 @@ it still issues every collective. When W divides s this is rank r's rows
 step, cps) is a contiguous 1/W of its rows. ``roles`` names the stream of
 each equal role of a batch: ``CHAP_ROLES`` (0, 1, 0, 1), the teacher's
 [uimg_a ; uimg_b] (0, 1), the student's mixed [b ; a] (1, 0), ``ONE_ROLE``.
+The ACAL and ablation batches, [labeled_bs labeled ; B - labeled_bs
+unlabeled], pair no row with another (each row's two decoders are compared
+on that row), so ``Halves(labeled_bs)`` deals each half on its own: rank r
+holds rows [floor(r n / W), floor((r + 1) n / W)) of a half of n rows, for
+any labeled_bs; a rank may hold rows of one half only, or none.
 """
 from __future__ import annotations
 
@@ -72,7 +77,7 @@ import multiprocessing as mp
 import os
 import tempfile
 import time
-from typing import Iterable, List, Optional, Sequence, Tuple, Union
+from typing import Iterable, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -86,6 +91,18 @@ logger = logging.getLogger(__name__)
 # each s = labeled_bs / 2 rows; and of a batch of one stream
 CHAP_ROLES = (0, 1, 0, 1)
 ONE_ROLE = (0,)
+
+
+class Halves(NamedTuple):
+    """The layout of a [labeled ; unlabeled] batch whose two halves are
+    dealt each on its own (the ACAL and ablation batches; module
+    docstring), given where ``roles`` is: ``labeled`` leading rows, the
+    rest unlabeled."""
+    labeled: int
+
+
+# a batch's layout: its roles' streams, or Halves
+Layout = Union[Sequence[int], Halves]
 
 
 def _active() -> bool:
@@ -176,18 +193,6 @@ def describe() -> str:
     return (f"backend {dist.get_backend()}, rank {rank()} of {world_size()}")
 
 
-def refuse_data_parallel(cfg, what: str, item: str) -> None:
-    """Raise for a path that runs on one rank only: a process group of more
-    than one rank (or torchrun's environment for one), or
-    ``parallel.num_devices`` above 1."""
-    world = world_size() if _active() else int(os.environ.get("WORLD_SIZE", 1))
-    if world > 1 or cfg.parallel.num_devices not in (0, 1):
-        raise NotImplementedError(
-            f"{what} runs on one rank (world size {world}, "
-            f"parallel.num_devices={cfg.parallel.num_devices}); data "
-            f"parallelism for it is ROADMAP item {item}")
-
-
 # ---------------------------------------------------------------------------
 # collectives
 # ---------------------------------------------------------------------------
@@ -264,12 +269,31 @@ def global_sums(*xs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
 
 def global_mean(x: torch.Tensor) -> torch.Tensor:
     """The mean of ``x`` over the global batch (x's elements on every
-    rank), differentiable; ``x.mean()`` at W = 1."""
+    rank), differentiable; ``x.mean()`` at W = 1. A bf16 ``x`` is summed in
+    float32 and rounded once, as its mean at W = 1 is."""
     if world_size() == 1:
         return x.mean()
     count = torch.full((), float(x.numel()), device=x.device)
-    total = all_reduce_replicated(torch.stack([x.sum().float(), count]))
+    total = all_reduce_replicated(torch.stack([x.sum(dtype=torch.float32),
+                                               count]))
     return (total[0] / total[1]).to(x.dtype)
+
+
+def gather_rows(x: torch.Tensor, rows: int,
+                roles: Layout = ONE_ROLE) -> torch.Tensor:
+    """The global batch of ``rows`` rows on every rank, from each rank's
+    rows ``x`` of it (``rank_rows`` with ``roles``), in global row order:
+    an all-reduce (float32, exact: every element is one rank's value plus
+    zeros) of a zero-filled buffer of the global shape, back in x's dtype.
+    No autograd; ``x`` itself at W = 1."""
+    if world_size() == 1:
+        return x
+    buf = torch.zeros((rows,) + tuple(x.shape[1:]), dtype=torch.float32,
+                      device=x.device)
+    idx = rank_rows(rows, roles)
+    if idx:
+        buf[torch.tensor(idx, device=x.device)] = x.detach().float()
+    return all_reduce_(buf).to(x.dtype)
 
 
 def sum_tensors(tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
@@ -351,6 +375,25 @@ def check_batch(batch_size: int, world: int, what: str) -> None:
             f"{[w for w in range(1, batch_size + 1) if batch_size % w == 0]})")
 
 
+def check_halves(batch_size: int, labeled_bs: int, world: int, what: str,
+                 replay: bool = False) -> None:
+    """The rule of a [labeled ; unlabeled] batch dealt by ``Halves``: W
+    must divide ``data.batch_size`` (``check_batch``), and where the ACAL
+    replay runs (``replay``, semi.acal) also labeled_bs and the unlabeled
+    B - labeled_bs, as chap_tpu's trainer_share.py:86-90 asserts;
+    ValueError stating the rule otherwise."""
+    check_batch(batch_size, world, what)
+    unlabeled = batch_size - labeled_bs
+    if replay and (labeled_bs % world or unlabeled % world):
+        allowed = [w for w in range(1, batch_size + 1) if not (
+            batch_size % w or labeled_bs % w or unlabeled % w)]
+        raise ValueError(
+            f"{what}: {world} ranks cannot share the ACAL replay batch: with "
+            f"semi.acal, W must divide data.labeled_bs {labeled_bs} and the "
+            f"unlabeled {unlabeled} rows as well as data.batch_size "
+            f"(chap_tpu's rule; here W in {allowed})")
+
+
 def stream_rows(s: int, stream: int = 0, streams: int = 1,
                 rank_: Optional[int] = None, world: Optional[int] = None
                 ) -> range:
@@ -364,12 +407,27 @@ def stream_rows(s: int, stream: int = 0, streams: int = 1,
     return range(-(-(lo - stream) // streams), -(-(hi - stream) // streams))
 
 
-def rank_rows(rows: int, roles: Sequence[int] = ONE_ROLE,
+def half_rows(rows: int, labeled: int, rank_: Optional[int] = None,
+              world: Optional[int] = None) -> Tuple[range, range]:
+    """The rows that rank ``rank_`` of ``world`` holds of each half of a
+    [labeled ; rows - labeled] batch (``Halves``), as positions within that
+    half: [floor(r n / W), floor((r + 1) n / W)) of each half of n rows."""
+    rank_ = rank() if rank_ is None else rank_
+    world = world_size() if world is None else world
+    return tuple(range(rank_ * n // world, (rank_ + 1) * n // world)
+                 for n in (labeled, rows - labeled))
+
+
+def rank_rows(rows: int, roles: Layout = ONE_ROLE,
               rank_: Optional[int] = None, world: Optional[int] = None
               ) -> List[int]:
     """The global rows that rank ``rank_`` of ``world`` holds of a batch of
     ``rows`` made of len(roles) equal roles, ``roles`` giving each one's
-    stream (of 0 .. max(roles)), in role order (module docstring)."""
+    stream (of 0 .. max(roles)), in role order; or, for ``Halves``, its
+    rows of each half in turn (module docstring)."""
+    if isinstance(roles, Halves):
+        labeled, unlabeled = half_rows(rows, roles.labeled, rank_, world)
+        return list(labeled) + [roles.labeled + i for i in unlabeled]
     s, streams = rows // len(roles), max(roles) + 1
     if rows % len(roles):
         raise ValueError(f"{rows} rows do not split into {len(roles)} roles")
@@ -377,7 +435,8 @@ def rank_rows(rows: int, roles: Sequence[int] = ONE_ROLE,
             for p in stream_rows(s, stream, streams, rank_, world)]
 
 
-def shard_rows(x: Optional[torch.Tensor], roles: Sequence[int] = ONE_ROLE,
+def shard_rows(x: Optional[torch.Tensor],
+               roles: Layout = ONE_ROLE,
                rank_: Optional[int] = None, world: Optional[int] = None
                ) -> Optional[torch.Tensor]:
     """This rank's rows of ``x`` (leading axis, ``roles`` as in

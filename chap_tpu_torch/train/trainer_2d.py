@@ -25,23 +25,22 @@ at each log step its disagreement ratio is appended to
 ``<snapshot>/disagreement.csv``, as chap_tpu's trainer_2d.py:174-178 does).
 
 Data parallel over W ranks (parallel/dist.py, in place of chap_tpu's mesh,
-trainer_2d.py:46-49): ``chap`` and ``supervised`` under torchrun, or with a
-process group the caller initialised. Every rank builds the model from the
-same seed on its card, and rank 0's parameters and buffers are broadcast
-(they must already be equal); each rank holds the whole slice pool and
-takes its rows of every global batch draw (``rank_rows``: its pair-stream
-units of the CHAP batch, or a contiguous 1/W for ``supervised``; W must
-divide ``data.batch_size``), and its step generator is seeded alike, so W
-ranks train the one-process run. Rank 0 alone writes
-metrics.jsonl, val.csv, the log and the checkpoints; ``--resume`` restores
-every rank from the same files; the best-checkpoint decision is rank 0's,
-broadcast. ``steps_per_sec`` stays the global rate (a step is the global
-batch). ``ablation`` runs on one rank (ROADMAP item 16c).
+trainer_2d.py:46-49), every mode, under torchrun or with a process group
+the caller initialised. Every rank builds the model from the same seed on
+its card, and rank 0's parameters and buffers are broadcast (they must
+already be equal); each rank holds the whole slice pool and takes its rows
+of every global batch draw (``rank_rows``: its pair-stream units of the
+CHAP batch, a contiguous 1/W for ``supervised``, its rows of each half,
+``Halves``, for ``ablation``; W must divide ``data.batch_size``), and its
+step generator is seeded alike, so W ranks train the one-process run. Rank
+0 alone writes metrics.jsonl, val.csv, disagreement.csv (the global ratio),
+the log and the checkpoints; ``--resume`` restores every rank from the same
+files; the best-checkpoint decision is rank 0's, broadcast.
+``steps_per_sec`` stays the global rate (a step is the global batch).
 
 ``model.dtype=bfloat16`` computes the model in bf16 over float32 parameters
 (models/layers.py), with the batches in bf16 as chap_tpu's (pool and host
-loader, trainer_2d.py:97-121); the ablation mode refuses it (ROADMAP item
-21b).
+loader, trainer_2d.py:97-121), in every mode.
 """
 from __future__ import annotations
 
@@ -115,14 +114,8 @@ def train(cfg: Config, snapshot_path: str, mode: str = "chap",
     if mode not in ("chap", "supervised", "ablation"):
         raise ValueError(f"unknown mode {mode!r} (chap | supervised | ablation)")
     rank, world, device = dist.init_distributed(cfg, device)
-    if mode == "ablation":
-        dist.refuse_data_parallel(cfg, "the ablation step", "16c")
     main_rank = rank == 0
     dtype = compute_dtype(cfg.model.dtype)
-    if mode == "ablation" and dtype != torch.float32:
-        raise ValueError(f"model.dtype={cfg.model.dtype}: the ablation step "
-                         f"computes in float32 only; bf16 for it is ROADMAP "
-                         f"item 21b")
     if cfg.run.prng_impl != "threefry2x32":
         logger.warning("run.prng_impl=%r selects a JAX PRNG; ignored (the "
                        "port draws from torch.Generator)", cfg.run.prng_impl)
@@ -163,7 +156,8 @@ def train(cfg: Config, snapshot_path: str, mode: str = "chap",
     logger.info("Total slices %d, labeled slices %d", total_slices, labeled_slice)
 
     writer = MetricsWriter(snapshot_path) if main_rank else _NoWriter()
-    roles = dist.CHAP_ROLES if mode == "chap" else dist.ONE_ROLE
+    roles = {"chap": dist.CHAP_ROLES, "supervised": dist.ONE_ROLE,
+             "ablation": dist.Halves(cfg.data.labeled_bs)}[mode]
     predictor = make_predictor(model, cfg.eval.model_type, device=device)
     max_iterations = max_steps or cfg.optim.max_iterations
     iter_num = start_iter = state.step

@@ -22,7 +22,8 @@ Phases (any failure raises and the script exits non-zero):
                ce and d/dlogits (also with one region's grads None) at
                rtol 2e-3, two calls bit-identical; then at bf16 logits (the
                configs as written) at [1, 2, 112, 112, 80] (R = 2),
-               [2, 2, 112, 112, 80] (R = 1) and [4, 2, 96, 96, 96] (R = 1):
+               [2, 2, 112, 112, 80] (R = 1), [4, 2, 96, 96, 96] (R = 1) and
+               the ACAL / ablation steps' [12, 4, 256, 256] (R = 1):
                losses at rtol 2e-3, the bf16 gradients within one bf16
                rounding of the plain version's; at the timed shapes
                torch.profiler counts the device kernels of 3 forward calls
@@ -191,7 +192,21 @@ Phases (any failure raises and the script exits non-zero):
                seed: 1 warm-up and 3 timed steps, launches asserted with
                every K1 launch at bf16 logits, peak memory; torch.profiler
                over 1 LA and 1 unet_3D step, which must show bf16
-               convolution kernels (``slice_bf16``, ``profile_bf16_*``)
+               convolution kernels (``slice_bf16``, ``profile_bf16_*``).
+               Beside it the ACAL and ablation paths in bf16, which no
+               shipped config asks for (model.dtype=bfloat16 by override):
+               at the parity size (feature_chns (4, 8, 16, 16, 32), batch 8
+               at 32^2, TF32 off) the ACAL iteration (joint, max, min) and
+               the ablation step on three batches, the card's bf16 metrics
+               against the CPU's bf16 ones within 2x the CPU's own
+               bf16-vs-fp32 gap (``parity_bf16_share``); then at
+               configs/acdc_share_acal.yml's and acdc_chap.yml's full width
+               1 warm-up and 3 timed ACAL iterations (bank fed from the
+               bf16 knowledge map, replay batch in bf16) and ablation
+               steps, every K1 launch at bf16 logits, peak memory, one
+               profiled iteration / step showing bf16 convolution kernels
+               (``slice_bf16_share``, ``profile_bf16_acal``,
+               ``profile_bf16_ablation``)
  23. data      (runs before the report) chap_tpu_torch/parallel/dist.py on
      parallel  the one card, W gloo ranks spawned on it (NCCL puts no two
                ranks on one device). First which ops of the models take a
@@ -224,12 +239,36 @@ Phases (any failure raises and the script exits non-zero):
                written by rank 0, the records, val.csv and eval dice of
                W = 1's run (dice within 5e-3), 18 x (4 + 12 / 1) launches a
                rank, and the eval of its final weights at W = 2 equal to
-               this process's eval of them, exactly. Prints the ``dist``
-               line (the gloo figures are ranks sharing one card, not a
+               this process's eval of them, exactly; (i) the ACAL iteration
+               (joint step, decoder max-step, encoder min-step) at
+               configs/acdc_share_acal.yml's values (batch 24 = 12 + 12 at
+               256^2, fp32) and (j) the ablation step at acdc_chap.yml's
+               (dropout and VAT on), each half of the batch dealt on its
+               own, three each at W = 2 and W = 4 against this process's
+               from the same weights and draws with the same bars (the
+               ACAL update of each parameter group apart, both schedule
+               counts equal) and 4 + 4 / 2 + 2 K1 launches a rank a step;
+               (k) cli.train_share_2d --acal in the two gloo ranks (8
+               iterations, a bank feed each, replay from 4, one loader
+               thread, TF32 off) against the same run in this process: one run dir
+               written by rank 0, losses within rtol 2e-3, every replay
+               draw's masks equal, both decoders' eval dice within 5e-3,
+               26 / 26 K1 launches a rank; the same run with TF32 on (the
+               card's default) at W = 2 against W = 1, within twice W =
+               1's own gap between TF32 on and off; and the eval of phase
+               16's trained weights (dice above 0) at W = 2 equal to W =
+               1's, exactly; (l) cli.train_2d --mode
+               ablation in the two ranks (6 steps): disagreement.csv's
+               ratios within 5e-3 of W = 1's. Prints the ``dist`` line
+               (the gloo figures are ranks sharing one card, not a
                multi-card speed)
  22. report    the kernels line (JSON; K1 and K3 at bf16 logits have rows
                of their own; the K1 / K2 / K3 rows carry phase 23's
-               launches on each rank), the card line, and the last line
+               launches on each rank; K1 at bf16 logits at the ACAL shape
+               has rows of its own; the R = 1 rows carry
+               ``caller_bound_ms``, the bound for what their supervised
+               callers need: the logits and uint8 labels, no mask; a
+               count no run measured is null), the card line, and the last line
                {"ok": true, "device": {...}}
 
 The 2D and 3D phases keep the counts and depths they had before the ACAL
@@ -435,13 +474,18 @@ def device_kernels(fn, n: int = 1) -> list:
 
 def kernel_counts(fn, n: int) -> dict:
     """name -> number of device kernels torch.profiler sees while fn runs n
-    times. A session that saw no device kernel at all is taken once more:
-    torch.profiler has returned an empty session for a short call."""
-    for _ in range(2):
+    times, where fn launches each of its kernels at every call. A session
+    that saw no device kernel, or a kernel fewer than n times and none more,
+    has lost events and is taken again, up to three sessions:
+    torch.profiler has returned an empty session for a short call, and
+    once 2 launches of a kernel over 3 calls of K1's Function. A kernel
+    seen more than n times ends the retries, and a kernel of another name
+    shows in every session."""
+    for _ in range(3):
         counts = {}
         for name, _ in device_kernels(fn, n):
             counts[name] = counts.get(name, 0) + 1
-        if counts:
+        if counts and (min(counts.values()) >= n or max(counts.values()) > n):
             break
     return counts
 
@@ -658,6 +702,15 @@ def phase_k1(shape, seed, regions, timed=False, label_values=None,
             "fwd_bound": bound_ms(io, n * c * (10 + 8 * regions)),
             "bwd_bound": bound_ms(io + logits.numel() * logits.element_size(),
                                   n * c * (10 + 12 * regions))})
+        if regions == 1:
+            # the supervised callers (dice_ce_supervised) pass an all-ones
+            # mask and hold their labels as uint8: what the function needs
+            # there is the logits and one byte a pixel
+            need = logits.numel() * logits.element_size() + n
+            res.update({
+                "fwd_caller_bound": bound_ms(need, n * c * 18),
+                "bwd_caller_bound": bound_ms(
+                    need + logits.numel() * logits.element_size(), n * c * 22)})
     print("K1", json.dumps(res), flush=True)
     return res
 
@@ -2085,6 +2138,8 @@ def phase_trainer_share() -> dict:
            "peak_mem_bytes": peak, "wall_s": wall_s,
            "launches": {"acal_20": launches}, "settings": tf32_settings()}
     print("trainer_share", json.dumps(res), flush=True)
+    # the latest slot's weights (val dice above 0) for phase 23's (k)
+    res["weights"] = share_weights(save_dir)
     shutil.rmtree(RUNS_DIR, ignore_errors=True)
     return res
 
@@ -2478,6 +2533,222 @@ def phase_slice_bf16() -> dict:
     return out
 
 
+SHARE_KEYS = ("loss", "model1_loss", "model2_loss", "dis_loss", "acal_f_loss",
+              "dis_loss_g")
+
+
+def small_2d(cfg):
+    """A config cut to the parity phases' size: feature_chns (4, 8, 16, 16,
+    32), batch 8 = 4 + 4 at 32^2."""
+    cfg.model.feature_chns = (4, 8, 16, 16, 32)
+    cfg.data.batch_size, cfg.data.labeled_bs = 8, 4
+    cfg.data.image_size = (32, 32)
+    return cfg
+
+
+def share_bf16_parity() -> dict:
+    """The ACAL iteration (joint step, decoder max-step, encoder min-step,
+    mse discrepancy) and the ablation step (channel dropout and VAT on) in
+    bf16 (model.dtype=bfloat16) on the card and on the CPU, from the same
+    weights and draws on three batches (their images in bf16), at the
+    parity phases' size, TF32 off: the card's metrics against the CPU's
+    bf16 ones, each path's as one vector, within 2x the CPU's own
+    bf16-vs-float32 gap on the same batches; every K1 launch at bf16
+    logits (2 + 2 joint, 2 + 2 max, 0 min, 2 + 2 ablation)."""
+    set_tf32(False)
+    res = {}
+    for path in ("acal", "ablation"):
+        if path == "acal":
+            cfgs = {dt: small_2d(load_config(ACAL_CFG, [f"model.dtype={dt}"]))
+                    for dt in ("float32", "bfloat16")}
+        else:
+            cfgs = {dt: small_2d(acdc_chap_config()) for dt in ("float32", "bfloat16")}
+            cfgs["bfloat16"].model.dtype = "bfloat16"
+        cfg32 = cfgs["float32"]
+        torch.manual_seed(0)
+        init = {k: v.clone() for k, v in net_factory(
+            cfg32.model.name, 1, cfg32.data.num_classes, cfg32.model,
+            device="cpu").state_dict().items()}
+        mask = torch.zeros(4, 32, 32)
+        mask[:, 8:24, 4:20] = 1.0
+        runs = {"cpu_f32": [], "cpu_bf16": [], "card_bf16": []}
+        zero_launch_counts()
+        for seed in (1, 2, 3):
+            batch = phantom_inputs(cfg32, seed, "cpu")
+            shape = batch["image"].shape
+            if path == "acal":
+                draws = [draw_supervised_uniforms(
+                    cfg32, shape, torch.Generator().manual_seed(10 * seed + i),
+                    "cpu") for i in range(3)]
+            else:
+                draws = draw_ablation_uniforms(
+                    cfg32, shape, torch.Generator().manual_seed(10 * seed), "cpu")
+            for name, dt, dev in (("cpu_f32", "float32", "cpu"),
+                                  ("cpu_bf16", "bfloat16", "cpu"),
+                                  ("card_bf16", "bfloat16", "cuda")):
+                cfg = cfgs[dt]
+                b = {"image": batch["image"].to(torch.bfloat16 if dt == "bfloat16"
+                                                else torch.float32),
+                     "label": batch["label"]}
+                m, d = mask, draws
+                if dev == "cuda":
+                    b, m, d = to_cuda(b), to_cuda(mask), to_cuda(draws)
+                if path == "acal":
+                    state, joint, dec, enc = make_share(cfg, dev, state_dict=init)
+                    out = dict(joint(state, b, draws=d[0])[1])
+                    out.update(dec(state, b["image"], b["label"], m, draws=d[1])[1])
+                    out.update(enc(state, b["image"], m, draws=d[2])[1])
+                    keys = SHARE_KEYS
+                else:
+                    model = net_factory(cfg.model.name, 1, cfg.data.num_classes,
+                                        cfg.model, device=dev)
+                    model.load_state_dict(init)
+                    opt = make_optimizer(model, cfg.optim.base_lr,
+                                         cfg.optim.momentum, cfg.optim.weight_decay)
+                    state = create_train_state(model, opt, cfg.model.feature_chns)
+                    out = build_ablation_train_step(model, opt, cfg, device=dev)(
+                        state, b, draws=d).metrics
+                    keys = ABLATION_METRICS
+                runs[name].append([float(out[k]) for k in keys])
+        ran = launch_counts()
+        want = {**{k: 0 for k in ran}, "K1_fwd": 12 if path == "acal" else 6,
+                "K1_bwd": 12 if path == "acal" else 6}
+        check(ran == want, f"the card's bf16 {path} steps: {ran} launches, "
+                           f"expected {want}")
+        check_all_bf16(f"the card's bf16 {path} steps")
+        cpu32, cpu16, card16 = (np.array(runs[k]) for k in ("cpu_f32", "cpu_bf16",
+                                                            "card_bf16"))
+        gap = float(np.abs(cpu16 - cpu32).max())
+        diff = float(np.abs(card16 - cpu16).max())
+        check(diff <= 2 * gap + 1e-6, f"bf16 {path} steps, card against CPU: "
+                                      f"{diff}, the CPU's bf16-vs-float32 gap {gap}")
+        res[path] = {"card_vs_cpu": diff, "cpu_bf16_vs_f32": gap,
+                     "metrics": list(keys), **runs}
+    print("parity_bf16_share", tf32_settings(), json.dumps(res), flush=True)
+    return res
+
+
+def phase_slice_bf16_share() -> dict:
+    """Phase 21's companion for the ACAL and ablation paths, which no
+    shipped config runs in bf16: configs/acdc_share_acal.yml (with semi.acal
+    on) and configs/acdc_chap.yml with model.dtype=bfloat16 as an override,
+    at full width (widths 16-256, batch 24 = 12 + 12 at 256^2) on bf16
+    phantom batches, random weights from a seed. First ``share_bf16_parity``
+    at a small width. Then the ACAL iteration (joint step, bank feed from
+    the bf16 knowledge map, replay pair on [labeled ; replayed] in bf16) and
+    the ablation step: 1 warm-up and 3 timed each, launches asserted with
+    every K1 launch at bf16 logits, peak memory; torch.profiler over 1
+    iteration / step, which must show bf16 convolution kernels. The float32
+    figures of phase 15 stand beside these."""
+    parity = share_bf16_parity()
+    set_tf32(True)
+    cfg = load_config(ACAL_CFG, ["model.dtype=bfloat16"])
+    cfg.semi.acal = True
+    lbs, n_u = cfg.data.labeled_bs, cfg.data.batch_size - cfg.data.labeled_bs
+    state, joint, dec, enc = make_share(cfg, "cuda", seed=1337)
+    bank = ImageMemoryBank(cfg.semi.mb_capacity, cfg.data.image_size,
+                           cfg.semi.mb_patch_size, seed=cfg.run.seed)
+    batches = [phantom_inputs(cfg, 70 + i, "cuda") for i in range(5)]
+    for b in batches:
+        b["image"] = b["image"].bfloat16()
+    gen = torch.Generator(device="cuda").manual_seed(1337)
+    parts = {"joint": [], "feed": [], "replay": []}
+    dtypes = set()
+
+    def iteration(state, i, gen, timed=False):
+        t0 = time.perf_counter()
+        state, m, knowledge = joint(state, batches[i], gen)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        bank.add(batches[i]["image"][lbs:].cpu(), knowledge.cpu(), 8)
+        t2 = time.perf_counter()
+        replay = to_device(bank.get_samples(n_u), torch.device("cuda"))
+        image = torch.cat([batches[i]["image"][:lbs],
+                           replay["image"].to(batches[i]["image"].dtype)])
+        dtypes.update({str(knowledge.dtype), str(image.dtype)})
+        state, f = dec(state, image, batches[i]["label"], replay["mask"], gen)
+        state, g = enc(state, image, replay["mask"], gen)
+        torch.cuda.synchronize()
+        if timed:
+            parts["joint"].append((t1 - t0) * 1e3)
+            parts["feed"].append((t2 - t1) * 1e3)
+            parts["replay"].append((time.perf_counter() - t2) * 1e3)
+        return {k: float(v) for k, v in {**m, **f, **g}.items()}
+
+    iteration(state, 0, gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts()
+    metrics = [iteration(state, i, gen, timed=True) for i in range(1, 4)]
+    launches = launch_counts()
+    bf16 = check_all_bf16("the bf16 ACAL iterations")
+    want = {**{k: 0 for k in launches}, "K1_fwd": 12, "K1_bwd": 12}
+    check(launches == want, f"bf16 ACAL launches over 3 iterations {launches}, "
+                            f"expected {want}")
+    check(dtypes == {"torch.bfloat16"}, f"bf16 knowledge map and replay batch: {dtypes}")
+    for m in metrics:
+        check(all(math.isfinite(v) for v in m.values()), f"finite bf16 ACAL {m}")
+    acal = {"config": ACAL_CFG + " model.dtype=bfloat16", "joint_ms": parts["joint"],
+            "feed_ms": parts["feed"], "replay_pair_ms": parts["replay"],
+            "median_iteration_ms": statistics.median(
+                [a + b + c for a, b, c in zip(*parts.values())]),
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+            "launches": launches, "launches_bf16": bf16,
+            "last_metrics": metrics[-1], "settings": tf32_settings(),
+            "card": card_line()}
+    print("slice_bf16_share acal", json.dumps(acal), flush=True)
+    prof = phase_profile(state, iteration, [4], gen, tag="profile_bf16_acal")
+    check(prof["conv_bf16_ms_per_step"] > 0,
+          f"bf16 ACAL: the profile shows bf16 convolution kernels {prof}")
+    acal["profile"] = prof
+    del state, joint, dec, enc, batches
+    torch.cuda.empty_cache()
+
+    cfg = acdc_chap_config()
+    cfg.model.dtype = "bfloat16"
+    torch.manual_seed(1337)
+    model = net_factory(cfg.model.name, cfg.data.in_chns, cfg.data.num_classes,
+                        cfg.model, device="cuda")
+    opt = make_optimizer(model, cfg.optim.base_lr, cfg.optim.momentum,
+                         cfg.optim.weight_decay)
+    astate = create_train_state(model, opt, cfg.model.feature_chns)
+    step = build_ablation_train_step(model, opt, cfg, device="cuda")
+    abatches = [phantom_inputs(cfg, 80 + i, "cuda") for i in range(5)]
+    for b in abatches:
+        b["image"] = b["image"].bfloat16()
+    step(astate, abatches[0], gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts()
+    times, ametrics = [], []
+    for batch in abatches[1:4]:
+        t0 = time.perf_counter()
+        out = step(astate, batch, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        ametrics.append({k: float(v) for k, v in out.metrics.items()})
+    alaunches = launch_counts()
+    abf16 = check_all_bf16("the bf16 ablation steps")
+    want = {k: 3 * v for k, v in ABLATION_LAUNCHES_PER_STEP.items()}
+    check(alaunches == want, f"bf16 ablation launches {alaunches}, expected {want}")
+    for m in ametrics:
+        check(all(math.isfinite(v) for v in m.values()), f"finite bf16 ablation {m}")
+    ablation = {"config": "configs/acdc_chap.yml model.dtype=bfloat16",
+                "step_ms": times, "median_step_ms": statistics.median(times),
+                "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                "launches": alaunches, "launches_bf16": abf16,
+                "last_metrics": ametrics[-1], "settings": tf32_settings()}
+    print("slice_bf16_share ablation", json.dumps(ablation), flush=True)
+    prof = phase_profile(astate, step, abatches[4:5], gen,
+                         tag="profile_bf16_ablation")
+    check(prof["conv_bf16_ms_per_step"] > 0,
+          f"bf16 ablation: the profile shows bf16 convolution kernels {prof}")
+    ablation["profile"] = prof
+    del astate, step, model, opt, abatches
+    torch.cuda.empty_cache()
+    return {"parity": parity, "acal": acal, "ablation": ablation}
+
+
 def phase_k3_bf16() -> dict:
     """K3's bf16-logits instantiation (a bf16 model's eval) against its
     plain version on the same bf16 logits: the LA eval's whole grid of 80
@@ -2680,22 +2951,44 @@ DIST3D_OVERRIDES = ["data.patch_size_3d=[112,112,80]", "run.log_every=1",
 DIST_KINDS = {"acdc": "2D CHAP, configs/acdc_chap.yml, fp32",
               "la": "3D CHAP, configs/la_chap.yml in fp32",
               "la_bf16": "3D CHAP, configs/la_chap.yml as written (bf16)",
-              "brats": "unet_3D supervised, configs/brats_supervised.yml in fp32"}
+              "brats": "unet_3D supervised, configs/brats_supervised.yml in fp32",
+              "acal": "ACAL joint + max + min, configs/acdc_share_acal.yml, fp32",
+              "ablation": "ablation step, configs/acdc_chap.yml, fp32"}
+# the kinds whose batch is [labeled ; unlabeled] dealt half by half
+SHARE_KINDS = ("acal", "ablation")
+# (k): cli.train_share_2d --acal at configs/acdc_share_acal.yml's values, 8
+# iterations with a bank feed each and replay from iteration 4, one loader
+# thread (so every rank loads W = 1's batches), an eval of both decoders at 8
+SHARE_DIST_ITERATIONS = 8
+SHARE_DIST_ARGV = ["--cfg", ACAL_CFG, "--acal", "--dataset", "synthetic",
+                   "--device", "cuda", "--max_iterations",
+                   str(SHARE_DIST_ITERATIONS), "semi.acal_start_iter=3",
+                   "semi.mb_feed_every=1", "data.num_workers=1",
+                   "eval.eval_every=8", "data.synthetic_val_volumes=2",
+                   "data.synthetic_train_size=256", "run.log_every=1",
+                   f"run.snapshot_root={DIST_RUNS}"]
+# (l): cli.train_2d --mode ablation at configs/acdc_chap.yml's values
+ABLATION_DIST_STEPS = 6
 
 
 def dist_config(kind: str):
     return {"acdc": acdc_chap_config, "la": lambda: la_config(F32),
-            "la_bf16": la_config, "brats": lambda: brats_config(F32)}[kind]()
+            "la_bf16": la_config, "brats": lambda: brats_config(F32),
+            "acal": acal_config, "ablation": acdc_chap_config}[kind]()
 
 
 def dist_roles(kind: str):
     """The roles of a kind's batch (parallel/dist.py ``rank_rows``)."""
+    if kind in SHARE_KINDS:
+        return dist.Halves(dist_config(kind).data.labeled_bs)
     return dist.ONE_ROLE if kind == "brats" else dist.CHAP_ROLES
 
 
 def dist_rows(kind: str):
-    """A rank's rows of a global batch of the kind."""
-    return lambda batch: {k: dist.shard_rows(v, dist_roles(kind))
+    """A rank's rows of a global batch of the kind (of the ACAL replay
+    mask, which covers the unlabeled half, its rows of that half)."""
+    return lambda batch: {k: dist.shard_rows(v, dist.ONE_ROLE if k == "mask"
+                                             else dist_roles(kind))
                           for k, v in batch.items()}
 
 
@@ -2704,18 +2997,44 @@ def dist_init(kind: str) -> dict:
     bf16 LA step takes la's float32 parameters)."""
     cfg = dist_config(kind)
     torch.manual_seed(23)
-    if kind == "acdc":
-        model = net_factory("dualdecoder", 1, 4, cfg.model, device="cuda")
+    if kind in ("acdc",) + SHARE_KINDS:
+        model = net_factory(cfg.model.name, 1, 4, cfg.model, device="cuda")
     else:
         model = net_factory_3d(cfg.model.name_3d, 1, cfg.data.num_classes,
                                "train", cfg.model, device="cuda")
     return {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
 
 
+class _Out:
+    """A step's output as the bare-step loop reads it."""
+
+    def __init__(self, metrics):
+        self.metrics = metrics
+
+
 def dist_make(kind: str, state_dict: dict):
     cfg = dist_config(kind)
     if kind == "acdc":
         return make_step(cfg, "cuda", state_dict=state_dict)
+    if kind == "acal":
+        # one ACAL iteration: joint step, then the replay pair on the batch
+        # with its replay mask, each with its draws
+        state, joint, dec, enc = make_share(cfg, "cuda", state_dict=state_dict)
+
+        def iteration(state, batch, draws):
+            _, m, _ = joint(state, batch, draws=draws[0])
+            _, f = dec(state, batch["image"], batch["label"], batch["mask"],
+                       draws=draws[1])
+            _, g = enc(state, batch["image"], batch["mask"], draws=draws[2])
+            return _Out({**m, **f, **g})
+        return state, iteration
+    if kind == "ablation":
+        model = net_factory(cfg.model.name, 1, 4, cfg.model, device="cuda")
+        model.load_state_dict(state_dict)
+        opt = make_optimizer(model, cfg.optim.base_lr, cfg.optim.momentum,
+                             cfg.optim.weight_decay)
+        state = create_train_state(model, opt, cfg.model.feature_chns)
+        return state, build_ablation_train_step(model, opt, cfg, device="cuda")
     if kind == "brats":
         state, step = make_zoo_step(cfg.model.name_3d, cfg)
         state.model.load_state_dict(state_dict)
@@ -2729,7 +3048,7 @@ def dist_step_inputs(kind: str):
     cfg = dist_config(kind)
     gens = [torch.Generator(device="cuda").manual_seed(40 + i)
             for i in range(DIST_STEPS)]
-    if kind == "acdc":
+    if kind in ("acdc",) + SHARE_KINDS:
         batches = [phantom_inputs(cfg, 40 + i, "cuda") for i in range(DIST_STEPS)]
     else:
         batches = [phantom_patches(cfg, 40 + i, "cuda") for i in range(DIST_STEPS)]
@@ -2741,6 +3060,20 @@ def dist_step_inputs(kind: str):
             cfg.data.batch_size, cfg.data.patch_size_3d)
         draws = [{"drop": [torch.rand(sh, generator=g, device="cuda")
                            for sh in shapes]} for g in gens]
+    elif kind == "acal":
+        # a replay mask of the bank's window size at a random corner a row
+        n_u, p = cfg.data.batch_size - cfg.data.labeled_bs, cfg.semi.mb_patch_size
+        for b, g in zip(batches, gens):
+            corner = torch.randint(0, cfg.data.image_size[0] - p, (n_u, 2),
+                                   generator=g, device="cuda").tolist()
+            b["mask"] = torch.zeros((n_u, *cfg.data.image_size), device="cuda")
+            for row, (y, x) in enumerate(corner):
+                b["mask"][row, y:y + p, x:x + p] = 1.0
+        draws = [[draw_supervised_uniforms(cfg, b["image"].shape, g, "cuda")
+                  for _ in range(3)] for b, g in zip(batches, gens)]
+    elif kind == "ablation":
+        draws = [draw_ablation_uniforms(cfg, b["image"].shape, g, "cuda")
+                 for b, g in zip(batches, gens)]
     else:
         draws = [draw_step_uniforms(cfg, b["image"].shape, g, "cuda")
                  for b, g in zip(batches, gens)]
@@ -2752,7 +3085,17 @@ def dist_expected_launches(kind: str, rank_: int, world: int) -> dict:
     four mix_loss calls are two a stream: a call over 0 rows still
     launches K1's forward (one program, zero statistics) but no backward,
     and a rank with no row launches no K2."""
-    if kind == "brats":
+    if kind in SHARE_KINDS:
+        # 2 + 2 K1 a dice_ce_supervised pair (the joint and max steps, the
+        # ablation step); a rank without labeled rows launches the
+        # forwards over nothing and no backward
+        cfg = dist_config(kind)
+        lbs = cfg.data.labeled_bs
+        held = len(dist.half_rows(cfg.data.batch_size, lbs, rank_, world)[0])
+        pairs = 2 if kind == "acal" else 1
+        per = {**{k: 0 for k in LAUNCHES_PER_STEP}, "K1_fwd": 2 * pairs,
+               "K1_bwd": 2 * pairs * (held > 0)}
+    elif kind == "brats":
         per = supervised_launches(1)
     else:
         per = dict(LAUNCHES_PER_STEP if kind == "acdc" else LAUNCHES_PER_STEP_3D)
@@ -2798,7 +3141,8 @@ def _dist_steps(init: dict, rows, kind: str) -> dict:
            "rows": rows(batches[0])["image"].shape[0],
            "params": {k: v.detach().cpu() for k, v in
                       state.model.state_dict().items()},
-           "sim": [s.cpu() for s in state.sim_scores],
+           "sim": [s.cpu() for s in getattr(state, "sim_scores", [])],
+           "counts": [getattr(state, k, None) for k in ("count_g", "count_f")],
            "collectives": list(collectives)}
     del state, step, batches, draws
     torch.cuda.empty_cache()
@@ -2823,9 +3167,10 @@ def collective_figures(steps: dict, replay: bool = False) -> None:
         for n, t in steps.pop("collectives")) / DIST_STEPS / 1e6
 
 
-def dist_val_set():
-    """The synthetic val volumes of phase 23's trainer runs."""
-    cfg = acdc_chap_config()
+def dist_val_set(cfg=None):
+    """The synthetic val volumes of phase 23's trainer runs (at ``cfg``'s
+    data settings, configs/acdc_chap.yml's by default)."""
+    cfg = cfg or acdc_chap_config()
     cfg.data.dataset = "synthetic"
     cfg.data.synthetic_val_volumes, cfg.data.synthetic_train_size = 2, 256
     return build_datasets(cfg.data, None)[1]
@@ -2993,18 +3338,101 @@ def zero_row_ops() -> dict:
     return res
 
 
-def dist_rank_phase(inits: dict, eval_weights: dict, steps_done) -> dict:
+def share_weights(save_dir: str) -> dict:
+    """The ACAL model's weights in a run's latest slot, on the host."""
+    cfg = acal_config()
+    model = net_factory("acalnet", 1, 4, cfg.model, device="cuda")
+    CheckpointManager(save_dir).restore_latest(create_share_state(model, cfg))
+    return {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+
+
+def share_eval(weights: dict) -> np.ndarray:
+    """(k): both decoders of the ACAL model with ``weights`` evaluated as
+    the trainer evaluates them (evaluate_volumes, TF32 on) at this
+    process's W, on (k)'s val volumes: [2, classes - 1, 2]."""
+    set_tf32(True)
+    cfg = acal_config()
+    model = net_factory("acalnet", 1, 4, cfg.model, device="cuda")
+    model.load_state_dict(weights)
+    val = dist_val_set(acal_config())
+    return np.stack([evaluate_volumes(val, make_predictor(model, name, device="cuda"),
+                                      4, tuple(cfg.data.image_size))
+                     for name in ("model1", "model2")])
+
+
+def share_trainer_run(tag: str, tf32: bool = False) -> dict:
+    """(k): cli.train_share_2d at SHARE_DIST_ARGV at this process's W (TF32
+    off, as the bars of (b)-(j); with ``tf32`` on, the card's default), its
+    memory bank recorded: the result, the run dirs beside its own, rank 0's
+    records (None elsewhere), every replay draw's masks, each feed's new
+    entries (score, window corner), and the launches."""
+    from chap_tpu_torch.train import trainer_share
+
+    masks, feeds = [], []
+
+    class RecordingBank(ImageMemoryBank):
+        def add(self, images, knowledge, n):
+            before = len(self._scores)
+            super().add(images, knowledge, n)
+            feeds.append([(s, np.argwhere(m)[0].tolist()) for s, m in
+                          zip(self._scores[before:], self._masks[before:])])
+
+        def get_samples(self, batch_size=12):
+            out = super().get_samples(batch_size)
+            masks.append(out["mask"].copy())
+            return out
+
+    set_tf32(tf32)
+    real = trainer_share.ImageMemoryBank
+    trainer_share.ImageMemoryBank = RecordingBank
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        out = cli_share.main(SHARE_DIST_ARGV + ["--exp", tag])
+    finally:
+        trainer_share.ImageMemoryBank = real
+    return {"result": out, "wall_s": time.perf_counter() - t0,
+            "runs": sorted(os.listdir(os.path.dirname(out["save_dir"]))),
+            "records": _records(out["save_dir"]) if dist.is_main() else None,
+            "replay_masks": masks, "feeds": feeds, "launches": launch_counts()}
+
+
+def ablation_trainer_run(tag: str) -> dict:
+    """(l): cli.train_2d --mode ablation at configs/acdc_chap.yml's values,
+    ABLATION_DIST_STEPS steps, at this process's W: the result, the run
+    dirs, rank 0's disagreement.csv rows and records, the launches (TF32
+    off, as (k))."""
+    set_tf32(False)
+    zero_launch_counts()
+    out = cli_train.main(TRAINER_FLAGS + DIST_OVERRIDES + [
+        "--mode", "ablation", "--exp", tag, "--max_iterations",
+        str(ABLATION_DIST_STEPS)])
+    rows = records = None
+    if dist.is_main():
+        with open(os.path.join(out["save_dir"], "disagreement.csv")) as f:
+            rows = [line.strip().split(",") for line in f][1:]
+        records = _records(out["save_dir"])
+    return {"result": out, "csv": rows, "records": records,
+            "runs": sorted(os.listdir(os.path.dirname(out["save_dir"]))),
+            "launches": launch_counts()}
+
+
+def dist_rank_phase(inits: dict, eval_weights: dict, share_w: dict,
+                    steps_done) -> dict:
     """What each gloo rank on the card runs in phase 23 at W = 2: (b) the
     bare 2D steps on its rows, with the all-reduce ms of the same
     collectives replayed alone after them; (e) the LA steps in fp32 and as
-    written (bf16), (f) the BraTS unet_3D steps, (g) the sliding-window
-    eval; then ``steps_done`` set (the card is no longer the ranks' alone);
-    (c) cli.train_2d, 12 steps and --resume to 18 (TF32 on, as phase 8),
-    and the eval of its latest weights at W = 2."""
+    written (bf16), (f) the BraTS unet_3D steps, (i) the ACAL iterations,
+    (j) the ablation steps, (g) the sliding-window eval; then
+    ``steps_done`` set (the card is no longer the ranks' alone); (c)
+    cli.train_2d, 12 steps and --resume to 18 (TF32 on, as phase 8), and
+    the eval of its latest weights at W = 2; (k) cli.train_share_2d with
+    TF32 off and on, and the eval of ``share_w`` (trained ACAL weights) at
+    W = 2; (l) cli.train_2d --mode ablation."""
     out = {"rank": dist.rank(), "world": dist.world_size()}
     out["acdc"] = dist_steps(inits["acdc"], dist_rows("acdc"))
     collective_figures(out["acdc"], replay=True)
-    for kind in ("la", "la_bf16", "brats"):
+    for kind in ("la", "la_bf16", "brats") + SHARE_KINDS:
         out[kind] = dist_steps(inits["la" if kind == "la_bf16" else kind],
                                dist_rows(kind), kind=kind)
         collective_figures(out[kind])
@@ -3021,15 +3449,20 @@ def dist_rank_phase(inits: dict, eval_weights: dict, steps_done) -> dict:
     out["trainer"] = {"first": first, "resumed": resumed,
                       "launches": launch_counts()}
     out["eval_w2"] = dist_eval(resumed["save_dir"])
+    out["share_trainer"] = share_trainer_run("w2_share")
+    out["share_trainer_tf32"] = share_trainer_run("w2_share_tf32", tf32=True)
+    out["share_eval"] = share_eval(share_w)
+    out["ablation_trainer"] = ablation_trainer_run("w2_ablation")
     return out
 
 
 def dist_rank_phase4(inits: dict) -> dict:
     """What each gloo rank runs at W = 4: (d) the bare 2D steps (three
-    pairs of each stream a rank) and (e) the LA steps in fp32 (ranks 0 and
-    2 hold no row)."""
+    pairs of each stream a rank), (e) the LA steps in fp32 (ranks 0 and
+    2 hold no row), (i) the ACAL iterations and (j) the ablation steps
+    (three labeled and three unlabeled rows a rank)."""
     out = {"rank": dist.rank(), "world": dist.world_size()}
-    for kind in ("acdc", "la"):
+    for kind in ("acdc", "la") + SHARE_KINDS:
         out[kind] = dist_steps(inits[kind], dist_rows(kind), kind=kind)
         collective_figures(out[kind])
     return out
@@ -3039,9 +3472,10 @@ def dist_gaps(got: dict, want: dict, init: dict) -> dict:
     """How far one run of dist_steps lies from another: the largest relative
     gap of a metric over the steps; the parameters' update from ``init``,
     the BN running statistics and the GradSim scores each as one vector,
-    |got - want| / |want| (norms); and the largest element gap of each of
-    the last three (a model without BN, or a step without GradSim, has no
-    such entry)."""
+    |got - want| / |want| (norms), and for the ACAL model the update of
+    each parameter group (encoder, decoders) apart; and the largest element
+    gap of each of these (a model without BN, or a step without GradSim,
+    has no such entry)."""
     def vec(state, keys, minus=None):
         return torch.cat([(state[k].double() - (0 if minus is None else
                                                  minus[k].double())).reshape(-1)
@@ -3053,6 +3487,12 @@ def dist_gaps(got: dict, want: dict, init: dict) -> dict:
               if v.is_floating_point() and k not in running]
     pairs = {"update": (vec(got["params"], params, init),
                         vec(want["params"], params, init))}
+    if any(k.startswith("encoder.") for k in params) and want["counts"][0] is not None:
+        # the ACAL model's two parameter groups, each its own optimizer's
+        for name, keep in (("update_encoder", True), ("update_decoders", False)):
+            group = [k for k in params if k.startswith("encoder.") == keep]
+            pairs[name] = (vec(got["params"], group, init),
+                           vec(want["params"], group, init))
     if running:
         pairs["running"] = (vec(got["params"], running),
                             vec(want["params"], running))
@@ -3063,7 +3503,8 @@ def dist_gaps(got: dict, want: dict, init: dict) -> dict:
                           for g, w in zip(got["metrics"], want["metrics"])
                           for k in w)}
     for name, (g, w) in pairs.items():
-        out[name] = float((g - w).norm() / w.norm())
+        # scores that the step never moves (the ablation step's) stay 0
+        out[name] = float((g - w).norm() / max(float(w.norm()), 1e-30))
         out[name + "_max_abs"] = float((g - w).abs().max())
     return out
 
@@ -3083,6 +3524,9 @@ def hold_ranks(kind: str, ranks: list, one: dict, init: dict, bars: dict,
         check(got[kind]["launches"] == want,
               f"{kind} W = {world} rank {r} launches {got[kind]['launches']}, "
               f"expected {want}")
+        check(got[kind]["counts"] == one["counts"],
+              f"{kind} W = {world} rank {r}: schedule counts {got[kind]['counts']}"
+              f", one process {one['counts']}")
         if kind == "la_bf16":
             bf16 = got[kind]["launches_bf16"]
             check(bf16["K1_fwd"] == want["K1_fwd"] and bf16["K1_bwd"] == want["K1_bwd"],
@@ -3099,6 +3543,165 @@ def hold_ranks(kind: str, ranks: list, one: dict, init: dict, bars: dict,
                                              if "allreduce_ms_per_step" in got[kind]
                                              else ())}
                 for got in ranks]}
+
+
+def share_loss_gaps(got: list, want: list) -> dict:
+    """By logged step, the largest relative gap of a loss in ``got``'s
+    records to ``want``'s."""
+    gaps = {}
+    for g, w in zip(got, want):
+        for k in SHARE_KEYS:
+            if k in w:
+                gaps[w["step"]] = max(gaps.get(w["step"], 0.0),
+                                      abs(g[k] - w[k]) / max(abs(w[k]), 1e-6))
+    return gaps
+
+
+def replays_differing(got: dict, want: dict) -> int:
+    """How many of a (k) run's replay draws picked other masks than
+    ``want``'s."""
+    return sum(not np.array_equal(a, b)
+               for a, b in zip(got["replay_masks"], want["replay_masks"]))
+
+
+def hold_share_trainer(ranks: list, one: dict) -> dict:
+    """(k): the W = 2 ranks' cli.train_share_2d against this process's run:
+    one run dir, written by rank 0; the same result on both ranks; W = 1's
+    logged steps, losses within rtol 2e-3; every replay draw's masks equal
+    to W = 1's on both ranks; both decoders' eval dice within 5e-3; the K1
+    launches of 8 joint steps and the replays a rank."""
+    got0 = ranks[0]
+    check(all(r["result"] == got0["result"] for r in ranks)
+          and got0["result"]["steps"] == SHARE_DIST_ITERATIONS,
+          f"(k) both ranks return one result: {[r['result'] for r in ranks]}")
+    check(got0["runs"] == ["run_0"] and ranks[1]["records"] is None,
+          f"(k) one run dir, written by rank 0: {got0['runs']}")
+    want = one["records"]
+    check([r["step"] for r in got0["records"]] == [r["step"] for r in want],
+          "(k) W = 2 writes W = 1's records")
+    step_gaps = share_loss_gaps(got0["records"], want)
+    gaps = list(step_gaps.values())
+    dice_keys = ("model1_val_mean_dice", "model2_val_mean_dice")
+    dice = [(g[k], w[k]) for g, w in zip(got0["records"], want)
+            for k in dice_keys if k in w]
+    replays = len(one["replay_masks"])
+    differ = [replays_differing(r, one) for r in ranks]
+    # where the banks part, if they do: the first feed whose windows differ,
+    # and the largest relative gap of a new entry's score
+    windows = [[c for _, c in f] for f in one["feeds"]]
+    first = [next((i for i, f in enumerate(r["feeds"])
+                   if [c for _, c in f] != windows[i]), None) for r in ranks]
+    score_gap = max(abs(a[0] - b[0]) / max(abs(b[0]), 1e-30)
+                    for r in ranks for fa, fb in zip(r["feeds"], one["feeds"])
+                    for a, b in zip(fa, fb))
+    res = {"iterations": SHARE_DIST_ITERATIONS, "replays": replays,
+           "largest_rel_loss_gap": max(gaps), "rel_loss_gap_by_step": step_gaps,
+           "first_feed_with_other_windows_per_rank": first,
+           "largest_rel_score_gap": score_gap,
+           "val_dice_w1_w2": dice, "replay_draws_differing_per_rank": differ,
+           "launches_per_rank": [r["launches"] for r in ranks],
+           "wall_s_per_rank": [r["wall_s"] for r in ranks],
+           "wall_s_w1": one["wall_s"]}
+    print("dist (k) gloo W = 2 cli.train_share_2d against W = 1: "
+          + json.dumps(res), flush=True)
+    check(replays == SHARE_DIST_ITERATIONS - 3
+          and all(len(r["replay_masks"]) == replays for r in ranks),
+          f"(k) replay from iteration 4 on every rank: {res}")
+    check(max(gaps) <= RTOL, f"(k) losses within rtol 2e-3 of W = 1: {res}")
+    check(differ == [0] * len(ranks), f"(k) the replay masks are W = 1's: {res}")
+    check(len(dice) == 2 and all(abs(g - w) <= 5e-3 for g, w in dice),
+          f"(k) both decoders' eval dice within 5e-3 of W = 1: {res}")
+    want_k1 = 2 * (SHARE_DIST_ITERATIONS + replays)
+    for r in ranks:
+        check(r["launches"] == {**{k: 0 for k in r["launches"]},
+                                "K1_fwd": want_k1, "K1_bwd": want_k1},
+              f"(k) launches {r['launches']}, expected {want_k1} / {want_k1} K1")
+    return res
+
+
+def hold_share_tf32(ranks: list, one_on: dict, one_off: dict) -> dict:
+    """(k) at the card's default, TF32 on: the W = 2 ranks' run against
+    this process's, within twice this process's own gap between TF32 on
+    and off (or rtol 2e-3): the part of W = 2's gap that TF32 rounding
+    alone accounts for. Replay draws that part are counted, not held."""
+    got0 = ranks[0]
+    check([r["step"] for r in got0["records"]]
+          == [r["step"] for r in one_on["records"]]
+          == [r["step"] for r in one_off["records"]],
+          "(k) TF32 on: W = 2 and W = 1 write the records of TF32 off")
+    control = share_loss_gaps(one_on["records"], one_off["records"])
+    gaps = share_loss_gaps(got0["records"], one_on["records"])
+    bar = max(RTOL, 2 * max(control.values()))
+    res = {"bar": bar,
+           "control_w1_on_vs_off": {
+               "largest_rel_loss_gap": max(control.values()),
+               "rel_loss_gap_by_step": control,
+               "replay_draws_differing": replays_differing(one_on, one_off)},
+           "w2_vs_w1_on": {
+               "largest_rel_loss_gap": max(gaps.values()),
+               "rel_loss_gap_by_step": gaps,
+               "replay_draws_differing_per_rank": [
+                   replays_differing(r, one_on) for r in ranks]},
+           # a reading, not held: which W = 1 run W = 2's TF32-on run follows
+           "w2_on_vs_w1_off": {
+               "largest_rel_loss_gap": max(share_loss_gaps(
+                   got0["records"], one_off["records"]).values()),
+               "replay_draws_differing_per_rank": [
+                   replays_differing(r, one_off) for r in ranks]},
+           "replays": len(one_on["replay_masks"]), "settings": "cudnn.allow_tf32=True"}
+    print("dist (k) TF32 on, W = 2 against W = 1 beside W = 1 on against off: "
+          + json.dumps(res), flush=True)
+    check(max(gaps.values()) <= bar,
+          f"(k) TF32 on: W = 2's losses within twice TF32's own gap: {res}")
+    for r in ranks:
+        check(r["launches"] == one_on["launches"] == one_off["launches"],
+              f"(k) TF32 on: launches {r['launches']} as TF32 off's")
+    return res
+
+
+def hold_share_eval(ranks: list, one: np.ndarray) -> dict:
+    """(k): the eval of trained ACAL weights (both decoders' val dice above
+    0) at W = 2 equal to W = 1's on every rank."""
+    dice = one[:, :, 0].mean(axis=1).tolist()
+    res = {"mean_dice_model1_model2": dice,
+           "equal_on_ranks": [bool(np.array_equal(r, one)) for r in ranks]}
+    print("dist (k) eval of trained ACAL weights at W = 2 against W = 1: "
+          + json.dumps(res), flush=True)
+    check(min(dice) > 0, f"(k) the trained weights' dice is above 0: {res}")
+    check(all(res["equal_on_ranks"]),
+          f"(k) eval at W = 2 equals W = 1's on the same weights: {res} "
+          f"{[r.tolist() for r in ranks]} against {one.tolist()}")
+    return res
+
+
+def hold_ablation_trainer(ranks: list, one: dict) -> dict:
+    """(l): the W = 2 ranks' cli.train_2d --mode ablation against this
+    process's: one run dir written by rank 0, disagreement.csv's iterations
+    as W = 1's and its ratios (a global mean) within 5e-3, losses within
+    rtol 2e-3; 2 / 2 K1 launches a step a rank."""
+    got0 = ranks[0]
+    check(all(r["result"] == got0["result"] for r in ranks)
+          and got0["runs"] == ["run_0"] and ranks[1]["csv"] is None,
+          f"(l) one result and one run dir: {got0['runs']}")
+    check([r[0] for r in got0["csv"]] == [r[0] for r in one["csv"]]
+          == [str(i) for i in range(1, ABLATION_DIST_STEPS + 1)],
+          f"(l) disagreement.csv iterations {got0['csv']} against {one['csv']}")
+    ratio_gap = max(abs(float(g[1]) - float(w[1]))
+                    for g, w in zip(got0["csv"], one["csv"]))
+    loss_gap = max(abs(g["loss"] - w["loss"]) / abs(w["loss"])
+                   for g, w in zip(got0["records"], one["records"]) if "loss" in w)
+    res = {"steps": ABLATION_DIST_STEPS, "ratios_w2": [float(r[1]) for r in got0["csv"]],
+           "ratios_w1": [float(r[1]) for r in one["csv"]],
+           "largest_ratio_gap": ratio_gap, "largest_rel_loss_gap": loss_gap,
+           "launches_per_rank": [r["launches"] for r in ranks]}
+    print("dist (l) gloo W = 2 ablation trainer against W = 1: " + json.dumps(res),
+          flush=True)
+    check(ratio_gap <= 5e-3, f"(l) ratios within 5e-3 of W = 1: {res}")
+    check(loss_gap <= RTOL, f"(l) losses within rtol 2e-3 of W = 1: {res}")
+    want = {k: v * ABLATION_DIST_STEPS for k, v in ABLATION_LAUNCHES_PER_STEP.items()}
+    for r in ranks:
+        check(r["launches"] == want, f"(l) launches {r['launches']}, expected {want}")
+    return res
 
 
 def control_bars(control: dict) -> dict:
@@ -3134,7 +3737,7 @@ def torchrun_losses(launch: subprocess.Popen, said: str, run_dir: str,
     return gap
 
 
-def phase_dist() -> dict:
+def phase_dist(share_w: dict = None) -> dict:
     """Phase 23: the port's data parallelism on the one card, W gloo ranks
     sharing it (NCCL puts no two ranks on one device): (b) W = 2 and (d) W
     = 4, three bare 2D CHAP steps against this process's steps on the
@@ -3143,8 +3746,12 @@ def phase_dist() -> dict:
     BraTS unet_3D supervised step at W = 2; (g) the sliding-window eval at
     W = 2 against W = 1's maps; (a) cli.train_2d and (h) cli.train_3d under
     torchrun at W = 1 over NCCL against the same runs in this process; (c)
-    the W = 2 2D trainer with a resume, its evals against W = 1's. The
-    gloo figures are of ranks sharing one card, not a multi-card speed."""
+    the W = 2 2D trainer with a resume, its evals against W = 1's; (i)-(l)
+    the ACAL and ablation paths, (k)'s eval on ``share_w``, trained ACAL
+    weights (phase 16's, or trained here when None). The gloo figures are
+    of ranks sharing one card, not a multi-card speed."""
+    if share_w is None:
+        share_w = phase_trainer_share()["weights"]
     t_phase = time.perf_counter()
     shutil.rmtree(DIST_RUNS, ignore_errors=True)
     res = {"card": card_line(), "zero_rows": zero_row_ops()}
@@ -3154,9 +3761,9 @@ def phase_dist() -> dict:
     # another order (the step's discrete choices, the VAT direction, the
     # top-k mask, LeakyReLU's kink under the GradSim cosines, the argmax
     # pseudo-labels, amplify that)
-    inits = {kind: dist_init(kind) for kind in ("acdc", "la", "brats")}
+    inits = {kind: dist_init(kind) for kind in ("acdc", "la", "brats") + SHARE_KINDS}
     one, bars = {}, {}
-    for kind in ("acdc", "la", "brats"):
+    for kind in ("acdc", "la", "brats") + SHARE_KINDS:
         one[kind] = dist_steps(inits[kind], lambda batch: batch, kind=kind)
         check(one[kind]["collectives"] == [], "one process makes no collective")
         control = dist_gaps(dist_steps(inits[kind], lambda batch: batch,
@@ -3173,6 +3780,7 @@ def phase_dist() -> dict:
     eval_w1 = dist_eval_3d(eval_weights)
     check(all(len(np.unique(m)) > 1 for m in eval_w1["maps"]),
           "(g) label maps of more than one class")
+    share_eval_w1 = share_eval(share_w)
     torch.cuda.empty_cache()
     res["references_s"] = time.perf_counter() - t_phase
 
@@ -3182,7 +3790,7 @@ def phase_dist() -> dict:
     steps_done = mp.get_context("spawn").Event()
     pool = concurrent.futures.ThreadPoolExecutor(1)
     spawned = pool.submit(dist.spawn_ranks, dist_rank_phase, 2,
-                          (inits, eval_weights, steps_done), backend="gloo",
+                          (inits, eval_weights, share_w, steps_done), backend="gloo",
                           device="cuda", timeout=900)
     pool.shutdown(wait=False)
     while not steps_done.wait(1.0):
@@ -3205,6 +3813,9 @@ def phase_dist() -> dict:
         cli_train.main(argv + ["--max_iterations", "18", "--resume"])
         w1_3d = cli_train3d.main(TRAINER3D_FLAGS + DIST3D_OVERRIDES + [
             "--exp", "w1_3d", "--max_iterations", str(DIST3D_STEPS)])
+        w1_share = share_trainer_run("w1_share")
+        w1_share_tf32 = share_trainer_run("w1_share_tf32", tf32=True)
+        w1_ablation = ablation_trainer_run("w1_ablation")
         said = launch.communicate(timeout=300)[0]
         said3d = launch3d.communicate(timeout=300)[0]
     finally:
@@ -3307,10 +3918,24 @@ def phase_dist() -> dict:
                                    * r["steps_per_sec"]
                                    for r in w2_records
                                    if "steps_per_sec" in r][-1]}
+
+    # (i), (j) at W = 2
+    res["i_gloo_w2_acal"] = hold_ranks("acal", ranks, one["acal"], inits["acal"],
+                                       bars["acal"], 2)
+    res["j_gloo_w2_ablation"] = hold_ranks("ablation", ranks, one["ablation"],
+                                           inits["ablation"], bars["ablation"], 2)
+    res["k_gloo_w2_share_trainer"] = hold_share_trainer(
+        [got["share_trainer"] for got in ranks], w1_share)
+    res["k_tf32_on"] = hold_share_tf32(
+        [got["share_trainer_tf32"] for got in ranks], w1_share_tf32, w1_share)
+    res["k_eval_trained_weights"] = hold_share_eval(
+        [got["share_eval"] for got in ranks], share_eval_w1)
+    res["l_gloo_w2_ablation_trainer"] = hold_ablation_trainer(
+        [got["ablation_trainer"] for got in ranks], w1_ablation)
     del ranks
     torch.cuda.empty_cache()
 
-    # (d) and (e) at W = 4
+    # (d), (e), (i) and (j) at W = 4
     t_spawn = time.perf_counter()
     ranks4 = dist.spawn_ranks(dist_rank_phase4, 4, (inits,), backend="gloo",
                               device="cuda", timeout=600)
@@ -3319,6 +3944,10 @@ def phase_dist() -> dict:
                                         inits["acdc"], bars["acdc"], 4)
     res["e_gloo_w4_la"] = hold_ranks("la", ranks4, one["la"], inits["la"],
                                      bars["la"], 4)
+    res["i_gloo_w4_acal"] = hold_ranks("acal", ranks4, one["acal"],
+                                       inits["acal"], bars["acal"], 4)
+    res["j_gloo_w4_ablation"] = hold_ranks("ablation", ranks4, one["ablation"],
+                                           inits["ablation"], bars["ablation"], 4)
     res["phase_s"] = time.perf_counter() - t_phase
     print("dist", json.dumps(res), flush=True)
     shutil.rmtree(DIST_RUNS, ignore_errors=True)
@@ -3425,13 +4054,16 @@ def main() -> int:
     # process, so every timed K1 shape is checked here
     k1_brats = phase_k1((4, 2) + BRATS_PATCH, 7, 1, timed=True)
     # K1 at bf16 logits (the configs as written compute in bf16): the LA
-    # step's 3D mix_loss (R = 2) and supervised (R = 1) calls, and the
-    # BraTS supervised call
+    # step's 3D mix_loss (R = 2) and supervised (R = 1) calls, the BraTS
+    # supervised call, and the ACAL / ablation steps' supervised call on
+    # the labeled half in bf16 (model.dtype=bfloat16)
     bf16 = torch.bfloat16
     k1_bf16 = {"la": phase_k1((1, 2) + LA_PATCH, 8, 2, timed=True, dtype=bf16),
                "la_r1": phase_k1((2, 2) + LA_PATCH, 8, 1, timed=True, dtype=bf16),
                "brats": phase_k1((4, 2) + BRATS_PATCH, 9, 1, timed=True,
-                                 dtype=bf16)}
+                                 dtype=bf16),
+               "acal": phase_k1((12, 4, 256, 256), 10, 1, timed=True,
+                                dtype=bf16)}
     # phase 4: K2
     k2 = phase_k2()
     # phase 5: CUDA-against-CPU step parity
@@ -3467,9 +4099,12 @@ def main() -> int:
     # brats_supervised.yml as written (bf16)
     slice_bf16 = phase_slice_bf16()
     torch.cuda.empty_cache()
+    # beside it: the ACAL and ablation paths in bf16 (by override)
+    share_bf16 = phase_slice_bf16_share()
+    torch.cuda.empty_cache()
     # phase 23: data parallelism (torchrun over NCCL at W = 1, two gloo
     # ranks on the card)
-    dist_res = phase_dist()
+    dist_res = phase_dist(trainer_share.pop("weights"))
 
     # phase 22: report
     def trainer_launches(run, name, logits=None):
@@ -3504,7 +4139,10 @@ def main() -> int:
                 "host_us": res[name[3:6]]["host_us"],
                 "plain_ms": res[f"{name[3:6]}_plain_ms"],
                 "bound_ms": res[f"{name[3:6]}_bound"][0],
-                "bound_by": res[f"{name[3:6]}_bound"][1], "library_ms": None}
+                "bound_by": res[f"{name[3:6]}_bound"][1], "library_ms": None,
+                # at the supervised callers: no mask, uint8 labels (R = 1)
+                "caller_bound_ms": (res[f"{name[3:6]}_caller_bound"][0]
+                                    if res["regions"] == 1 else None)}
 
     def k2_row(name, res, launches_of, key, run):
         return {"name": name, "route": "cuda",
@@ -3584,7 +4222,20 @@ def main() -> int:
         k3_row("K3_sw_bf16_brats", k3_bf16["brats_160x160x128"],
                trainer_zoo["launches"]["test_all_case"],
                k3_bf16["brats_160x160x128"]["max_abs_err"]),
+        # the ACAL iterations' bf16 launches (3 iterations of the bf16
+        # slice); no trainer runs these paths in bf16, so no trainer count
+        k1_row("K1_fwd_bf16_acal", "chap_tpu/ops/fused_losses.py:99", "K1_fwd",
+               k1_bf16["acal"], k1_bf16["acal"],
+               share_bf16["acal"]["launches_bf16"], None),
+        k1_row("K1_bwd_bf16_acal", "chap_tpu/ops/fused_losses.py:159", "K1_bwd",
+               k1_bf16["acal"], k1_bf16["acal"],
+               share_bf16["acal"]["launches_bf16"], None),
     ]
+    for row in kernels[-2:]:
+        key = row["name"][:6]
+        row["acal_ablation_launches"] = {
+            "acal_bf16_slice_3_iterations": share_bf16["acal"]["launches_bf16"][key],
+            "ablation_bf16_slice_3_steps": share_bf16["ablation"]["launches_bf16"][key]}
     # phase 23's bare steps and eval at W gloo ranks: each rank's launches
     # (3 steps; a rank without rows launches K1's forward over nothing and
     # neither K1's backward nor K2)
@@ -3597,7 +4248,11 @@ def main() -> int:
                 "K1_fwd_brats": ("f_gloo_w2_brats",),
                 "K1_bwd_brats": ("f_gloo_w2_brats",),
                 "K1_fwd_bf16": ("e_gloo_w2_la_bf16",),
-                "K1_bwd_bf16": ("e_gloo_w2_la_bf16",)}
+                "K1_bwd_bf16": ("e_gloo_w2_la_bf16",),
+                "K1_fwd_acal": ("i_gloo_w2_acal", "i_gloo_w4_acal",
+                                "j_gloo_w2_ablation", "j_gloo_w4_ablation"),
+                "K1_bwd_acal": ("i_gloo_w2_acal", "i_gloo_w4_acal",
+                                "j_gloo_w2_ablation", "j_gloo_w4_ablation")}
     for row in kernels:
         for key in per_rank.get(row["name"], ()):
             name = row["name"][:6] if row["name"].startswith("K1") else row["name"]

@@ -1,7 +1,8 @@
 """bf16 compute (``model.dtype=bfloat16``) in the port against chap_tpu's bf16
 compute, on the CPU: the shared layers, the 2D DualDecoder (and the
 ``acalnet`` key), K1's plain version at bf16 logits, the 2D CHAP and
-supervised steps, the 2D eval, the data path and the refusals.
+supervised steps, the 2D eval, the data path, and the ablation and ACAL
+trainers set up in bf16.
 
 The bar, for each compared tensor, from the same numpy inputs, float32
 weights and draws. ``e_ref`` is chap_tpu's own bf16 error, max |chap_tpu
@@ -790,14 +791,39 @@ def test_compact_batch_in_bf16():
 
 
 @pytest.mark.parametrize("trainer", ["ablation", "acal"])
-def test_ablation_and_acal_refuse_bf16(tmp_path, trainer):
-    """The ablation step and the ACAL trainer stay float32 and refuse bf16
-    by ROADMAP item 21b, before any model is built."""
-    cfg = Config()
+def test_ablation_and_acal_refuse_bf16(tmp_path, monkeypatch, trainer):
+    """The ablation step and the ACAL trainer no longer refuse bf16 (their
+    bf16 steps are held to chap_tpu's in tests/test_torch_bf16_share.py):
+    each builds its model computing in bf16 and hands its step a bf16
+    batch, for one step of the trainer."""
+    from chap_tpu_torch.config import update_values
+    from test_trainer_e2e import tiny_cfg as jax_tiny_cfg
+    import dataclasses
+
+    cfg = update_values(dataclasses.asdict(jax_tiny_cfg(tmp_path)), Config())
     cfg.model.dtype = "bfloat16"
-    with pytest.raises(ValueError, match="ROADMAP item 21b"):
-        if trainer == "ablation":
-            trainer_2d.train(cfg, str(tmp_path), mode="ablation", max_steps=1,
-                             device="cpu")
-        else:
-            trainer_share.train(cfg, str(tmp_path), max_steps=1, device="cpu")
+    cfg.data.image_size = (32, 32)
+    cfg.run.log_every = cfg.eval.eval_every = 1
+    seen = []
+    module, name = ((trainer_2d, "build_ablation_train_step") if trainer == "ablation"
+                    else (trainer_share, "build_share_joint_step"))
+    real = getattr(module, name)
+
+    def wrap_build(model, *args, **kw):
+        step = real(model, *args, **kw)
+
+        def wrapped(state, batch, gen=None):
+            seen.append((model.compute_dtype, batch["image"].dtype))
+            return step(state, batch, gen)
+        return wrapped
+    monkeypatch.setattr(module, name, wrap_build)
+    if trainer == "ablation":
+        result = trainer_2d.train(cfg, str(tmp_path), mode="ablation",
+                                  max_steps=1, device="cpu")
+    else:
+        cfg.model.name, cfg.model.decoder_type = "acalnet", "same"
+        cfg.semi.mb_patch_size = 8
+        result = trainer_share.train(cfg, str(tmp_path), max_steps=1,
+                                     device="cpu")
+    assert result["steps"] == 1
+    assert seen == [(torch.bfloat16, torch.bfloat16)]

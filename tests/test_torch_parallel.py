@@ -463,9 +463,9 @@ def test_cli_3d_trains_and_resumes_at_two_ranks(results):
 
 
 def test_refusals_at_two_ranks(results):
-    """At W = 2: a batch of 3 (the CHAP and supervised steps, the 3D
-    trainer), an sw_batch of 3, the parallel options and the paths still
-    on one rank (ROADMAP item 16c)."""
+    """At W = 2: a batch of 3 (the CHAP, supervised and ablation steps, the
+    3D trainer), an sw_batch of 3, the parallel options, and the ACAL
+    replay's rule (with semi.acal, W must also divide labeled_bs)."""
     said = results[1][0]["refusals"]
     assert results[1][1]["refusals"] == said
     for name in ("chap_layout", "supervised_layout", "trainer_3d_layout"):
@@ -474,8 +474,11 @@ def test_refusals_at_two_ranks(results):
     assert "sw_batch % W == 0" in said["sw_batch"]
     assert "must equal the world size" in said["num_devices"]
     assert "must divide the world size 2" in said["dcn_axis_size"]
-    for name in ("trainer_share", "ablation"):
-        assert "ROADMAP item 16c" in said[name]
+    assert "W must divide data.batch_size" in said["ablation"]
+    assert "cannot share a batch of 3" in said["ablation"]
+    assert "cannot share the ACAL replay batch" in said["trainer_share"]
+    assert ("W must divide data.labeled_bs 3 and the unlabeled 3 rows"
+            in said["trainer_share"])
 
 
 def test_layout_refuses_what_it_cannot_share():

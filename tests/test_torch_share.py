@@ -543,10 +543,23 @@ def test_trainer_share_e2e(tmp_path):
     assert (state.step, state.count_g, state.count_f) == (8, 12, 12)
 
 
-def test_trainer_share_refuses_several_devices(tmp_path):
+def test_trainer_share_refuses_several_devices(tmp_path, monkeypatch):
+    """A W that chap_tpu's ACAL trainer refuses (trainer_share.py:86-90:
+    with semi.acal, W must divide labeled_bs and the unlabeled rows) is
+    refused with that rule before any model is built; W = 2 sees a world
+    of two (the ranks themselves: tests/test_torch_parallel_share.py)."""
+    from chap_tpu_torch.parallel import dist
+
     cfg = _share_cfg(tmp_path)
-    cfg.parallel.num_devices = 2
-    with pytest.raises(NotImplementedError, match="ROADMAP item 16"):
+    cfg.data.batch_size, cfg.data.labeled_bs = 6, 3
+    monkeypatch.setattr(dist, "world_size", lambda: 2)
+    monkeypatch.setattr(trainer_share, "net_factory", None)   # not reached
+    with pytest.raises(ValueError, match=r"W must divide data.labeled_bs 3 "
+                       r"and the unlabeled 3 rows .*chap_tpu's rule; here W "
+                       r"in \[1, 3\]"):
+        trainer_share.train(cfg, str(tmp_path), device="cpu")
+    cfg.semi.acal = False       # no replay: W | batch_size is enough
+    with pytest.raises(TypeError):     # past the rule, at the model
         trainer_share.train(cfg, str(tmp_path), device="cpu")
 
 

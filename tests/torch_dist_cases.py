@@ -1,6 +1,7 @@
-"""What each rank runs in tests/test_torch_parallel.py and
-tests/test_torch_parallel_jax.py: the port at W ranks (gloo, CPU) on its
-rows of global inputs that the test makes once and hands to every rank.
+"""What each rank runs in tests/test_torch_parallel.py,
+tests/test_torch_parallel_jax.py and tests/test_torch_parallel_share.py:
+the port at W ranks (gloo, CPU) on its rows of global inputs that the test
+makes once and hands to every rank.
 Imports torch and chap_tpu_torch only, so a spawned rank starts without JAX.
 
 Every function here takes the global inputs and returns what a test
@@ -19,7 +20,11 @@ from chap_tpu_torch.ops.fused_losses import region_dice_ce
 from chap_tpu_torch.parallel import dist
 from chap_tpu_torch.semi.gradsim import VNET_LEVEL_PATHS
 from chap_tpu_torch.train.state import TrainState, bn_running_stats, make_optimizer
+from chap_tpu_torch.train.step_ablation import build_ablation_train_step
 from chap_tpu_torch.train.step_chap import build_chap_train_step
+from chap_tpu_torch.train.step_share import (build_acal_steps,
+                                             build_share_joint_step,
+                                             create_share_state)
 from chap_tpu_torch.train.step_supervised import build_supervised_train_step
 from chap_tpu_torch.train.trainer_3d import (build_cps3d_train_step,
                                              build_supervised3d_train_step)
@@ -40,8 +45,11 @@ def model_from(cfg, state_dict, name=None):
     return model
 
 
-# mode: (3D model key or None for the 2D one, step builder, batch roles)
+# mode: (3D model key or None for the 2D one, the step's factory, batch roles or
+# a function of the config giving them)
 STEPS = {
+    "ablation": (None, lambda m, o, c: build_ablation_train_step(
+        m, o, c, device="cpu"), lambda cfg: dist.Halves(cfg.data.labeled_bs)),
     "chap": (None, lambda m, o, c: build_chap_train_step(m, o, c, device="cpu"),
              dist.CHAP_ROLES),
     "supervised": (None, lambda m, o, c: build_supervised_train_step(
@@ -62,6 +70,7 @@ def run_steps(cfg, state_dict, sim, batches, draws, mode="chap"):
     final state (parameters, BN running stats, scores), the sequence of
     all-reduces made and this rank's rows of each batch."""
     name, build, roles = STEPS[mode]
+    roles = roles(cfg) if callable(roles) else roles
     model = model_from(cfg, state_dict,
                        cfg.model.name_3d if name == "name_3d" else name)
     opt = make_optimizer(model, cfg.optim.base_lr, cfg.optim.momentum,
@@ -81,6 +90,159 @@ def run_steps(cfg, state_dict, sim, batches, draws, mode="chap"):
                         in bn_running_stats(model).items()},
             "sim": [s.clone() for s in state.sim_scores],
             "collectives": list(record), "rows": local_rows}
+
+
+def run_share(cfg, state_dict, batches, replay_masks, draws):
+    """ACAL iterations from ``state_dict`` on this rank's ``Halves`` rows of
+    the global ``batches``: each the joint step, then the decoder max-step
+    and the encoder min-step on the batch itself with the global replay
+    mask of that iteration (its unlabeled rows' part, ``ONE_ROLE``), each
+    step with its global draws (``draws[i]``: joint, max, min). Returns
+    per-iteration metrics, the final state and BN running statistics, both
+    schedule counts, each iteration's knowledge map gathered in global row
+    order (``gather_rows``), the collectives and this rank's labeled and
+    unlabeled rows."""
+    layout = dist.Halves(cfg.data.labeled_bs)
+    model = model_from(cfg, state_dict)
+    state = create_share_state(model, cfg)
+    joint = build_share_joint_step(model, state.optimizer_g, state.optimizer_f,
+                                   cfg, device="cpu")
+    dec, enc = build_acal_steps(model, state.optimizer_g, state.optimizer_f,
+                                cfg, device="cpu")
+    n_u = cfg.data.batch_size - cfg.data.labeled_bs
+    metrics, knowledge = [], []
+    with dist.record_collectives() as record:
+        for batch, mask, d in zip(batches, replay_masks, draws):
+            rows = {k: dist.shard_rows(v, layout) for k, v in batch.items()}
+            m_rows = dist.shard_rows(mask)
+            state, m, k = joint(state, rows, draws=copy.deepcopy(d[0]))
+            knowledge.append(dist.gather_rows(k, n_u))
+            state, f = dec(state, rows["image"], rows["label"], m_rows,
+                           draws=copy.deepcopy(d[1]))
+            state, g = enc(state, rows["image"], m_rows,
+                           draws=copy.deepcopy(d[2]))
+            metrics.append({k_: float(v) for k_, v in {**m, **f, **g}.items()})
+    labeled = len(dist.half_rows(cfg.data.batch_size, cfg.data.labeled_bs)[0])
+    return {"metrics": metrics,
+            "state": {k: v.clone() for k, v in model.state_dict().items()},
+            "running": {k: (m.clone(), v.clone()) for k, (m, v)
+                        in bn_running_stats(model).items()},
+            "counts": (state.count_g, state.count_f, state.step),
+            "knowledge": knowledge, "collectives": list(record),
+            "rows": (labeled, rows["image"].shape[0] - labeled)}
+
+
+def share_cli(argv):
+    """chap_tpu_torch.cli.train_share_2d in a process group the caller
+    initialised (or in one process), its memory bank recorded: the result,
+    rank 0's metrics.jsonl records (None elsewhere), the run dirs beside
+    the run, every replay draw's masks and images and the bank's final
+    entries."""
+    import json
+    import os
+
+    import numpy as np
+
+    from chap_tpu_torch.cli import train_share_2d
+    from chap_tpu_torch.semi.memory_bank import ImageMemoryBank
+    from chap_tpu_torch.train import trainer_share
+
+    draws = []
+
+    class RecordingBank(ImageMemoryBank):
+        def get_samples(self, batch_size=12):
+            out = super().get_samples(batch_size)
+            draws.append({k: v.copy() for k, v in out.items()})
+            return out
+
+    banks = []
+    real = trainer_share.ImageMemoryBank
+
+    def make_bank(*args, **kw):
+        banks.append(RecordingBank(*args, **kw))
+        return banks[-1]
+    trainer_share.ImageMemoryBank = make_bank
+    try:
+        out = train_share_2d.main(argv)
+    finally:
+        trainer_share.ImageMemoryBank = real
+    records = None
+    if dist.is_main():
+        with open(os.path.join(out["save_dir"], "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+    bank = banks[0]
+    return {"result": out, "records": records,
+            "runs": sorted(os.listdir(os.path.dirname(out["save_dir"]))),
+            "replay": draws,
+            "bank": {"images": np.stack(bank._images),
+                     "masks": np.stack(bank._masks),
+                     "scores": list(bank._scores)}}
+
+
+def ablation_cli(argv):
+    """chap_tpu_torch.cli.train_2d --mode ablation: the result and rank 0's
+    disagreement.csv rows and metrics.jsonl records (None elsewhere)."""
+    import json
+    import os
+
+    from chap_tpu_torch.cli import train_2d
+
+    out = train_2d.main(argv + ["--mode", "ablation"])
+    rows = records = None
+    if dist.is_main():
+        with open(os.path.join(out["save_dir"], "disagreement.csv")) as f:
+            rows = [line.strip().split(",") for line in f]
+        with open(os.path.join(out["save_dir"], "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+    return {"result": out, "csv": rows, "records": records,
+            "runs": sorted(os.listdir(os.path.dirname(out["save_dir"])))}
+
+
+def replay_rows(cfg, state_dict, batch, mask):
+    """The decoder max-step on this rank's rows of ``batch`` with its draws
+    drawn here from a seeded generator, from fresh states: without the
+    global row count (the message where it is refused, else None), then
+    with it (its metrics)."""
+    layout = dist.Halves(cfg.data.labeled_bs)
+    rows = {k: dist.shard_rows(v, layout) for k, v in batch.items()}
+    m_rows = dist.shard_rows(mask)
+
+    def call(**kw):
+        model = model_from(cfg, state_dict)
+        state = create_share_state(model, cfg)
+        dec, _ = build_acal_steps(model, state.optimizer_g, state.optimizer_f,
+                                  cfg, device="cpu")
+        return dec(state, rows["image"], rows["label"], m_rows,
+                   torch.Generator().manual_seed(5), **kw)[1]
+
+    try:
+        call()
+        said = None
+    except ValueError as e:
+        said = str(e)
+    metrics = call(rows=batch["image"].shape[0])
+    return {"refused": said, "metrics": {k: float(v) for k, v in metrics.items()}}
+
+
+def share_layout_refusals(cases):
+    """The message of each (batch, labeled_bs, acal) of ``cases`` that
+    trainer_share.train refuses at this world size, None where it passes
+    the rule (and fails later, at a model it cannot build)."""
+    from chap_tpu_torch.train import trainer_share
+
+    said = []
+    for batch, lbs, acal in cases:
+        cfg = Config()
+        cfg.data.batch_size, cfg.data.labeled_bs = batch, lbs
+        cfg.semi.acal = acal
+        cfg.model.feature_chns = (1,)      # net_factory fails on it
+        try:
+            trainer_share.train(cfg, "unused", device="cpu")
+        except ValueError as e:
+            said.append(str(e) if "ranks cannot share" in str(e) else None)
+        except Exception:
+            said.append(None)
+    return said
 
 
 def reductions(x, w):
@@ -214,9 +376,13 @@ def refusals(tmp):
     expect("dcn_axis_size", ValueError,
            lambda: dist.init_distributed(cfg, "cpu"))
     cfg = Config()
-    expect("trainer_share", NotImplementedError,
+    cfg.data.batch_size, cfg.data.labeled_bs = 6, 3     # W = 2 divides 6, not 3
+    cfg.semi.acal = True
+    expect("trainer_share", ValueError,
            lambda: trainer_share.train(cfg, tmp, device="cpu"))
-    expect("ablation", NotImplementedError,
+    cfg = Config()
+    cfg.data.batch_size, cfg.data.labeled_bs = 3, 2
+    expect("ablation", ValueError,
            lambda: trainer_2d.train(cfg, tmp, mode="ablation", device="cpu"))
     return said
 
