@@ -1,8 +1,11 @@
 """ACDC 2D test CLI (port of chap_tpu/cli/test_2d.py:27-72), the reference's
 test_2D_fully.py (:97-155): restore the ``best`` or ``latest`` checkpoint of
-a run dir (its config.json gives the model), evaluate every case slice-wise
-with the chosen ensemble, print Dice/HD95/ASD/JC per class, and append the
-mean to the run dir's performance.txt.
+a run dir (its config.json gives the model, any 2D net_factory key),
+evaluate every case slice-wise with the chosen ensemble (over outputs 0 and
+1 of a model of several outputs; a model of one takes none), print
+Dice/HD95/ASD/JC per class, and append the mean to the run dir's
+performance.txt. ``swinunet`` is built for 224^2, so its snapshots carry
+``data.image_size`` [224, 224].
 
 Usage:
     python -m chap_tpu_torch.cli.test_2d \
@@ -24,6 +27,7 @@ from chap_tpu_torch.eval.eval2d import MODEL_TYPES, make_predictor
 from chap_tpu_torch.eval.eval2d import test_single_volume as eval_single_volume
 from chap_tpu_torch.models.factory import net_factory
 from chap_tpu_torch.train.state import create_train_state, make_optimizer
+from chap_tpu_torch.train.trainer_2d import TRAINABLE_KEYS
 from chap_tpu_torch.utils.checkpoint import CheckpointManager
 
 
@@ -50,8 +54,11 @@ def main(argv: Optional[List[str]] = None) -> np.ndarray:
 
     model = net_factory(cfg.model.name, cfg.data.in_chns, cfg.data.num_classes,
                         cfg.model, device=device)
+    # the GradSim scores of the CHAP step's dual-decoder model; restore
+    # replaces them with the slot's
+    sim_chns = cfg.model.feature_chns if cfg.model.name in TRAINABLE_KEYS else ()
     state = create_train_state(model, make_optimizer(model, cfg.optim.base_lr),
-                               cfg.model.feature_chns)
+                               sim_chns)
     CheckpointManager(args.snapshot).restore(args.ckpt, state)
 
     if cfg.data.dataset.startswith("synthetic"):

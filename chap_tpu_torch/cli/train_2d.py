@@ -90,9 +90,11 @@ def build_config(args):
 def main(argv: Optional[List[str]] = None) -> dict:
     """Returns the trainer's result plus the run dir, {'best_dice', 'steps',
     'save_dir'}."""
+    from chap_tpu_torch.train.trainer_2d import check_trainable, train
     args = parse_args(argv)
     device = resolve_device(args.device)
     cfg = build_config(args)
+    check_trainable(cfg, args.mode)     # before a run dir is made
     with dist.process_group(cfg, device) as (_, _, device):
         snapshot_path = os.path.join(
             cfg.run.snapshot_root, cfg.data.dataset,
@@ -100,7 +102,6 @@ def main(argv: Optional[List[str]] = None) -> dict:
         save_dir = open_run_dir(snapshot_path, cfg.model.name, args.resume,
                                 cfg.run.text, dataclasses.asdict(cfg), device)
 
-        from chap_tpu_torch.train.trainer_2d import train
         result = train(cfg, save_dir, mode=args.mode, resume=args.resume,
                        device=device)
         logging.info("done: %s", result)

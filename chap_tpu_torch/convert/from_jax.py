@@ -1,24 +1,29 @@
 """Carry chap_tpu (Flax) weights into the port's torch modules.
 
 ``state_dict_from_flax`` inverts chap_tpu/convert/torch_import.py: it walks
-the same rule tables (copies of torch_import.py:43-82 for the 2D
-DualDecoder and :101-197 for VNet, VNetDS, DualDecoder3d and unet_3D, so
-the port needs nothing of chap_tpu; for the 3D models chap_tpu has no rules
-for, the tables below name the port's modules after the reference's) and
+the same rule tables (copies of torch_import.py:43-100 for the 2D
+DualDecoder, UNet and UNetPlus, :101-197 for VNet, VNetDS, DualDecoder3d
+and unet_3D, :214-299 for SwinUNet and the EfficientNet-b0 encoder, so the
+port needs nothing of chap_tpu; for the models chap_tpu has no rules for,
+the tables below name the port's modules after the reference's) and
 undoes the layout rules of torch_import.py:358-372:
     conv    Flax (kh, kw, I, O)                     -> torch [O, I, kh, kw]
             Flax (kx, ky, kz, I, O)                 -> torch [O, I, kx, ky, kz]
     deconv  Flax (kh, kw, I, O), spatially flipped  -> torch [I, O, kh, kw]
             Flax (kx, ky, kz, I, O), flipped on all three spatial axes
                                                     -> torch [I, O, kx, ky, kz]
+    linear  Flax Dense (I, O)                       -> torch [O, I]
     bn      scale / bias / mean / var -> weight / bias / running_mean / running_var
-    gn      scale / bias                -> weight / bias (GroupNorm)
+    gn, ln  scale / bias                -> weight / bias (GroupNorm, LayerNorm)
+    prelu   negative_slope ()           -> weight [1]
+    raw     a parameter as it is (Swin's relative position bias table, DSNet's
+            proxies)
 Inputs are numpy trees (nested dicts of arrays), e.g. jax.device_get of
 ``variables["params"]`` and ``variables["batch_stats"]``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Mapping, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -63,6 +68,236 @@ def dualdecoder_rules(decoder_type: str = "mcnet") -> List[Rule]:
             + _decoder2d("decoder1", "decoder1", bilinear=True)
             + _decoder2d("decoder2", "decoder2",
                          bilinear=(decoder_type != "mcnet")))
+
+
+def unet2d_rules(tp: str = "", fp: str = "") -> List[Rule]:
+    """UNet (unet.py:498-552): encoder + the bilinear decoder, torch
+    ``decoder1`` (torch_import.py:85-87); under ``tp`` / ``fp`` (DSNet's
+    students)."""
+    return (_encoder2d(_join(tp, "encoder"), _join(fp, "encoder", "/"))
+            + _decoder2d(_join(tp, "decoder1"), _join(fp, "decoder", "/"),
+                         bilinear=True))
+
+
+def unetp_rules() -> List[Rule]:
+    """UNet_plus (unet.py:554-620): the compact module's auto names
+    Encoder_0 / DecoderPlus_0 (torch_import.py:90-100)."""
+    return (_encoder2d("encoder", "Encoder_0")
+            + _decoder2d("decoder", "DecoderPlus_0", bilinear=True))
+
+
+def unet_cct_rules() -> List[Rule]:
+    """UNet_CCT (unet.py:776-801): the main decoder and three aux decoders."""
+    rules = _encoder2d()
+    for name in ("main_decoder", "aux_decoder1", "aux_decoder2", "aux_decoder3"):
+        rules += _decoder2d(name, name, bilinear=True)
+    return rules
+
+
+def unet_urpc_rules() -> List[Rule]:
+    """UNet_URPC (unet.py:404-464): chap_tpu's compact up1..up4 and four
+    heads; the port's Decoder_URPC names."""
+    rules = _encoder2d("encoder", "Encoder_0")
+    for i in range(1, 5):
+        rules.append((f"decoder.up{i}.conv1x1", "conv", f"up{i}/Conv_0"))
+        rules += _convblock2d(f"decoder.up{i}.conv", f"up{i}/ConvBlock_0")
+    rules.append(("decoder.out_conv", "conv", "out_conv"))
+    return rules + [(f"decoder.out_conv_dp{i}", "conv", f"out_dp{i}")
+                    for i in (3, 2, 1)]
+
+
+def resunet_rules() -> List[Rule]:
+    """ResUNet2d: the ResNet-34 stem and BasicBlocks, the UNet decoder."""
+    rules: List[Rule] = [("encoder.conv1", "conv", "encoder/conv1"),
+                         ("encoder.bn1", "bn", "encoder/bn1")]
+    for stage, blocks in enumerate((3, 4, 6, 3)):
+        for b in range(blocks):
+            tp = f"encoder.layer{stage + 1}.{b}"
+            fp = f"encoder/layer{stage + 1}_block{b}"
+            rules += [(f"{tp}.conv1", "conv", f"{fp}/Conv_0"),
+                      (f"{tp}.bn1", "bn", f"{fp}/BatchNorm_0"),
+                      (f"{tp}.conv2", "conv", f"{fp}/Conv_1"),
+                      (f"{tp}.bn2", "bn", f"{fp}/BatchNorm_1")]
+            if b == 0:
+                rules += [(f"{tp}.downsample.0", "conv", f"{fp}/downsample"),
+                          (f"{tp}.downsample.1", "bn", f"{fp}/downsample_bn")]
+    return rules + _decoder2d("decoder", "decoder", bilinear=True)
+
+
+def dsnet_rules() -> List[Rule]:
+    """DSNet: two UNet students, the proxies, two projector heads, two
+    cross-attention modules and the CLUB estimator."""
+    rules = unet2d_rules("student1", "student1") + unet2d_rules("student2",
+                                                                 "student2")
+    rules += [(n, "raw", n) for n in ("shared_proxy", "independent_proxy1",
+                                      "independent_proxy2")]
+    for i in (1, 2):
+        rules += [(f"projector{i}.conv1", "conv", f"projector{i}/Conv_0"),
+                  (f"projector{i}.bn", "bn", f"projector{i}/BatchNorm_0"),
+                  (f"projector{i}.conv2", "conv", f"projector{i}/Conv_1")]
+        rules += [(f"att{i}.{n}", "linear", f"att{i}/{n}")
+                  for n in ("q_fc", "k_fc", "v_fc", "proj")]
+        rules += [(f"att{i}.ffn.fc1", "linear", f"att{i}/FFN_0/Dense_0"),
+                  (f"att{i}.ffn.fc2", "linear", f"att{i}/FFN_0/Dense_1"),
+                  (f"att{i}.norm", "ln", f"att{i}/LayerNorm_0")]
+    return rules + [("club.fc1", "linear", "club/fc1"),
+                    ("club.fc2", "linear", "club/fc2")]
+
+
+def _swin_block_rules(tp: str, fp: str) -> List[Rule]:
+    """SwinTransformerBlock -> chap SwinBlock (torch_import.py:199-211)."""
+    return [
+        (f"{tp}.norm1", "ln", f"{fp}/LayerNorm_0"),
+        (f"{tp}.attn.qkv", "linear", f"{fp}/WindowAttention_0/qkv"),
+        (f"{tp}.attn.proj", "linear", f"{fp}/WindowAttention_0/proj"),
+        (f"{tp}.attn.relative_position_bias_table", "raw",
+         f"{fp}/WindowAttention_0/relative_position_bias_table"),
+        (f"{tp}.norm2", "ln", f"{fp}/LayerNorm_1"),
+        (f"{tp}.mlp.fc1", "linear", f"{fp}/Mlp_0/Dense_0"),
+        (f"{tp}.mlp.fc2", "linear", f"{fp}/Mlp_0/Dense_1"),
+    ]
+
+
+def swinunet_rules(depths: Sequence[int] = (2, 2, 2, 2)) -> List[Rule]:
+    """SwinTransformerSys -> chap SwinUNet (torch_import.py:214-263)."""
+    n = len(depths)
+    rules: List[Rule] = [
+        ("patch_embed.proj", "conv", "patch_embed"),
+        ("patch_embed.norm", "ln", "LayerNorm_0"),
+        ("norm", "ln", "norm"),
+        ("norm_up", "ln", "norm_up"),
+        ("up.expand", "linear", "up_x4/Dense_0"),
+        ("up.norm", "ln", "up_x4/LayerNorm_0"),
+        ("output", "conv", "output"),
+    ]
+    for i in range(n):
+        for d in range(depths[i]):
+            rules += _swin_block_rules(f"layers.{i}.blocks.{d}", f"enc{i}_blk{d}")
+        if i < n - 1:
+            rules.append((f"layers.{i}.downsample.norm", "ln",
+                          f"merge{i}/LayerNorm_0"))
+            rules.append((f"layers.{i}.downsample.reduction", "linear",
+                          f"merge{i}/Dense_0"))
+    rules.append(("layers_up.0.expand", "linear", "expand0/Dense_0"))
+    rules.append(("layers_up.0.norm", "ln", "expand0/LayerNorm_0"))
+    for j in range(1, n):
+        for d in range(depths[n - 1 - j]):
+            rules += _swin_block_rules(f"layers_up.{j}.blocks.{d}",
+                                       f"dec{j - 1}_blk{d}")
+        rules.append((f"concat_back_dim.{j}", "linear", f"skip_reduce{j - 1}"))
+        if j < n - 1:
+            rules.append((f"layers_up.{j}.upsample.expand", "linear",
+                          f"expand{j}/Dense_0"))
+            rules.append((f"layers_up.{j}.upsample.norm", "ln",
+                          f"expand{j}/LayerNorm_0"))
+    return rules
+
+
+def _swin_depths(params: Mapping[str, Any]) -> Tuple[int, ...]:
+    """A chap SwinUNet tree's encoder depths, from its block names."""
+    depths = []
+    while any(k.startswith(f"enc{len(depths)}_blk") for k in params):
+        depths.append(sum(k.startswith(f"enc{len(depths)}_blk") for k in params))
+    return tuple(depths)
+
+
+def enet_rules() -> List[Rule]:
+    """ENet: the initial block and the bottlenecks under chap_tpu's names."""
+    def bn_prelu(tp, fp, i):
+        return [(f"{tp}.bn{i + 1}", "bn", f"{fp}/BatchNorm_{i}"),
+                (f"{tp}.prelu{i + 1}", "prelu", f"{fp}/PReLU_{i}")]
+
+    rules: List[Rule] = [("initial.conv", "conv", "initial/Conv_0"),
+                         ("initial.bn", "bn", "initial/BatchNorm_0"),
+                         ("initial.prelu", "prelu", "initial/PReLU_0")]
+    blocks = ([("down1_0", "down1_0", "down")]
+              + [(f"stage1.reg1_{i}", f"reg1_{i}", "reg") for i in range(1, 5)]
+              + [("down2_0", "down2_0", "down")]
+              + [(f"stage23.{n}", n, "asym" if n.startswith("asym") else "reg")
+                 for stage in (2, 3) for n in (
+                     f"reg{stage}_1", f"dil{stage}_2", f"asym{stage}_3",
+                     f"dil{stage}_4", f"reg{stage}_5", f"dil{stage}_6",
+                     f"asym{stage}_7", f"dil{stage}_8")]
+              + [("up4_0", "up4_0", "up"), ("reg4_1", "reg4_1", "reg"),
+                 ("reg4_2", "reg4_2", "reg"), ("up5_0", "up5_0", "up"),
+                 ("reg5_1", "reg5_1", "reg")])
+    for tp, fp, kind in blocks:
+        if kind == "up":
+            # the main branch's conv and BN come first in chap_tpu's names
+            rules += [(f"{tp}.main_conv", "conv", f"{fp}/Conv_0"),
+                      (f"{tp}.main_bn", "bn", f"{fp}/BatchNorm_0"),
+                      (f"{tp}.conv1", "conv", f"{fp}/Conv_1"),
+                      (f"{tp}.bn1", "bn", f"{fp}/BatchNorm_1"),
+                      (f"{tp}.prelu1", "prelu", f"{fp}/PReLU_0"),
+                      (f"{tp}.deconv", "deconv", f"{fp}/ConvTranspose_0"),
+                      (f"{tp}.bn2", "bn", f"{fp}/BatchNorm_2"),
+                      (f"{tp}.prelu2", "prelu", f"{fp}/PReLU_1"),
+                      (f"{tp}.conv3", "conv", f"{fp}/Conv_2"),
+                      (f"{tp}.bn3", "bn", f"{fp}/BatchNorm_3")]
+        else:
+            rules += [(f"{tp}.conv1", "conv", f"{fp}/Conv_0"),
+                      *bn_prelu(tp, fp, 0),
+                      (f"{tp}.conv2", "conv", f"{fp}/Conv_1")]
+            if kind == "asym":
+                rules.append((f"{tp}.conv2b", "conv", f"{fp}/Conv_2"))
+            rules += [*bn_prelu(tp, fp, 1),
+                      (f"{tp}.conv3", "conv",
+                       f"{fp}/Conv_{3 if kind == 'asym' else 2}"),
+                      (f"{tp}.bn3", "bn", f"{fp}/BatchNorm_2")]
+        rules.append((f"{tp}.prelu_out", "prelu", f"{fp}/PReLU_2"))
+    return rules + [("fullconv", "deconv", "fullconv")]
+
+
+def pnet_rules() -> List[Rule]:
+    """PNet2D: five dilated blocks, three fusing convs and the head."""
+    rules: List[Rule] = []
+    for i in range(5):
+        tp, fp = f"blocks.{i}", f"block{i + 1}"
+        rules += [(f"{tp}.conv1", "conv", f"{fp}/Conv_0"),
+                  (f"{tp}.bn1", "bn", f"{fp}/BatchNorm_0"),
+                  (f"{tp}.conv2", "conv", f"{fp}/Conv_1"),
+                  (f"{tp}.bn2", "bn", f"{fp}/BatchNorm_1")]
+    return rules + [(name, "conv", f"Conv_{i}") for i, name in
+                    enumerate(("fuse1", "fuse2", "fuse3", "out_conv"))]
+
+
+_B0_STAGE_BLOCKS = (1, 2, 2, 3, 3, 4, 1)    # lukemelas b0 repeats
+
+
+def efficientnet_b0_rules(tp: str = "", fp: str = "") -> List[Rule]:
+    """lukemelas efficientnet_pytorch b0 names -> chap EffiUNet's encoder
+    subtree (torch_import.py:269-299), under ``tp`` / ``fp``."""
+    rules: List[Rule] = [(_join(tp, "_conv_stem"), "conv", _join(fp, "stem", "/")),
+                         (_join(tp, "_bn0"), "bn", _join(fp, "BatchNorm_0", "/"))]
+    k = 0
+    for si, blocks in enumerate(_B0_STAGE_BLOCKS):
+        for b in range(blocks):
+            t, f = _join(tp, f"_blocks.{k}"), _join(fp, f"stage{si}_block{b}", "/")
+            ci = 0
+            if si > 0:
+                rules += [(f"{t}._expand_conv", "conv", f"{f}/Conv_0"),
+                          (f"{t}._bn0", "bn", f"{f}/BatchNorm_0")]
+                ci = 1
+            rules += [(f"{t}._depthwise_conv", "conv", f"{f}/Conv_{ci}"),
+                      (f"{t}._bn1", "bn", f"{f}/BatchNorm_{ci}"),
+                      (f"{t}._se_reduce", "conv", f"{f}/SqueezeExcite_0/Conv_0"),
+                      (f"{t}._se_expand", "conv", f"{f}/SqueezeExcite_0/Conv_1"),
+                      (f"{t}._project_conv", "conv", f"{f}/Conv_{ci + 1}"),
+                      (f"{t}._bn2", "bn", f"{f}/BatchNorm_{ci + 1}")]
+            k += 1
+    return rules
+
+
+def efficient_unet_rules() -> List[Rule]:
+    """EffiUNet: the b0 encoder, five decoder blocks and the head."""
+    rules = efficientnet_b0_rules("encoder", "encoder")
+    for i in range(5):
+        tp, fp = f"decoder.blocks.{i}", f"decoder{i}"
+        rules += [(f"{tp}.conv1.0", "conv", f"{fp}/Conv_0"),
+                  (f"{tp}.conv1.1", "bn", f"{fp}/BatchNorm_0"),
+                  (f"{tp}.conv2.0", "conv", f"{fp}/Conv_1"),
+                  (f"{tp}.conv2.1", "bn", f"{fp}/BatchNorm_1")]
+    return rules + [("segmentation_head", "conv", "segmentation_head")]
 
 
 def _join(tp: str, name: str, sep: str = ".") -> str:
@@ -253,6 +488,11 @@ def _deconv_weight(kernel: np.ndarray) -> np.ndarray:
     return np.transpose(flipped, (n, n + 1) + tuple(range(n)))
 
 
+FAMILIES_2D = {"unet": unet2d_rules, "unetp": unetp_rules,
+               "unet_cct": unet_cct_rules, "unet_urpc": unet_urpc_rules,
+               "resunet": resunet_rules, "dual_student": dsnet_rules,
+               "swinunet": swinunet_rules, "enet": enet_rules,
+               "pnet": pnet_rules, "efficient_unet": efficient_unet_rules}
 FAMILIES_3D = {"vnet": vnet_rules, "vnet_ds": vnet_ds_rules,
                "dualdecoder3d": dualdecoder3d_rules, "resvnet": resvnet_rules,
                "unet_3D": unet3d_rules, "unet_3D_dv_semi": unet3d_dv_rules,
@@ -267,13 +507,18 @@ def state_dict_from_flax(params: Mapping[str, Any], batch_stats: Mapping[str, An
                          ) -> Dict[str, torch.Tensor]:
     """Flax variables (numpy trees) -> the port's state_dict. ``family``:
     ``dualdecoder`` or ``acalnet`` (2D, the same model, with
-    ``decoder_type``); in 3D ``vnet``, ``vnet_ds``, ``dualdecoder3d`` or
+    ``decoder_type``), every other 2D net_factory key (FAMILIES_2D; a
+    SwinUNet's depths are read off its tree); in 3D ``vnet``, ``vnet_ds``, ``dualdecoder3d`` or
     ``resvnet`` (with ``normalization``, by default batchnorm and for resvnet
     instancenorm) and
     ``unet_3D``, ``unet_3D_dv_semi``, ``attention_unet`` or ``voxresnet``.
     ``batch_stats`` may be empty for a model without BatchNorm."""
     if family in ("dualdecoder", "acalnet"):
         rules = dualdecoder_rules(decoder_type)
+    elif family == "swinunet":
+        rules = swinunet_rules(_swin_depths(params))
+    elif family in FAMILIES_2D:
+        rules = FAMILIES_2D[family]()
     elif family in FAMILIES_3D:
         if family not in _NORMALIZED:
             rules = FAMILIES_3D[family]()
@@ -290,9 +535,17 @@ def state_dict_from_flax(params: Mapping[str, Any], batch_stats: Mapping[str, An
             sd[f"{tp}.weight"] = _t(to_torch(np.asarray(leaf["kernel"])))
             if "bias" in leaf:
                 sd[f"{tp}.bias"] = _t(leaf["bias"])
-        elif kind == "gn":
+        elif kind == "linear":
+            sd[f"{tp}.weight"] = _t(np.transpose(np.asarray(leaf["kernel"])))
+            if "bias" in leaf:
+                sd[f"{tp}.bias"] = _t(leaf["bias"])
+        elif kind in ("gn", "ln"):
             sd[f"{tp}.weight"] = _t(leaf["scale"])
             sd[f"{tp}.bias"] = _t(leaf["bias"])
+        elif kind == "prelu":
+            sd[f"{tp}.weight"] = _t(np.reshape(leaf["negative_slope"], (1,)))
+        elif kind == "raw":
+            sd[tp] = _t(leaf)
         else:   # bn
             stats = _get(batch_stats, fp)
             sd[f"{tp}.weight"] = _t(leaf["scale"])

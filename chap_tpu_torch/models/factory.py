@@ -1,11 +1,17 @@
 """Model factories (port of chap_tpu/models/factory.py): ``net_factory``
-with the 2D ``dualdecoder`` and ``acalnet`` keys (the rest of the 2D zoo is
-ROADMAP item 18) and ``net_factory_3d`` with every 3D key.
+with every 2D key and ``net_factory_3d`` with every 3D key, each with
+chap_tpu's constructor arguments.
 
 ``model.dtype`` is the compute dtype, float32 or bfloat16, as chap_tpu's
 ``_dtype`` (factory.py:28-29) reads it: the parameters stay float32, and
 every convolution and norm computes in the compute dtype
-(models/layers.py says op by op what that means)."""
+(models/layers.py says op by op what that means). In 2D the port computes
+bf16 for the keys built from the UNet encoder and decoders (``BF16_2D_KEYS``:
+``unet``, ``unetp``, ``dualdecoder`` / ``acalnet``, ``unet_cct``,
+``unet_urpc``); the rest of the 2D zoo runs in float32 (its Dense,
+LayerNorm and PReLU layers have no bf16 semantics here yet) and refuses
+bfloat16.
+"""
 from __future__ import annotations
 
 import logging
@@ -19,7 +25,14 @@ from chap_tpu_torch.device import resolve_device
 from chap_tpu_torch.models.attention3d import AttentionUNet3D
 from chap_tpu_torch.models.layers import compute_dtype, set_compute_dtype
 from chap_tpu_torch.models.resvnet import ResVNet
-from chap_tpu_torch.models.unet2d import DualDecoder
+from chap_tpu_torch.models.dsnet import DSNet
+from chap_tpu_torch.models.efficientunet import EffiUNet
+from chap_tpu_torch.models.enet import ENet
+from chap_tpu_torch.models.pnet import PNet2D
+from chap_tpu_torch.models.resunet2d import ResUNet2d
+from chap_tpu_torch.models.swin_unet import SwinUNet
+from chap_tpu_torch.models.unet2d import (DualDecoder, UNet, UNetCCT, UNetPlus,
+                                          UNetURPC)
 from chap_tpu_torch.models.unet3d import UNet3D
 from chap_tpu_torch.models.unet3d_dv import UNet3DDvSemi
 from chap_tpu_torch.models.vnet3d import DualDecoder3d, VNet, VNetDS
@@ -30,25 +43,55 @@ logger = logging.getLogger(__name__)
 # chap_tpu's exact TPU relayouts of the VNet convolutions (ops/s2d.py)
 _TPU_LAYOUT_FLAGS = ("s2d_stem", "s2d_stage2", "zpack_stage2")
 _logged_flags = set()
+# the 2D keys that compute in bf16 under model.dtype=bfloat16: the UNet
+# family, whose convolutions, BatchNorm, dropout and perturbations have
+# chap_tpu's bf16 semantics
+BF16_2D_KEYS = ("unet", "unetp", "dualdecoder", "acalnet", "unet_cct",
+                "unet_urpc")
 
 
 def net_factory(net_type: str, in_chns: int, class_num: int,
                 cfg: Optional[ModelConfig] = None,
                 device: Optional[Union[str, torch.device]] = None) -> nn.Module:
-    """2D factory. The model is built on ``device`` (the card unless
-    ``device="cpu"``), its parameters float32, computing in ``model.dtype``."""
+    """2D factory, every key of chap_tpu/models/factory.py:32-66 with its
+    constructor arguments: ``unet``, ``unetp``, ``dualdecoder`` / ``acalnet``
+    (the ACAL trainer's shared-encoder model is the same DualDecoder),
+    ``unet_cct`` and ``unet_urpc`` (``model.feature_chns``,
+    ``model.dropout``), and at their fixed widths ``resunet``,
+    ``dual_student``, ``swinunet`` (img_size 224), ``enet``, ``pnet`` and
+    ``efficient_unet``. The model is built on ``device`` (the card unless
+    ``device="cpu"``), its parameters float32, computing in
+    ``model.dtype``."""
     cfg = cfg or ModelConfig()
     dtype = compute_dtype(cfg.dtype)
     dev = resolve_device(device)
-    if net_type in ("dualdecoder", "acalnet"):
-        # acalnet: the ACAL trainer's shared-encoder model, the same
-        # DualDecoder (chap_tpu/models/factory.py:43-44)
-        model = DualDecoder(in_chns, class_num, cfg.decoder_type,
-                            tuple(cfg.feature_chns), tuple(cfg.dropout))
-        return set_compute_dtype(model, dtype).to(dev)
-    raise ValueError(f"2D net_type {net_type!r} is not ported yet (available: "
-                     f"dualdecoder, acalnet); the rest of the 2D zoo is "
-                     f"ROADMAP item 18")
+    unet_kwargs = dict(feature_chns=tuple(cfg.feature_chns),
+                       dropout=tuple(cfg.dropout))
+
+    def dual():
+        return DualDecoder(in_chns, class_num, cfg.decoder_type, **unet_kwargs)
+    builders = {
+        "unet": lambda: UNet(in_chns, class_num, **unet_kwargs),
+        "unetp": lambda: UNetPlus(in_chns, class_num, **unet_kwargs),
+        "dualdecoder": dual,
+        "acalnet": dual,
+        "unet_cct": lambda: UNetCCT(in_chns, class_num, **unet_kwargs),
+        "unet_urpc": lambda: UNetURPC(in_chns, class_num, **unet_kwargs),
+        "resunet": lambda: ResUNet2d(in_chns, class_num),
+        "dual_student": lambda: DSNet(in_chns, class_num),
+        "swinunet": lambda: SwinUNet(in_chns, class_num, img_size=224),
+        "enet": lambda: ENet(in_chns, class_num),
+        "pnet": lambda: PNet2D(in_chns, class_num),
+        "efficient_unet": lambda: EffiUNet(in_chns, class_num),
+    }
+    if net_type not in builders:
+        raise ValueError(f"unknown 2D net_type {net_type!r} (one of "
+                         f"{', '.join(builders)})")
+    if dtype != torch.float32 and net_type not in BF16_2D_KEYS:
+        raise ValueError(f"model.dtype={cfg.dtype} is ported for the 2D keys "
+                         f"{', '.join(BF16_2D_KEYS)}; {net_type!r} runs in "
+                         f"float32")
+    return set_compute_dtype(builders[net_type](), dtype).to(dev)
 
 
 def net_factory_3d(net_type: str, in_chns: int, class_num: int,

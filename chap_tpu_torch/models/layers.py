@@ -442,8 +442,8 @@ class FlaxBatchNorm(_ComputeDtype):
 
     stats_key: str = ""
 
-    def __init__(self, num_features: int):
-        super().__init__(num_features, eps=BN_EPS, momentum=1.0 - BN_MOMENTUM)
+    def __init__(self, num_features: int, eps: float = BN_EPS):
+        super().__init__(num_features, eps=eps, momentum=1.0 - BN_MOMENTUM)
 
     def forward(self, x: torch.Tensor, stats: Optional[Stats] = None
                 ) -> torch.Tensor:

@@ -175,3 +175,29 @@ def perform_dropout(features: Sequence[torch.Tensor],
         feature_fp1.append(torch.cat([lab_feat, p1], dim=0))
         feature_fp2.append(torch.cat([lab_feat, p2], dim=0))
     return feature_fp1, feature_fp2
+
+
+def feature_dropout(x: torch.Tensor, u: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """Attention-guided spatial dropout (chap_tpu perturb.py:207-214,
+    unet.py:472-480): zero the pixels whose channel-mean attention reaches
+    a fraction 0.7 + 0.2 u of the map's largest, u a 0-d uniform (None:
+    drawn on x's device). The threshold is float32 in bf16 compute too, as
+    chap_tpu's float32 fraction makes it."""
+    if u is None:
+        u = torch.rand((), device=x.device)
+    attention = x.mean(dim=1, keepdim=True)
+    max_val = attention.reshape(x.shape[0], -1).amax(dim=1).float()
+    threshold = (max_val * (u.float() * 0.2 + 0.7)).reshape(-1, 1, 1, 1)
+    return x * (attention < threshold).to(x.dtype)
+
+
+def feature_noise(x: torch.Tensor, u: Optional[torch.Tensor] = None,
+                  uniform_range: float = 0.3) -> torch.Tensor:
+    """Multiplicative uniform feature noise shared by the batch (chap_tpu
+    perturb.py:217-221, unet.py:483-496): x * n + x with n = (2 u - 1) *
+    range, u [C, H, W] uniforms (None: drawn on x's device)."""
+    if u is None:
+        u = torch.rand(x.shape[1:], device=x.device)
+    noise = (u * (2 * uniform_range) - uniform_range).to(x.dtype)[None]
+    return x * noise + x

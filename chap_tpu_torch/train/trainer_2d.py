@@ -23,6 +23,9 @@ Orchestration only; the maths lives in the step:
 Modes: ``chap``, ``supervised`` and ``ablation`` (train/step_ablation.py;
 at each log step its disagreement ratio is appended to
 ``<snapshot>/disagreement.csv``, as chap_tpu's trainer_2d.py:174-178 does).
+Every mode trains the dual-decoder model (``model.name`` dualdecoder or
+acalnet) and refuses any other key by name, as chap_tpu's trainer can
+train no other (``TRAINABLE_KEYS``).
 
 Data parallel over W ranks (parallel/dist.py, in place of chap_tpu's mesh,
 trainer_2d.py:46-49), every mode, under torchrun or with a process group
@@ -71,6 +74,9 @@ from chap_tpu_torch.utils.metrics_writer import MetricsWriter
 
 logger = logging.getLogger(__name__)
 
+# the net_factory keys every mode of the trainer takes: the DualDecoder
+TRAINABLE_KEYS = ("dualdecoder", "acalnet")
+
 
 def batch_stream_seed(seed: int, start_iter: int) -> int:
     """The device batch stream's seed: a function of (run.seed, the step the
@@ -105,14 +111,29 @@ def _same_on_every_rank(model: torch.nn.Module, what: str) -> None:
                            f"same state")
 
 
+def check_trainable(cfg: Config, mode: str) -> None:
+    """Raise unless ``mode`` is a mode and ``model.name`` a key the trainer
+    takes (TRAINABLE_KEYS)."""
+    if mode not in ("chap", "supervised", "ablation"):
+        raise ValueError(f"unknown mode {mode!r} (chap | supervised | ablation)")
+    if cfg.model.name not in TRAINABLE_KEYS:
+        raise ValueError(
+            f"model.name {cfg.model.name!r}: the 2D trainer's {mode} mode "
+            f"trains the dual-decoder model ({', '.join(TRAINABLE_KEYS)}) "
+            f"only, as chap_tpu's, whose supervised mode builds its step "
+            f"with dual=True for every model (trainer_2d.py:82) and whose "
+            f"CHAP and ablation steps drive two decoders; a model of one "
+            f"output trains in build_supervised_train_step "
+            f"(the 2D zoo, ROADMAP item 18)")
+
+
 def train(cfg: Config, snapshot_path: str, mode: str = "chap",
           max_steps: Optional[int] = None, resume: bool = False,
           device: Optional[Union[str, torch.device]] = None) -> dict:
     """Returns {'best_dice': float, 'steps': int}. ``device`` is the card
     unless ``device="cpu"``; with W > 1 ranks (module docstring) each rank
     trains on its own card (``cuda:LOCAL_RANK``)."""
-    if mode not in ("chap", "supervised", "ablation"):
-        raise ValueError(f"unknown mode {mode!r} (chap | supervised | ablation)")
+    check_trainable(cfg, mode)
     rank, world, device = dist.init_distributed(cfg, device)
     main_rank = rank == 0
     dtype = compute_dtype(cfg.model.dtype)

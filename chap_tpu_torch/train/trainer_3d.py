@@ -52,7 +52,7 @@ from __future__ import annotations
 import functools
 import logging
 import time
-from typing import Dict, Optional, Sequence, Union
+from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -78,8 +78,9 @@ from chap_tpu_torch.train.state import (TrainState, create_train_state,
                                         fold_batch_stats, make_lr_schedule,
                                         make_optimizer)
 from chap_tpu_torch.train.step_chap import (StepOutput, build_chap_train_step,
-                                            level_channels, uniform_sampler)
+                                            level_channels)
 from chap_tpu_torch.train.step_supervised import (check_rank_rows,
+                                                  draw_model_uniforms,
                                                   draw_supervised_uniforms)
 from chap_tpu_torch.train.trainer_2d import (_NoWriter, _same_on_every_rank,
                                              _synchronize, batch_stream_seed)
@@ -198,18 +199,6 @@ _NOT_SUPERVISABLE = {
               "features x6 (8 n_filters channels at 1/8 of the patch), and "
               "chap_tpu's step fails on it with a broadcast ValueError"),
 }
-
-
-def draw_model_uniforms(model: torch.nn.Module, image_shape: Sequence[int],
-                        generator: Optional[torch.Generator] = None,
-                        device: Optional[Union[str, torch.device]] = None
-                        ) -> Dict[str, object]:
-    """{'drop': the uniforms of one train-mode pass of ``model`` over a
-    batch of ``image_shape``, at its own ``dropout_shapes``}, drawn as
-    step_chap.uniform_sampler says."""
-    b, _, *spatial = (int(s) for s in image_shape)
-    rand, _ = uniform_sampler(generator, device)
-    return {"drop": [rand(s) for s in model.dropout_shapes(b, spatial)]}
 
 
 def build_supervised3d_train_step(model: torch.nn.Module,

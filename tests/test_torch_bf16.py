@@ -287,7 +287,7 @@ def test_float32_statistics_norms_in_bf16(norm):
 # the factories
 # ---------------------------------------------------------------------------
 
-KEYS_2D = ("dualdecoder", "acalnet")
+KEYS_2D = ("unet", "unetp", "dualdecoder", "acalnet", "unet_cct", "unet_urpc")
 KEYS_3D = ("unet_3D", "attention_unet", "unet_3D_dv_semi", "voxresnet", "vnet",
            "vnet_ds", "dualdecoder", "resvnet")
 
