@@ -16,9 +16,10 @@ from __future__ import annotations
 import argparse
 import json
 import os
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from chap_tpu_torch.config import Config, update_values
 from chap_tpu_torch.data.datasets import AcdcVolumeDataset, SyntheticVolumeDataset
@@ -29,6 +30,26 @@ from chap_tpu_torch.models.factory import net_factory
 from chap_tpu_torch.train.state import create_train_state, make_optimizer
 from chap_tpu_torch.train.trainer_2d import TRAINABLE_KEYS
 from chap_tpu_torch.utils.checkpoint import CheckpointManager
+
+
+def restore(snapshot: str, ckpt: str = "best", device=None
+            ) -> Tuple[Config, torch.nn.Module]:
+    """A run dir's config (its config.json over the defaults) and its
+    model with slot ``ckpt``'s weights, on ``device``."""
+    cfg = Config()
+    cfg_path = os.path.join(snapshot, "config.json")
+    if os.path.exists(cfg_path):
+        with open(cfg_path) as f:
+            update_values(json.load(f), cfg)
+    model = net_factory(cfg.model.name, cfg.data.in_chns, cfg.data.num_classes,
+                        cfg.model, device=resolve_device(device))
+    # the GradSim scores of the CHAP step's dual-decoder model; restore
+    # replaces them with the slot's
+    sim_chns = cfg.model.feature_chns if cfg.model.name in TRAINABLE_KEYS else ()
+    state = create_train_state(model, make_optimizer(model, cfg.optim.base_lr),
+                               sim_chns)
+    CheckpointManager(snapshot).restore(ckpt, state)
+    return cfg, model
 
 
 def main(argv: Optional[List[str]] = None) -> np.ndarray:
@@ -45,21 +66,7 @@ def main(argv: Optional[List[str]] = None) -> np.ndarray:
                    help="torch device (default: cuda; cpu for the plain versions)")
     args = p.parse_args(argv)
     device = resolve_device(args.device)
-
-    cfg = Config()
-    cfg_path = os.path.join(args.snapshot, "config.json")
-    if os.path.exists(cfg_path):
-        with open(cfg_path) as f:
-            update_values(json.load(f), cfg)
-
-    model = net_factory(cfg.model.name, cfg.data.in_chns, cfg.data.num_classes,
-                        cfg.model, device=device)
-    # the GradSim scores of the CHAP step's dual-decoder model; restore
-    # replaces them with the slot's
-    sim_chns = cfg.model.feature_chns if cfg.model.name in TRAINABLE_KEYS else ()
-    state = create_train_state(model, make_optimizer(model, cfg.optim.base_lr),
-                               sim_chns)
-    CheckpointManager(args.snapshot).restore(args.ckpt, state)
+    cfg, model = restore(args.snapshot, args.ckpt, device)
 
     if cfg.data.dataset.startswith("synthetic"):
         ds = SyntheticVolumeDataset((10, *cfg.data.image_size), cfg.data.num_classes,

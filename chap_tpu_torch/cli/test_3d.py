@@ -23,12 +23,15 @@ import os
 from typing import List, Optional
 
 import numpy as np
+import torch
 
 from chap_tpu_torch.config import Config, update_values
 from chap_tpu_torch.data.datasets import SyntheticVolumeDataset, Volume3dDataset
 from chap_tpu_torch.device import resolve_device
 from chap_tpu_torch.eval.sliding_window import test_all_case
 from chap_tpu_torch.models.factory import net_factory_3d
+from chap_tpu_torch.train.state import create_train_state, make_optimizer
+from chap_tpu_torch.utils.checkpoint import CheckpointManager
 
 PROTOCOLS = {
     "LA": dict(patch=(112, 112, 80), stride_xy=18, stride_z=4, model="vnet"),
@@ -52,6 +55,24 @@ class _SyntheticCases:
                 "label": s["label"].transpose(2, 1, 0), "case": s["case"]}
 
 
+def restore(snapshot: Optional[str], model_name: str, num_classes: int,
+            ckpt: str = "best", device=None) -> torch.nn.Module:
+    """net_factory_3d's ``model_name`` at the widths of the snapshot's
+    config.json (``model.*``), in test mode, with slot ``ckpt``'s weights
+    (none without a snapshot), on ``device``."""
+    cfg = Config()
+    cfg_path = os.path.join(snapshot or "", "config.json")
+    if snapshot and os.path.exists(cfg_path):
+        with open(cfg_path) as f:
+            update_values({"model": json.load(f)["model"]}, cfg)
+    model = net_factory_3d(model_name, cfg.data.in_chns, num_classes, mode="test",
+                           cfg=cfg.model, device=resolve_device(device))
+    if snapshot:
+        state = create_train_state(model, make_optimizer(model, 0.01))
+        CheckpointManager(snapshot).restore(ckpt, state)
+    return model
+
+
 def main(argv: Optional[List[str]] = None) -> np.ndarray:
     """Returns the per-class mean metrics [classes - 1, 4] (dice, ravd,
     hd95, asd)."""
@@ -72,19 +93,8 @@ def main(argv: Optional[List[str]] = None) -> np.ndarray:
     device = resolve_device(args.device)
 
     proto = PROTOCOLS.get(args.dataset, PROTOCOLS["LA"])
-    cfg = Config()
-    cfg_path = os.path.join(args.snapshot or "", "config.json")
-    if args.snapshot and os.path.exists(cfg_path):
-        with open(cfg_path) as f:
-            update_values({"model": json.load(f)["model"]}, cfg)
-    model = net_factory_3d(args.model or proto["model"], cfg.data.in_chns,
-                           args.num_classes, mode="test", cfg=cfg.model,
-                           device=device)
-    if args.snapshot:
-        from chap_tpu_torch.train.state import create_train_state, make_optimizer
-        from chap_tpu_torch.utils.checkpoint import CheckpointManager
-        state = create_train_state(model, make_optimizer(model, 0.01))
-        CheckpointManager(args.snapshot).restore(args.ckpt, state)
+    model = restore(args.snapshot, args.model or proto["model"], args.num_classes,
+                    args.ckpt, device)
 
     if args.dataset == "synthetic":
         dataset = _SyntheticCases(args.num_classes)

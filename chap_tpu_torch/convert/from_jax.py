@@ -17,7 +17,11 @@ undoes the layout rules of torch_import.py:358-372:
     gn, ln  scale / bias                -> weight / bias (GroupNorm, LayerNorm)
     prelu   negative_slope ()           -> weight [1]
     raw     a parameter as it is (Swin's relative position bias table, DSNet's
-            proxies)
+            proxies, the decoders' queries)
+    stack   one row a parameter ("|"-joined paths): per-level embeddings
+    mha     MultiHeadDotProductAttention's query / key / value (I, H, hd)
+            and out (H, hd, O) -> nn.MultiheadAttention's packed
+            in_proj_weight [3 D, D], in_proj_bias and out_proj
 Inputs are numpy trees (nested dicts of arrays), e.g. jax.device_get of
 ``variables["params"]`` and ``variables["batch_stats"]``.
 """
@@ -264,13 +268,16 @@ def pnet_rules() -> List[Rule]:
 _B0_STAGE_BLOCKS = (1, 2, 2, 3, 3, 4, 1)    # lukemelas b0 repeats
 
 
-def efficientnet_b0_rules(tp: str = "", fp: str = "") -> List[Rule]:
-    """lukemelas efficientnet_pytorch b0 names -> chap EffiUNet's encoder
-    subtree (torch_import.py:269-299), under ``tp`` / ``fp``."""
+def efficientnet_rules(tp: str = "", fp: str = "",
+                       repeats: Sequence[int] = _B0_STAGE_BLOCKS) -> List[Rule]:
+    """lukemelas efficientnet_pytorch names -> chap EffiUNet's encoder
+    subtree (torch_import.py:269-299 for b0), under ``tp`` / ``fp``, for
+    any b0-b7 by its stages' block counts (``repeats``): the blocks
+    ``_blocks.{k}`` are numbered on across the stages."""
     rules: List[Rule] = [(_join(tp, "_conv_stem"), "conv", _join(fp, "stem", "/")),
                          (_join(tp, "_bn0"), "bn", _join(fp, "BatchNorm_0", "/"))]
     k = 0
-    for si, blocks in enumerate(_B0_STAGE_BLOCKS):
+    for si, blocks in enumerate(repeats):
         for b in range(blocks):
             t, f = _join(tp, f"_blocks.{k}"), _join(fp, f"stage{si}_block{b}", "/")
             ci = 0
@@ -288,9 +295,10 @@ def efficientnet_b0_rules(tp: str = "", fp: str = "") -> List[Rule]:
     return rules
 
 
-def efficient_unet_rules() -> List[Rule]:
-    """EffiUNet: the b0 encoder, five decoder blocks and the head."""
-    rules = efficientnet_b0_rules("encoder", "encoder")
+def efficient_unet_rules(repeats: Sequence[int] = _B0_STAGE_BLOCKS) -> List[Rule]:
+    """EffiUNet: the encoder (b0 by default), five decoder blocks and the
+    head."""
+    rules = efficientnet_rules("encoder", "encoder", repeats)
     for i in range(5):
         tp, fp = f"decoder.blocks.{i}", f"decoder{i}"
         rules += [(f"{tp}.conv1.0", "conv", f"{fp}/Conv_0"),
@@ -298,6 +306,12 @@ def efficient_unet_rules() -> List[Rule]:
                   (f"{tp}.conv2.0", "conv", f"{fp}/Conv_1"),
                   (f"{tp}.conv2.1", "bn", f"{fp}/BatchNorm_1")]
     return rules + [("segmentation_head", "conv", "segmentation_head")]
+
+
+def efficientnet_repeats(encoder: Mapping[str, Any]) -> Tuple[int, ...]:
+    """A chap EfficientNetEncoder tree's block count per stage."""
+    return tuple(sum(k.startswith(f"stage{si}_block") for k in encoder)
+                 for si in range(len(_B0_STAGE_BLOCKS)))
 
 
 def _join(tp: str, name: str, sep: str = ".") -> str:
@@ -464,6 +478,242 @@ def resvnet_rules(normalization: str = "instancenorm") -> List[Rule]:
     return rules + _vnet_decoder("", "", normalization, 0, stages, "branch_out")
 
 
+# -- models no factory key reaches (models/{blocks, resnet, discriminator,
+# extras, gan_legacy, transformer_decoder}.py): LIBRARY_FAMILIES
+
+def _count(tree: Mapping[str, Any], prefix: str) -> int:
+    """How many of ``prefix``0, ``prefix``1 ... a tree holds."""
+    n = 0
+    while f"{prefix}{n}" in tree:
+        n += 1
+    return n
+
+
+def sqex_rules() -> List[Rule]:
+    return [("linear1", "linear", "Dense_0"), ("linear2", "linear", "Dense_1")]
+
+
+def seblock3d_rules() -> List[Rule]:
+    return [("conv1", "conv", "Conv_0"), ("conv2", "conv", "Conv_1")]
+
+
+def scse_rules() -> List[Rule]:
+    return [("cSE.1", "conv", "Conv_0"), ("cSE.3", "conv", "Conv_1"),
+            ("sSE.0", "conv", "Conv_2")]
+
+
+def conv2d_relu_rules() -> List[Rule]:
+    return [("block.0", "conv", "Conv_0"), ("block.1", "bn", "BatchNorm_0")]
+
+
+def resnet_rules(params: Mapping[str, Any], avg_down: Optional[bool] = None,
+                 layer4_dilation: int = 1) -> List[Rule]:
+    """ResNetBackbone, its structure read off the tree: the deep stem
+    where ``stem_conv0`` is, each stage's blocks, Bottleneck where a block
+    has Conv_2, the downsample where a block has one, behind an average
+    pool (``avg_down``, by default with the deep stem, as every ``_d``
+    constructor) in a strided stage."""
+    deep = "stem_conv0" in params
+    avg_down = deep if avg_down is None else avg_down
+    rules: List[Rule] = []
+    if deep:
+        rules += [("conv1.0", "conv", "stem_conv0"), ("conv1.1", "bn", "stem_bn0"),
+                  ("conv1.3", "conv", "stem_conv1"), ("conv1.4", "bn", "stem_bn1"),
+                  ("conv1.6", "conv", "conv1")]
+    else:
+        rules.append(("conv1", "conv", "conv1"))
+    rules.append(("bn1", "bn", "bn1"))
+    stages = max(int(k[len("layer"):].split("_")[0]) for k in params
+                 if k.startswith("layer"))
+    stage = 1
+    while f"layer{stage}_block0" in params:
+        strided = not (stage == stages and layer4_dilation == 2)
+        b = 0
+        while f"layer{stage}_block{b}" in params:
+            tp, fp = f"layer{stage}.{b}", f"layer{stage}_block{b}"
+            leaf = params[fp]
+            n = 3 if "Conv_2" in leaf else 2
+            for i in range(n):
+                rules += [(f"{tp}.conv{i + 1}", "conv", f"{fp}/Conv_{i}"),
+                          (f"{tp}.bn{i + 1}", "bn", f"{fp}/BatchNorm_{i}")]
+            if "downsample_conv" in leaf:
+                first = int(avg_down and strided)
+                rules += [(f"{tp}.downsample.{first}", "conv", f"{fp}/downsample_conv"),
+                          (f"{tp}.downsample.{first + 1}", "bn", f"{fp}/downsample_bn")]
+            b += 1
+        stage += 1
+    return rules
+
+
+def fc3d_discriminator_rules() -> List[Rule]:
+    return [(f"conv{i}", "conv", f"conv{i}") for i in range(5)] + [
+        ("classifier", "linear", "classifier")]
+
+
+def fc_discriminator_rules() -> List[Rule]:
+    return [(f"conv{i}", "conv", f"conv{i}") for i in range(1, 5)] + [
+        ("classifier", "conv", "classifier")]
+
+
+def unet_tsne_rules(params: Mapping[str, Any]) -> List[Rule]:
+    """UNetTsne: the UNet under ``backbone``, and the two heads where the
+    tree holds them (Flax makes a setup head's parameters only when a
+    call reaches it)."""
+    rules = unet2d_rules("backbone", "backbone")
+    for head in ("projection_head", "prediction_head"):
+        if head in params:
+            rules += [(f"{head}.{i}", "linear", f"{head}/layers_{i}") for i in (0, 2)]
+    return rules
+
+
+def net_d_rules() -> List[Rule]:
+    return [(f"fc{i + 1}", "linear", f"Dense_{i}") for i in range(3)]
+
+
+def tiny_unet3d_rules() -> List[Rule]:
+    rules: List[Rule] = []
+    for name in ("enc1", "enc2", "enc3", "dec2", "dec1"):
+        rules += [(f"{name}_conv", "conv", f"{name}_conv"),
+                  (f"{name}_bn", "bn", f"{name}_bn")]
+    return rules + [(n, "conv", n) for n in ("out", "ms3", "ms2")]
+
+
+def _norm_after(tp: str, fp: str, bn: bool) -> List[Rule]:
+    """A CycleGAN norm: BatchNorm's parameters, none for instancenorm."""
+    return [(tp, "bn", fp)] if bn else []
+
+
+def resnet_generator_rules(params: Mapping[str, Any], use_dropout: bool = False
+                           ) -> List[Rule]:
+    """ResnetGenerator's ``model`` Sequential (networks_other.py:300-351)
+    over chap_tpu's auto names, the block count and the norm read off the
+    tree; ``use_dropout`` moves each block's second conv and norm one
+    index on."""
+    n = _count(params, "_ResnetBlock_")
+    c2 = 6 if use_dropout else 5
+    bn = "BatchNorm_0" in params
+    rules = [("model.1", "conv", "Conv_0"), *_norm_after("model.2", "BatchNorm_0", bn)]
+    for i in range(2):
+        rules += [(f"model.{4 + 3 * i}", "conv", f"Conv_{i + 1}"),
+                  *_norm_after(f"model.{5 + 3 * i}", f"BatchNorm_{i + 1}", bn)]
+    for i in range(n):
+        rules += [(f"model.{10 + i}.conv_block.1", "conv", f"_ResnetBlock_{i}/Conv_0"),
+                  *_norm_after(f"model.{10 + i}.conv_block.2",
+                               f"_ResnetBlock_{i}/BatchNorm_0", bn),
+                  (f"model.{10 + i}.conv_block.{c2}", "conv", f"_ResnetBlock_{i}/Conv_1"),
+                  *_norm_after(f"model.{10 + i}.conv_block.{c2 + 1}",
+                               f"_ResnetBlock_{i}/BatchNorm_1", bn)]
+    for i in range(2):
+        rules += [(f"model.{10 + n + 3 * i}", "deconv", f"ConvTranspose_{i}"),
+                  *_norm_after(f"model.{11 + n + 3 * i}", f"BatchNorm_{i + 3}", bn)]
+    return rules + [(f"model.{17 + n}", "conv", "Conv_3")]
+
+
+def unet_generator_rules(params: Mapping[str, Any]) -> List[Rule]:
+    """UnetGenerator: chap_tpu's blocks UnetSkipConnectionBlock_0 (the
+    innermost) ... _{k} (the outermost) onto the nested ``model``
+    Sequentials (networks_other.py:396-477): the outermost is ``model``,
+    its submodule at index 1, each middle block's at index 3."""
+    k = _count(params, "UnetSkipConnectionBlock_") - 1
+    bn = "BatchNorm_0" in params["UnetSkipConnectionBlock_0"]
+    rules: List[Rule] = []
+    tp = "model"
+    for depth in range(k + 1):
+        fp = f"UnetSkipConnectionBlock_{k - depth}"
+        if depth == 0:                              # outermost
+            rules += [(f"{tp}.model.0", "conv", f"{fp}/Conv_0"),
+                      (f"{tp}.model.3", "deconv", f"{fp}/ConvTranspose_0")]
+            tp = f"{tp}.model.1"
+        elif depth == k:                            # innermost
+            rules += [(f"{tp}.model.1", "conv", f"{fp}/Conv_0"),
+                      (f"{tp}.model.3", "deconv", f"{fp}/ConvTranspose_0"),
+                      *_norm_after(f"{tp}.model.4", f"{fp}/BatchNorm_0", bn)]
+        else:
+            rules += [(f"{tp}.model.1", "conv", f"{fp}/Conv_0"),
+                      *_norm_after(f"{tp}.model.2", f"{fp}/BatchNorm_0", bn),
+                      (f"{tp}.model.5", "deconv", f"{fp}/ConvTranspose_0"),
+                      *_norm_after(f"{tp}.model.6", f"{fp}/BatchNorm_1", bn)]
+            tp = f"{tp}.model.3"
+    return rules
+
+
+def nlayer_discriminator_rules(params: Mapping[str, Any]) -> List[Rule]:
+    """NLayerDiscriminator's ``model`` Sequential (networks_other.py:
+    480-525): n_layers strided / final convs with their norms, the head."""
+    n_layers = _count(params, "Conv_") - 2
+    bn = "BatchNorm_0" in params
+    rules: List[Rule] = [("model.0", "conv", "Conv_0")]
+    for n in range(1, n_layers + 1):
+        rules += [(f"model.{2 + 3 * (n - 1)}", "conv", f"Conv_{n}"),
+                  *_norm_after(f"model.{3 + 3 * (n - 1)}", f"BatchNorm_{n - 1}", bn)]
+    return rules + [(f"model.{2 + 3 * n_layers}", "conv", f"Conv_{n_layers + 1}")]
+
+
+def _attention_rules(tp: str, fp: str) -> List[Rule]:
+    return [(f"{tp}.{n}", "linear", f"{fp}/{n}") for n in ("q", "k", "v", "proj")] + [
+        (f"{tp}.norm", "ln", f"{fp}/LayerNorm_0")]
+
+
+def _query_layer_rules(params: Mapping[str, Any], cross: str) -> List[Rule]:
+    """A query decoder's input projections, queries and layers: ``cross``
+    (chap_tpu's cross or kmax layers), self-attention, FFN, seg head."""
+    rules: List[Rule] = [(f"input_proj.{i}", "conv", f"input_proj{i}")
+                         for i in range(_count(params, "input_proj"))]
+    rules.append(("query_feat.weight", "raw", "query_feat"))
+    if "query_embed" in params:
+        rules.append(("query_embed.weight", "raw", "query_embed"))
+    n_embed = _count(params, "level_embed")
+    if n_embed:
+        rules.append(("level_embed.weight", "stack",
+                      "|".join(f"level_embed{i}" for i in range(n_embed))))
+    for l in range(_count(params, cross)):
+        rules += _attention_rules(f"transformer_cross_attention_layers.{l}",
+                                  f"{cross}{l}")
+        rules += [(f"transformer_self_attention_layers.{l}.self_attn", "mha",
+                   f"self{l}/MultiHeadDotProductAttention_0"),
+                  (f"transformer_self_attention_layers.{l}.norm", "ln",
+                   f"self{l}/LayerNorm_0"),
+                  (f"transformer_ffn_layers.{l}.linear1", "linear", f"ffn{l}/Dense_0"),
+                  (f"transformer_ffn_layers.{l}.linear2", "linear", f"ffn{l}/Dense_1"),
+                  (f"transformer_ffn_layers.{l}.norm", "ln", f"ffn{l}/LayerNorm_0"),
+                  (f"seg_head_layers.{l}", "linear", f"seg_head{l}")]
+    return rules
+
+
+def mask_decoder_rules(params: Mapping[str, Any]) -> List[Rule]:
+    """MaskTransformerDecoder, or V1 where the tree has its prediction
+    heads (decoder_norm, class_embed, mask_embed)."""
+    rules = _query_layer_rules(params, "cross")
+    if "decoder_norm" in params:
+        rules += [("decoder_norm", "ln", "decoder_norm"),
+                  ("class_embed", "linear", "class_embed")]
+        rules += [(f"mask_embed.layers.{i}", "linear", f"mask_embed/Dense_{i}")
+                  for i in range(_count(params["mask_embed"], "Dense_"))]
+    return rules
+
+
+def kmax_decoder_rules(params: Mapping[str, Any]) -> List[Rule]:
+    return _query_layer_rules(params, "kmax")
+
+
+# family -> rules(params, **options), the structure read off the tree and
+# the options (resnet: avg_down, layer4_dilation; resnet_generator:
+# use_dropout), which the tree does not show
+LIBRARY_FAMILIES = {
+    "sqex": lambda p: sqex_rules(), "seblock3d": lambda p: seblock3d_rules(),
+    "scse": lambda p: scse_rules(), "conv2d_relu": lambda p: conv2d_relu_rules(),
+    "resnet": resnet_rules,
+    "fc3d_discriminator": lambda p: fc3d_discriminator_rules(),
+    "fc_discriminator": lambda p: fc_discriminator_rules(),
+    "unet_2dbcp": lambda p: unet2d_rules(), "unet_tsne": unet_tsne_rules,
+    "net_d": lambda p: net_d_rules(), "tiny_unet3d": lambda p: tiny_unet3d_rules(),
+    "resnet_generator": resnet_generator_rules,
+    "unet_generator": unet_generator_rules,
+    "nlayer_discriminator": nlayer_discriminator_rules,
+    "mask_decoder": mask_decoder_rules, "kmax_decoder": kmax_decoder_rules,
+}
+
+
 def _get(tree: Mapping[str, Any], path: str) -> Mapping[str, Any]:
     node = tree
     for part in path.split("/"):
@@ -503,7 +753,7 @@ _NORMALIZED = ("vnet", "vnet_ds", "dualdecoder3d", "resvnet")
 
 def state_dict_from_flax(params: Mapping[str, Any], batch_stats: Mapping[str, Any],
                          decoder_type: str = "mcnet", family: str = "dualdecoder",
-                         normalization: Optional[str] = None
+                         normalization: Optional[str] = None, **options
                          ) -> Dict[str, torch.Tensor]:
     """Flax variables (numpy trees) -> the port's state_dict. ``family``:
     ``dualdecoder`` or ``acalnet`` (2D, the same model, with
@@ -511,14 +761,20 @@ def state_dict_from_flax(params: Mapping[str, Any], batch_stats: Mapping[str, An
     SwinUNet's depths are read off its tree); in 3D ``vnet``, ``vnet_ds``, ``dualdecoder3d`` or
     ``resvnet`` (with ``normalization``, by default batchnorm and for resvnet
     instancenorm) and
-    ``unet_3D``, ``unet_3D_dv_semi``, ``attention_unet`` or ``voxresnet``.
-    ``batch_stats`` may be empty for a model without BatchNorm."""
+    ``unet_3D``, ``unet_3D_dv_semi``, ``attention_unet`` or ``voxresnet``;
+    the models no factory key builds, by LIBRARY_FAMILIES (``options`` as
+    it lists them). ``batch_stats`` may be empty for a model without
+    BatchNorm."""
     if family in ("dualdecoder", "acalnet"):
         rules = dualdecoder_rules(decoder_type)
     elif family == "swinunet":
         rules = swinunet_rules(_swin_depths(params))
+    elif family == "efficient_unet":
+        rules = efficient_unet_rules(efficientnet_repeats(params["encoder"]))
     elif family in FAMILIES_2D:
         rules = FAMILIES_2D[family]()
+    elif family in LIBRARY_FAMILIES:
+        rules = LIBRARY_FAMILIES[family](params, **options)
     elif family in FAMILIES_3D:
         if family not in _NORMALIZED:
             rules = FAMILIES_3D[family]()
@@ -529,7 +785,7 @@ def state_dict_from_flax(params: Mapping[str, Any], batch_stats: Mapping[str, An
         raise ValueError(f"unknown family {family!r}")
     sd: Dict[str, torch.Tensor] = {}
     for tp, kind, fp in rules:
-        leaf = _get(params, fp)
+        leaf = None if kind == "stack" else _get(params, fp)
         if kind in ("conv", "deconv"):
             to_torch = _conv_weight if kind == "conv" else _deconv_weight
             sd[f"{tp}.weight"] = _t(to_torch(np.asarray(leaf["kernel"])))
@@ -546,6 +802,18 @@ def state_dict_from_flax(params: Mapping[str, Any], batch_stats: Mapping[str, An
             sd[f"{tp}.weight"] = _t(np.reshape(leaf["negative_slope"], (1,)))
         elif kind == "raw":
             sd[tp] = _t(leaf)
+        elif kind == "stack":       # a row a path, e.g. per-level embeddings
+            sd[tp] = torch.stack([_t(np.reshape(_get(params, f), (-1,)))
+                                  for f in fp.split("|")])
+        elif kind == "mha":         # Flax MultiHeadDotProductAttention
+            proj = [np.asarray(leaf[n]["kernel"]) for n in ("query", "key", "value")]
+            sd[f"{tp}.in_proj_weight"] = torch.cat(
+                [_t(k.reshape(k.shape[0], -1).T) for k in proj])
+            sd[f"{tp}.in_proj_bias"] = torch.cat(
+                [_t(np.reshape(leaf[n]["bias"], (-1,))) for n in ("query", "key", "value")])
+            out = np.asarray(leaf["out"]["kernel"])
+            sd[f"{tp}.out_proj.weight"] = _t(out.reshape(-1, out.shape[-1]).T)
+            sd[f"{tp}.out_proj.bias"] = _t(leaf["out"]["bias"])
         else:   # bn
             stats = _get(batch_stats, fp)
             sd[f"{tp}.weight"] = _t(leaf["scale"])

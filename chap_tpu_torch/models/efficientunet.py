@@ -1,9 +1,15 @@
 """Efficient-UNet, key ``efficient_unet`` (port of
 chap_tpu/models/efficientunet.py; the reference's efficientunet.py:27-215
-over efficient_encoder.py:70-109): an EfficientNet-B0 encoder (stem of 32
-channels, MBConv stages with squeeze-excite of ratio 0.25, swish) giving
-the pyramid [32, 24, 40, 112, 320] at strides 2-32, under a UNet decoder of
-nearest 2x up-sampling, skip concat and two conv-BN-ReLU a block.
+over efficient_encoder.py:70-215): an EfficientNet encoder (MBConv stages
+with squeeze-excite of ratio 0.25, swish) giving a 5-level pyramid at
+strides 2-32, under a UNet decoder of nearest 2x up-sampling, skip concat
+and two conv-BN-ReLU a block.
+
+Any of b0-b7 by compound scaling (``get_encoder``, ``EffiUNet(encoder_name=
+...)``): the stage widths by ``round_filters`` and the repeats by
+``round_repeats`` of chap_tpu's (width, depth) table (efficientunet.py:
+83-136); b0's pyramid is [32, 24, 40, 112, 320], b2's [32, 24, 48, 120,
+352], b3's [40, 32, 48, 136, 384]. The factory's ``efficient_unet`` is b0.
 
 The encoder keeps the EfficientNet lineage's semantics that chap_tpu keeps
 (efficientunet.py:42-54): TF-SAME padding, which pads a stride-2 conv
@@ -12,7 +18,7 @@ asymmetrically (more at the end, ``tf_same_pad``), where PyTorch's
 modules carry lukemelas efficientnet_pytorch's names (``_conv_stem``,
 ``_blocks.{k}._depthwise_conv`` ...), which chap_tpu's
 ``efficientnet_b0_rules`` spell out (convert/torch_import.py:269-299).
-No dropout. ``encoder_name`` takes b0 only, the factory's encoder.
+No dropout.
 """
 from __future__ import annotations
 
@@ -32,6 +38,32 @@ B0_STAGES = ((16, 1, 1, 3, 1), (24, 2, 2, 3, 6), (40, 2, 2, 5, 6),
              (80, 3, 2, 3, 6), (112, 3, 1, 5, 6), (192, 4, 2, 5, 6),
              (320, 1, 1, 3, 6))
 PYRAMID_STAGES = (1, 2, 4, 6)      # stages that end at a resolution drop
+# compound-scaling (width, depth) coefficients of b0-b7
+# (efficient_encoder.py:124-201)
+SCALING = {
+    "efficientnet-b0": (1.0, 1.0), "efficientnet-b1": (1.0, 1.1),
+    "efficientnet-b2": (1.1, 1.2), "efficientnet-b3": (1.2, 1.4),
+    "efficientnet-b4": (1.4, 1.8), "efficientnet-b5": (1.6, 2.2),
+    "efficientnet-b6": (1.8, 2.6), "efficientnet-b7": (2.0, 3.1),
+}
+
+
+def round_filters(filters: int, width: float, divisor: int = 8) -> int:
+    """EfficientNet's channel rounding (efficientnet_pytorch.utils)."""
+    filters *= width
+    new_f = max(divisor, int(filters + divisor / 2) // divisor * divisor)
+    if new_f < 0.9 * filters:
+        new_f += divisor
+    return int(new_f)
+
+
+def round_repeats(repeats: int, depth: float) -> int:
+    return int(math.ceil(depth * repeats))
+
+
+def stage_repeats(depth: float) -> List[int]:
+    """The MBConv blocks of each of the 7 stages at ``depth``."""
+    return [round_repeats(n, depth) for _, n, _, _, _ in B0_STAGES]
 
 
 def tf_same_pad(x: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
@@ -89,21 +121,27 @@ class MBConv(nn.Module):
 
 
 class EfficientNetEncoder(nn.Module):
-    """EfficientNet-B0 -> [stem, after stages 1, 2, 4, 6]."""
+    """EfficientNet at (width, depth) -> [stem, after stages 1, 2, 4, 6];
+    ``out_channels`` lists the five levels' channels."""
 
-    def __init__(self, in_chns: int = 1):
+    def __init__(self, in_chns: int = 1, width: float = 1.0, depth: float = 1.0):
         super().__init__()
-        self._conv_stem = SameConv2d(in_chns, 32, 3, 2)
-        self._bn0 = BatchNorm2d(32, EFFNET_BN_EPS)
+        stem = round_filters(32, width)
+        self._conv_stem = SameConv2d(in_chns, stem, 3, 2)
+        self._bn0 = BatchNorm2d(stem, EFFNET_BN_EPS)
         blocks, self.stage_ends = [], []
-        ch = 32
-        for out, n, stride, kernel, expand in B0_STAGES:
+        ch = stem
+        for (out, _, stride, kernel, expand), n in zip(B0_STAGES, stage_repeats(depth)):
+            out = round_filters(out, width)
             for b in range(n):
                 blocks.append(MBConv(ch, out, expand, stride if b == 0 else 1,
                                      kernel))
                 ch = out
             self.stage_ends.append(len(blocks))
         self._blocks = nn.ModuleList(blocks)
+        self.out_channels = [stem] + [round_filters(B0_STAGES[s][0], width)
+                                      for s in PYRAMID_STAGES]
+        set_stats_keys(self)
 
     def forward(self, x: torch.Tensor, stats: Optional[Stats] = None
                 ) -> List[torch.Tensor]:
@@ -115,6 +153,16 @@ class EfficientNetEncoder(nn.Module):
             if k + 1 in ends:
                 feats.append(h)
         return feats
+
+
+def get_encoder(name: str = "efficientnet-b0", in_chns: int = 3
+                ) -> EfficientNetEncoder:
+    """The encoder by name (efficient_encoder.py:203-216; chap_tpu's
+    get_encoder). ImageNet weights load through
+    convert/from_pth.py ``convert_efficientnet_pretrained``."""
+    if name not in SCALING:
+        raise KeyError(f"unknown encoder {name!r}; have {sorted(SCALING)}")
+    return EfficientNetEncoder(in_chns, *SCALING[name])
 
 
 class DecoderBlock(nn.Module):
@@ -148,11 +196,8 @@ class EffiUNet(nn.Module):
                  decoder_channels: Sequence[int] = (256, 128, 64, 32, 16),
                  encoder_name: str = "efficientnet-b0"):
         super().__init__()
-        if encoder_name != "efficientnet-b0":
-            raise ValueError(f"encoder {encoder_name!r}: the port builds "
-                             f"efficientnet-b0, the factory's encoder")
-        self.encoder = EfficientNetEncoder(in_chns)
-        pyramid = [32] + [B0_STAGES[s][0] for s in PYRAMID_STAGES]
+        self.encoder = get_encoder(encoder_name, in_chns)
+        pyramid = self.encoder.out_channels
         skips = pyramid[:-1][::-1] + [0]
         ins = [pyramid[-1]] + list(decoder_channels[:-1])
         self.decoder = nn.Module()

@@ -177,6 +177,49 @@ def perform_dropout(features: Sequence[torch.Tensor],
     return feature_fp1, feature_fp2
 
 
+def mask_selection(scores: torch.Tensor, percent: float, wrs: bool = True,
+                   u: Optional[torch.Tensor] = None,
+                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """FilterDropout.mask_selection as chap_tpu repairs it (perturb.py:
+    166-198): the {0, 1} keep-mask of scores [C] or [B, C] that drops
+    int(C * percent) channels (at most C - 1; none below 1 / C) of each
+    row: the top-scored ones (``wrs=False``) or by weighted random sampling
+    (Efraimidis-Spirakis keys r ** (1 / s) of the min-max-normalised
+    scores s, r uniform in [1e-8, 1)). A channel is dropped where its key
+    is strictly above the drop_num-th largest. ``u``: the [B, C] (or [C])
+    uniforms in [0, 1) that give r = u (1 - 1e-8) + 1e-8, as
+    jax.random.uniform(minval=1e-8) maps its own; None draws them from
+    ``generator`` on the scores' device. ``percent >= 1`` raises."""
+    if percent >= 1.0:
+        raise ValueError(f"mask_selection percent must be < 1 (got {percent}): "
+                         f"dropping every channel zeroes the feature map")
+    squeeze = scores.dim() == 1
+    s = scores[None] if squeeze else scores
+    c = s.shape[1]
+    drop_num = min(int(c * percent), c - 1)
+    if wrs:
+        lo = s.amin(dim=1, keepdim=True)
+        hi = s.amax(dim=1, keepdim=True)
+        norm = (s - lo) / torch.clamp(hi - lo, min=1e-8)
+        if u is None:
+            u = torch.rand(s.shape, generator=generator, device=s.device)
+        r = u.reshape(s.shape).to(s.dtype) * (1.0 - 1e-8) + 1e-8
+        key = r ** (1.0 / torch.clamp(norm, min=1e-8))
+    else:
+        key = s
+    thr = torch.sort(key, dim=1, descending=True).values[:, drop_num:drop_num + 1]
+    keep = 1.0 - (key > thr).to(torch.float32)
+    return keep[0] if squeeze else keep
+
+
+def filter_dropout_channel(scores: torch.Tensor, percent: float, wrs: bool = True,
+                           u: Optional[torch.Tensor] = None,
+                           generator: Optional[torch.Generator] = None
+                           ) -> torch.Tensor:
+    """FilterDropout.filter_dropout_channel (:37-42): ``mask_selection``."""
+    return mask_selection(scores, percent, wrs, u, generator)
+
+
 def feature_dropout(x: torch.Tensor, u: Optional[torch.Tensor] = None
                     ) -> torch.Tensor:
     """Attention-guided spatial dropout (chap_tpu perturb.py:207-214,

@@ -57,7 +57,7 @@ Phases (any failure raises and the script exits non-zero):
                (1,312-slice device pool, labeled_num 7): 20 CHAP steps with
                an eval every 10 on 2 val volumes of 10 x 256^2, --resume to
                30 (the step counter continues, the best slot is kept), then
-               cli.test_2d on ``best``; 5 supervised steps and 10 CHAP steps
+               cli.test_2d on ``best`` (2 of its 8 phantom volumes); 5 supervised steps and 10 CHAP steps
                on the host loader path (data.device_input=false). Launch
                counters are set to 0 just before each run and read just
                after: 4 / 12 / 1 per CHAP step, 2 / 2 / 0 per supervised
@@ -240,13 +240,13 @@ Phases (any failure raises and the script exits non-zero):
                two 160x160x96 volumes (stride 18 / 4, sw_batch 16) against
                W = 1's label maps (under 0.1% of voxels may differ; the
                count printed) with each rank's K3 launches; (a)
-               cli.train_2d (12 steps) and (h) cli.train_3d at
+               cli.train_2d (6 steps) and (h) cli.train_3d at
                configs/la_chap.yml as written (4 steps) under ``torchrun
                --nproc_per_node 1`` (NCCL) against the same runs in this
                process: losses within rtol 2e-3; (c) cli.train_2d in the
-               two gloo ranks: 12 steps and --resume to 18, one run dir
-               written by rank 0, the records, val.csv and eval dice of
-               W = 1's run (dice within 5e-3), 18 x (4 + 12 / 1) launches a
+               two gloo ranks: 6 steps and --resume to 9 (an eval every 3),
+               one run dir written by rank 0, the records, val.csv and eval
+               dice of W = 1's run (dice within 5e-3), 9 x (4 + 12 / 1) launches a
                rank, and the eval of its final weights at W = 2 equal to
                this process's eval of them, exactly; (i) the ACAL iteration
                (joint step, decoder max-step, encoder min-step) at
@@ -267,8 +267,10 @@ Phases (any failure raises and the script exits non-zero):
                1's own gap between TF32 on and off; and the eval of phase
                16's trained weights (dice above 0) at W = 2 equal to W =
                1's, exactly; (l) cli.train_2d --mode
-               ablation in the two ranks (6 steps): disagreement.csv's
-               ratios within 5e-3 of W = 1's. Prints the ``dist`` line
+               ablation in the two ranks (4 steps): disagreement.csv's
+               ratios within 5e-3 of W = 1's. The spawned ranks run their
+               bare steps without a warm-up step (their step ms include
+               first-call costs). Prints the ``dist`` line
                (the gloo figures are ranks sharing one card, not a
                multi-card speed)
  24. zoo2d     (runs before 23) every 2D net_factory key: (a) each but
@@ -286,11 +288,42 @@ Phases (any failure raises and the script exits non-zero):
                unet, resunet, swinunet, enet, pnet and efficient_unet,
                1 / 1 K1 a step asserted, step ms and peak memory; a train
                and an eval forward of unetp, unet_cct, unet_urpc and
-               dual_student, which that step refuses; (c) cli.test_2d on a
+               dual_student, which that step refuses; (c) cli.test_2d (2 of
+               its 8 phantom volumes) on a
                snapshot of every key written from (b)'s weights, over the
                ensemble modes for the keys of several outputs, and
                cli.train_2d refusing --model unet in supervised mode before
                a run dir (``slice_zoo2d``, ``test_zoo2d``, ``zoo2d`` lines)
+ 25. library   (runs after 24, before 23) the models no factory key
+               reaches and the .pth import: (a) every model of
+               models/{blocks, resnet, discriminator, extras, gan_legacy,
+               transformer_decoder}.py and EffiUNet-b3 at a small width on
+               the card and on the CPU from the same weights and dropout
+               draws (TF32 off): every output in eval and train mode and
+               the BN batch statistics at 5e-4 of the output's scale; the
+               parameter gradients of GRL (a UNet's features reversed into
+               NetD), KMax, the GAN pair (ResnetGenerator under
+               NLayerDiscriminator) and TinyUNet3D at rtol 2e-3 as vectors;
+               mask_selection with the same uniforms, equal
+               (``parity_library``); (b) at full width (TF32 on, random
+               weights from a seed) one warm-up and three timed forward +
+               backward calls each: resnet50 and resnet50_16s on 24 x 3 x
+               256^2, the three transformer decoders at their default
+               widths on resnet50's pyramid of that batch, ResnetGenerator,
+               UnetGenerator and NLayerDiscriminator at 4 x 3 x 256^2,
+               FCDiscriminator on 24 x 4 x 256^2 with NetD on its map,
+               UNetTsne on 24 x 1 x 256^2, TinyUNet3D on 4 x 1 x 96^3,
+               EffiUNet-b3, and utils.timing.benchmark_fwd_bwd on the ACDC
+               DualDecoder: ms and peak GB (``slice_library``); (c)
+               reference-named .pth files of seeded weights (``module.``
+               prefixes in a ``{"state_dict": ...}`` wrapper: the ACDC
+               DualDecoder, LA's VNet and DualDecoder3d at n_filters_3d
+               16, swinunet) through cli.convert_torch, then cli.test_2d
+               (2 phantom volumes) or cli.test_3d --nms 1 on the card, the
+               converted snapshot's label maps against the same weights
+               loaded straight into the factory's model within 0.1%
+               (``convert_library``; its K3 launches go to the K2 3D / K3
+               rows as ``library_test3d_launches``); the ``library`` line
  22. report    the kernels line (JSON; K1 and K3 at bf16 logits have rows
                of their own; the K1 / K2 / K3 rows carry phase 23's
                launches on each rank; K1 at bf16 logits at the ACAL shape
@@ -299,7 +332,8 @@ Phases (any failure raises and the script exits non-zero):
                phase 24's timed steps); the R = 1 rows carry
                ``caller_bound_ms``, the bound for what their supervised
                callers need: the logits and uint8 labels, no mask; a
-               count no run measured is null), the card line, and the last line
+               count no run measured is null), the ``phase_s`` line (each
+               phase's seconds), the card line, and the last line
                {"ok": true, "device": {...}}
 
 The 2D and 3D phases keep the counts and depths they had before the ACAL
@@ -328,6 +362,8 @@ from __future__ import annotations
 import concurrent.futures
 import ctypes
 import dataclasses
+import functools
+import inspect
 import json
 import math
 import multiprocessing as mp
@@ -338,10 +374,12 @@ import statistics
 import subprocess
 import sys
 import time
+from unittest import mock
 
 import numpy as np
 import torch
 
+from chap_tpu_torch.cli import convert_torch as cli_convert
 from chap_tpu_torch.cli import test_2d as cli_test
 from chap_tpu_torch.cli import test_3d as cli_test3d
 from chap_tpu_torch.cli import train_2d as cli_train
@@ -358,16 +396,27 @@ from chap_tpu_torch.eval.eval2d import (evaluate_volumes, make_adv_predictor,
                                         make_ds_predictor, make_predictor,
                                         predict_volume, test_single_adv_polyp,
                                         test_single_volume_polyp)
+from chap_tpu_torch.models import resnet
 from chap_tpu_torch.models.attention3d import AttentionUNet3D
+from chap_tpu_torch.models.blocks import Conv2dReLU, SCSEModule, SEBlock3d, SqEx
+from chap_tpu_torch.models.discriminator import FC3DDiscriminator, FCDiscriminator
 from chap_tpu_torch.models.dsnet import DSNet
 from chap_tpu_torch.models.efficientunet import EffiUNet
 from chap_tpu_torch.models.enet import ENet
+from chap_tpu_torch.models.extras import NetD, TinyUNet3D, UNet2dBCP, UNetTsne
 from chap_tpu_torch.models.factory import net_factory, net_factory_3d
-from chap_tpu_torch.models.layers import set_compute_dtype
+from chap_tpu_torch.models.gan_legacy import (NLayerDiscriminator, ResnetGenerator,
+                                              UnetGenerator, gan_loss)
+from chap_tpu_torch.models.grl import gradient_reverse
+from chap_tpu_torch.models.layers import FlaxBatchNorm, set_compute_dtype
+from chap_tpu_torch.models.perturb import mask_selection
 from chap_tpu_torch.models.pnet import PNet2D
 from chap_tpu_torch.models.resunet2d import ResUNet2d
 from chap_tpu_torch.models.resvnet import ResVNet
 from chap_tpu_torch.models.swin_unet import SwinUNet
+from chap_tpu_torch.models.transformer_decoder import (KMaxTransformerDecoder,
+                                                       MaskTransformerDecoder,
+                                                       MaskTransformerDecoderV1)
 from chap_tpu_torch.models.unet2d import UNet, UNetCCT, UNetPlus, UNetURPC
 from chap_tpu_torch.models.unet3d import UNet3D
 from chap_tpu_torch.models.unet3d_dv import UNet3DDvSemi
@@ -389,6 +438,7 @@ from chap_tpu_torch.train.step_supervised import (build_supervised_train_step,
                                                   draw_supervised_uniforms)
 from chap_tpu_torch.train.trainer_3d import build_supervised3d_train_step
 from chap_tpu_torch.utils.checkpoint import CheckpointManager
+from chap_tpu_torch.utils.timing import benchmark_fwd_bwd
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 FP32_FLOP_PER_S = 67e12        # outside the tensor cores
@@ -410,6 +460,9 @@ TRAINER_FLAGS = ["--cfg", "configs/acdc_chap.yml", "--dataset", "synthetic",
                  "--device", "cuda"]
 TRAINER_OVERRIDES = ["eval.eval_every=10", "data.synthetic_val_volumes=2",
                      "run.log_every=10", f"run.snapshot_root={RUNS_DIR}"]
+# cli.test_2d's synthetic set cut to 2 of its 8 phantom volumes (phases 8,
+# 24 and 25; the host's surface metrics take most of a run)
+TWO_VOLUMES = functools.partial(SyntheticVolumeDataset, length=2)
 METRICS = ("loss", "bcp_loss", "loss_l", "loss_u", "fp_loss", "vat_loss",
            "consistency_weight")
 
@@ -502,7 +555,10 @@ def host_us(fn, n: int = 100, warmup: int = 5) -> float:
 
 def device_kernels(fn, n: int = 1) -> list:
     """(name, us) of each device kernel torch.profiler sees while fn runs n
-    times."""
+    times, from Kineto's raw events: ``prof.events()`` drops a device
+    kernel it cannot tie to a CPU op, and lost one of three K1 backward
+    kernels in each of three sessions in a row on an H100 (the backward
+    launches from autograd's device thread)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -510,8 +566,9 @@ def device_kernels(fn, n: int = 1) -> list:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    return [(ev.name, ev.time_range.elapsed_us()) for ev in prof.events()
-            if getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    return [(ev.name(), ev.duration_ns() / 1e3)
+            for ev in prof.profiler.kineto_results.events()
+            if ev.device_type() == torch.autograd.DeviceType.CUDA]
 
 
 def kernel_counts(fn, n: int) -> dict:
@@ -1111,8 +1168,9 @@ def phase_trainer(bare_step_ms: float) -> dict:
           (best_after == best_before or best_after["best_iteration"] == 30),
           f"best slot kept across the resume: {best_before} -> {best_after}")
     t0 = time.perf_counter()
-    test_mean = cli_test.main(["--snapshot", save_dir, "--ckpt", "best",
-                               "--device", "cuda"])
+    with mock.patch.object(cli_test, "SyntheticVolumeDataset", TWO_VOLUMES):
+        test_mean = cli_test.main(["--snapshot", save_dir, "--ckpt", "best",
+                                   "--device", "cuda"])
     test_s = time.perf_counter() - t0
     check(np.isfinite(test_mean).all() and test_mean.shape == (3, 4),
           f"cli.test_2d metrics {test_mean}")
@@ -3228,11 +3286,10 @@ def phase_slice_zoo2d() -> dict:
 def phase_test_zoo2d(states: dict) -> dict:
     """(c) cli.test_2d on a snapshot of each key, written here: (b)'s
     weights in a ``best`` slot and a config.json naming the model,
-    --dataset synthetic (8 phantom volumes of 10 slices at 256^2, 224^2 for
-    swinunet); unet_cct under each ensemble mode, unet_urpc and
-    dual_student under logit_ensemble and model2 (output 1), the others
-    under the default (about 5 s a run, most of it the host's surface
-    metrics). Then cli.train_2d refusing a single-output model in
+    --dataset synthetic (2 of the CLI's 8 phantom volumes of 10 slices at
+    256^2, 224^2 for swinunet: TWO_VOLUMES); unet_cct under each ensemble
+    mode, unet_urpc and dual_student under logit_ensemble and model2
+    (output 1), the others under the default. Then cli.train_2d refusing a single-output model in
     supervised mode, before it writes a run dir."""
     shutil.rmtree(ZOO2D_RUNS, ignore_errors=True)
     res = {}
@@ -3249,8 +3306,9 @@ def phase_test_zoo2d(states: dict) -> dict:
                      key, ("logit_ensemble",))
         for mode in modes:
             t0 = time.perf_counter()
-            mean = cli_test.main(["--snapshot", snap, "--device", "cuda",
-                                  "--model_type", mode])
+            with mock.patch.object(cli_test, "SyntheticVolumeDataset", TWO_VOLUMES):
+                mean = cli_test.main(["--snapshot", snap, "--device", "cuda",
+                                      "--model_type", mode])
             check(mean.shape == (3, 4) and np.isfinite(mean[:, 0]).all(),
                   f"cli.test_2d {key} {mode}: {mean}")
             res[f"{key} {mode}"] = {"mean_dice": float(mean[:, 0].mean()),
@@ -3287,6 +3345,440 @@ def phase_zoo2d() -> dict:
     return res
 
 
+# phase 25: the library (models no factory key reaches, convert, timing)
+LIB_RUNS = os.path.join(RUNS_DIR, "library")
+LIB_CHNS = (4, 8, 16, 16, 32)
+
+
+def library_models() -> dict:
+    """(a)'s models at small widths: name -> (make, input shapes). Sizes
+    where a train-mode BatchNorm normalises 8 values a channel or more."""
+    dec = dict(num_queries=4, hidden_dim=32, num_heads=4)
+    return {
+        "sqex": (lambda: SqEx(32), [(2, 32, 4, 4, 4)]),
+        "seblock3d": (lambda: SEBlock3d(32), [(2, 32, 4, 4, 4)]),
+        "scse": (lambda: SCSEModule(32), [(2, 32, 8, 8)]),
+        "conv2d_relu": (lambda: Conv2dReLU(32, 16), [(2, 32, 8, 8)]),
+        "resnet18": (lambda: resnet.resnet18(), [(2, 1, 32, 32)]),
+        "resnet50_d": (lambda: resnet.resnet50_d(), [(2, 1, 64, 64)]),
+        "resnext101_32x8d": (lambda: resnet.resnext101_32x8d(), [(2, 1, 64, 64)]),
+        "resnet50_16s_3d": (lambda: resnet.resnet50_16s(ndim=3), [(2, 1, 16, 16, 16)]),
+        "fc3d_discriminator": (lambda: FC3DDiscriminator(2, ndf=16),
+                               [(2, 2, 32, 32, 16), (2, 1, 32, 32, 16)]),
+        "fc_discriminator": (lambda: FCDiscriminator(4, ndf=16), [(2, 4, 64, 64)]),
+        "unet_2dbcp": (lambda: UNet2dBCP(1, 4, LIB_CHNS), [(2, 1, 32, 32)]),
+        "unet_tsne": (lambda: UNetTsne(1, 4, LIB_CHNS), [(2, 1, 32, 32)]),
+        "net_d": (lambda: NetD(512), [(2, 4, 8, 8)]),
+        "tiny_unet3d": (lambda: TinyUNet3D(1, 2), [(2, 1, 16, 16, 16)]),
+        "resnet_generator": (lambda: ResnetGenerator(3, 3, ngf=8, n_blocks=2),
+                             [(2, 3, 32, 32)]),
+        "resnet_generator_in_dropout": (
+            lambda: ResnetGenerator(3, 3, ngf=8, n_blocks=2, norm="instancenorm",
+                                    use_dropout=True), [(2, 3, 32, 32)]),
+        "unet_generator": (lambda: UnetGenerator(3, 3, num_downs=5, ngf=8),
+                           [(2, 3, 32, 32)]),
+        "unet_generator_in_dropout": (
+            lambda: UnetGenerator(3, 3, num_downs=7, ngf=4, norm="instancenorm",
+                                  use_dropout=True), [(2, 3, 128, 128)]),
+        "nlayer_discriminator": (lambda: NLayerDiscriminator(3, ndf=8),
+                                 [(2, 3, 64, 64)]),
+        "mask_decoder": (lambda: MaskTransformerDecoder((16, 8), num_layers=4, **dec),
+                         [[(2, 16, 8, 8), (2, 8, 16, 16)]]),
+        "mask_decoder_v1": (lambda: MaskTransformerDecoderV1(
+            (16, 8, 8), 8, num_classes=3, num_layers=3, **dec),
+            [[(2, 16, 4, 4), (2, 8, 8, 8), (2, 8, 16, 16)], (2, 8, 32, 32)]),
+        "kmax_decoder": (lambda: KMaxTransformerDecoder((16,), num_layers=2, **dec),
+                         [[(2, 16, 8, 8)]]),
+        "effiunet_b3": (lambda: EffiUNet(1, 4, encoder_name="efficientnet-b3"),
+                        [(2, 1, 64, 64)]),
+    }
+
+
+def _rand_inputs(shapes, gen) -> list:
+    return [[torch.randn(s, generator=gen) for s in x] if isinstance(x, list)
+            else torch.randn(x, generator=gen) for x in shapes]
+
+
+def _to(inputs, device) -> list:
+    return [[t.to(device) for t in x] if isinstance(x, list) else x.to(device)
+            for x in inputs]
+
+
+def _train_kwargs(model, inputs, gen) -> dict:
+    """A train pass's keywords: the BatchNorms' stats dict where the model
+    reports them, its dropout draws where it has dropouts."""
+    params = inspect.signature(model.forward).parameters
+    kw = {"stats": {}} if "stats" in params else {}
+    if hasattr(model, "dropout_shapes"):
+        x = inputs[0]
+        shapes = model.dropout_shapes(x.shape[0], x.shape[2:])
+        if shapes:
+            kw["drop_u"] = [torch.rand(s, generator=gen) for s in shapes]
+    return kw
+
+
+def grad_gap(card: torch.nn.Module, cpu: torch.nn.Module) -> dict:
+    """Card-against-CPU gaps of the parameter gradients: of all of them as
+    one vector, and the largest of a parameter's own (relative to its
+    norm) over the parameters whose gradient is at least 1e-4 of the
+    whole's norm. Below that lie the gradients that are rounding noise in
+    both (a conv bias in front of a BatchNorm has none), which the whole's
+    gap still holds."""
+    pairs = [(n, a.grad.cpu() if a.grad is not None else torch.zeros_like(b),
+              b.grad if b.grad is not None else torch.zeros_like(b))
+             for (n, a), (_, b) in zip(card.named_parameters(), cpu.named_parameters())]
+    whole = torch.cat([b.reshape(-1) for _, _, b in pairs]).norm()
+    diff = torch.cat([(a - b).reshape(-1) for _, a, b in pairs]).norm()
+    check(float(whole) > 0, "a gradient reaches the parameters")
+    each, name = max((float((a - b).norm() / b.norm()), n) for n, a, b in pairs
+                     if b.norm() >= 1e-4 * whole)
+    return {"whole": float(diff / whole), "largest_parameter": each,
+            "largest_parameter_name": name}
+
+
+class GrlPair(torch.nn.Module):
+    """GRL between a small UNet's decoder features (pooled to 8 x 8) and
+    NetD: the discriminator's loss reaches the UNet reversed."""
+
+    def __init__(self):
+        super().__init__()
+        self.unet = UNet2dBCP(1, 4, LIB_CHNS)
+        self.netd = NetD(2 * 4 * 8 * 8)
+
+    def forward(self, x):
+        # zero uniforms keep every unit: the same dropout on both devices
+        keep = [torch.zeros(s, device=x.device)
+                for s in self.unet.dropout_shapes(x.shape[0], x.shape[2:])]
+        _, feats = self.unet(x, drop_u=keep, with_feats=True)
+        h = gradient_reverse(torch.nn.functional.avg_pool2d(feats, 4), 0.5)
+        return gan_loss(self.netd(h), True, use_lsgan=False)
+
+
+class GanPair(torch.nn.Module):
+    """ResnetGenerator under NLayerDiscriminator, the lsgan pair's losses."""
+
+    def __init__(self):
+        super().__init__()
+        self.g = ResnetGenerator(3, 3, ngf=8, n_blocks=2)
+        self.d = NLayerDiscriminator(3, ndf=8)
+
+    def forward(self, x):
+        return gan_loss(self.d(self.g(x)), True) + gan_loss(self.d(x), False)
+
+
+def tiny_loss(out, lab) -> torch.Tensor:
+    """TinyUNet3D's train outputs: CE of the logits plus the multiscale
+    maps' foreground squared."""
+    logits, maps = out
+    return (torch.nn.functional.cross_entropy(logits, lab)
+            + sum((p[:, 1] ** 2).mean() for p in maps))
+
+
+def library_grad_parity(gen) -> dict:
+    """(a)'s gradients card against CPU (TF32 off, train mode, the same
+    weights): GRL, KMax, the GAN pair, TinyUNet3D; rtol 2e-3 as vectors
+    (grad_gap)."""
+    w = [torch.randn((2, 4, 8, 8), generator=gen) for _ in range(2)]
+    lab = torch.randint(0, 2, (2, 16, 16, 16), generator=gen)
+    cases = {
+        "grl": (GrlPair, [torch.randn((2, 1, 32, 32), generator=gen)],
+                lambda m, x: m(x)),
+        "kmax": (lambda: KMaxTransformerDecoder((16,), num_queries=4, hidden_dim=32,
+                                                num_layers=2, num_heads=4),
+                 [[torch.randn((2, 16, 8, 8), generator=gen)]],
+                 lambda m, x: sum((s * wi.to(s.device)).sum()
+                                  for s, wi in zip(m(x), w))),
+        "gan_pair": (GanPair, [torch.randn((2, 3, 32, 32), generator=gen)],
+                     lambda m, x: m(x)),
+        "tiny_unet3d": (lambda: TinyUNet3D(1, 2),
+                        [torch.randn((2, 1, 16, 16, 16), generator=gen)],
+                        lambda m, x: tiny_loss(m(x), lab.to(x.device))),
+    }
+    res = {}
+    for name, (make, inputs, loss_fn) in cases.items():
+        torch.manual_seed(51)
+        cpu, card = make(), make().cuda()
+        card.load_state_dict(cpu.state_dict())
+        losses = []
+        for model, dev in ((cpu, "cpu"), (card, "cuda")):
+            model.train()
+            x = _to(inputs, dev)
+            loss = loss_fn(model, x[0])
+            loss.backward()
+            losses.append(float(loss.detach()))
+        gap = grad_gap(card, cpu)
+        check(abs(losses[1] - losses[0]) <= RTOL * max(abs(losses[0]), 1e-6),
+              f"library {name} loss card {losses[1]} cpu {losses[0]}")
+        check(max(gap["whole"], gap["largest_parameter"]) <= RTOL,
+              f"library {name} gradients: gaps {gap}")
+        res[name] = {"loss": losses, "grad_rel_gap": gap}
+    return res
+
+
+def phase_parity_library() -> dict:
+    """(a) every model of models/{blocks, resnet, discriminator, extras,
+    gan_legacy, transformer_decoder}.py and EffiUNet-b3 at a small width on
+    the card and on the CPU from the same weights and draws (TF32 off):
+    every output in eval and train mode and the BN batch statistics at
+    5e-4 of the output's scale (zoo_tol); the gradients of GRL, KMax, the
+    GAN pair and TinyUNet3D (library_grad_parity); mask_selection with the
+    same uniforms, equal."""
+    set_tf32(False)
+    res = {"forward_max_abs_err": {}}
+    gen = torch.Generator().manual_seed(50)
+    for name, (make, shapes) in library_models().items():
+        torch.manual_seed(52)
+        cpu, card = make(), make().cuda()
+        card.load_state_dict(cpu.state_dict())
+        inputs = _rand_inputs(shapes, gen)
+        train_kw = _train_kwargs(cpu, inputs, gen)
+        err = 0.0
+        for train in (False, True):
+            cpu.train(train)
+            card.train(train)
+            kw = train_kw if train else {}
+            kw_cpu = {k: ({} if k == "stats" else v) for k, v in kw.items()}
+            kw_card = {k: ({} if k == "stats" else [u.cuda() for u in v])
+                       for k, v in kw.items()}
+            with torch.no_grad():
+                o_cpu = _flat(cpu(*inputs, **kw_cpu))
+                o_card = _flat(card(*_to(inputs, "cuda"), **kw_card))
+            check(len(o_cpu) == len(o_card), f"library {name} outputs")
+            for a, b in zip(o_card, o_cpu):
+                e = float((a.cpu() - b).abs().max())
+                check(e <= zoo_tol(b), f"library parity {name} (train={train}): {e}")
+                err = max(err, e)
+            if "stats" in kw:
+                has_bn = any(isinstance(m, FlaxBatchNorm) for m in cpu.modules())
+                check(set(kw_cpu["stats"]) == set(kw_card["stats"])
+                      and bool(kw_cpu["stats"]) == has_bn,
+                      f"library {name} BN statistics keys")
+                for k, (m_cpu, v_cpu) in kw_cpu["stats"].items():
+                    for a, b in zip(kw_card["stats"][k], (m_cpu, v_cpu)):
+                        e = float((a.cpu() - b).abs().max())
+                        check(e <= zoo_tol(b), f"library BN statistics {name} {k}: {e}")
+        res["forward_max_abs_err"][name] = err
+    res["gradients"] = library_grad_parity(gen)
+    scores = torch.rand((4, 32), generator=gen)
+    u = torch.rand((4, 32), generator=gen)
+    for wrs in (True, False):
+        for percent in (0.1, 0.5):
+            want = mask_selection(scores, percent, wrs, u=u)
+            got = mask_selection(scores.cuda(), percent, wrs, u=u.cuda()).cpu()
+            check(torch.equal(got, want), f"mask_selection wrs={wrs} {percent}")
+    res["mask_selection_equal"] = True
+    res["settings"] = tf32_settings()
+    print("parity_library", json.dumps(res), flush=True)
+    return res
+
+
+def fwd_bwd_timed(make_loss, n: int = 3) -> dict:
+    """``make_loss()`` built, then one warm-up and ``n`` timed forward +
+    backward calls of the loss it returns (a sync after each): median ms,
+    peak GB of the whole (warm-up included)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    loss_fn, params = make_loss()
+    times = []
+    for i in range(n + 1):
+        for p in params:
+            p.grad = None
+        t0 = time.perf_counter()
+        loss = loss_fn()
+        loss.backward()
+        torch.cuda.synchronize()
+        if i:
+            times.append((time.perf_counter() - t0) * 1e3)
+        check(math.isfinite(float(loss)), "finite loss")
+    return {"ms": statistics.median(times), "step_ms": times,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def _mean_loss(out) -> torch.Tensor:
+    return sum(o.float().mean() for o in _flat(out))
+
+
+def phase_slice_library() -> dict:
+    """(b) at full width (TF32 on, random weights from a seed): one warm-up
+    and three timed forward + backward calls of each, ms and peak GB:
+    resnet50 and resnet50_16s on 24 x 3 x 256^2; the three decoders at
+    their default widths on resnet50's pyramid of that batch ([c5, c4, c3,
+    c2]; V1's mask features c1); ResnetGenerator, UnetGenerator and
+    NLayerDiscriminator at 4 x 3 x 256^2; FCDiscriminator on 24 x 4 x
+    256^2 and NetD on its [24, 1, 8, 8] map (NetD flattens its whole input
+    into one row: on the image batch it would hold 2e13 weights); UNetTsne
+    on 24 x 1 x 256^2; TinyUNet3D on 4 x 1 x 96^3; EffiUNet-b3 on 24 x 1 x
+    256^2; then utils.timing.benchmark_fwd_bwd on the ACDC DualDecoder
+    (configs/acdc_chap.yml's widths, 24 x 1 x 256^2)."""
+    set_tf32(True)
+    gen = torch.Generator(device="cuda").manual_seed(53)
+    img3 = torch.randn((24, 3, 256, 256), generator=gen, device="cuda")
+    out = {}
+
+    def model_loss(make, *inputs, train=True, **kw):
+        def build():
+            torch.manual_seed(54)
+            model = make().cuda().train(train)
+            return (lambda: _mean_loss(model(*inputs, **kw))), list(model.parameters())
+        return build
+
+    cases = {
+        "resnet50": model_loss(lambda: resnet.resnet50(in_chns=3), img3),
+        "resnet50_16s": model_loss(lambda: resnet.resnet50_16s(in_chns=3), img3),
+    }
+    for name, build in cases.items():
+        out[name] = fwd_bwd_timed(build)
+    torch.manual_seed(54)
+    with torch.no_grad():
+        pyramid = resnet.resnet50(in_chns=3).cuda().eval()(img3)
+    levels = pyramid[:0:-1]                 # c5, c4, c3, c2
+    chans = [f.shape[1] for f in levels]
+    decoders = {
+        "mask_decoder": model_loss(lambda: MaskTransformerDecoder(chans), levels),
+        "mask_decoder_v1": model_loss(lambda: MaskTransformerDecoderV1(
+            chans, pyramid[0].shape[1]), levels, pyramid[0]),
+        "kmax_decoder": model_loss(lambda: KMaxTransformerDecoder(chans), levels),
+    }
+    for name, build in decoders.items():
+        out[name] = fwd_bwd_timed(build)
+    del pyramid, levels
+    img4 = torch.randn((4, 3, 256, 256), generator=gen, device="cuda")
+    seg = torch.randn((24, 4, 256, 256), generator=gen, device="cuda").softmax(1)
+    gray = torch.randn((24, 1, 256, 256), generator=gen, device="cuda")
+    vol = torch.randn((4, 1, 96, 96, 96), generator=gen, device="cuda")
+
+    def fc_netd():
+        torch.manual_seed(54)
+        d, netd = FCDiscriminator(4).cuda(), NetD(24 * 8 * 8).cuda()
+        return (lambda: netd(d(seg)).mean(),
+                list(d.parameters()) + list(netd.parameters()))
+
+    cases = {
+        "resnet_generator": model_loss(lambda: ResnetGenerator(3, 3), img4),
+        "unet_generator": model_loss(lambda: UnetGenerator(3, 3), img4),
+        "nlayer_discriminator": model_loss(lambda: NLayerDiscriminator(3), img4),
+        "fc_discriminator_net_d": fc_netd,
+        "unet_tsne": model_loss(lambda: UNetTsne(1, 4), gray),
+        "tiny_unet3d": model_loss(lambda: TinyUNet3D(1, 2), vol),
+        "effiunet_b3": model_loss(lambda: EffiUNet(1, 4, encoder_name="efficientnet-b3"),
+                                  gray),
+    }
+    for name, build in cases.items():
+        out[name] = fwd_bwd_timed(build)
+    cfg = acdc_chap_config()
+    torch.manual_seed(54)
+    dual = net_factory("dualdecoder", 1, 4, cfg.model, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    out["timing_dualdecoder"] = {**benchmark_fwd_bwd(dual, gray, num_iters=3),
+                                 "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    out["settings"] = tf32_settings()
+    out["card"] = card_line()
+    print("slice_library", json.dumps(out), flush=True)
+    return out
+
+
+# (c): the .pth families converted on the card's path: name -> (family,
+# dimension, classes)
+LIB_PTH = {"acdc_dualdecoder": ("dualdecoder", 2, 4), "la_vnet": ("vnet", 3, 2),
+           "la_dualdecoder3d": ("dualdecoder3d", 3, 2),
+           "swinunet": ("swinunet", 2, 4)}
+
+
+def phase_convert_library() -> dict:
+    """(c) cli.convert_torch on the card's path: reference-named .pth files
+    (``module.`` prefixes in a ``{"state_dict": ...}`` wrapper) of seeded
+    weights: the ACDC DualDecoder at configs/acdc_chap.yml's widths, LA's
+    VNet and DualDecoder3d at n_filters_3d 16 and swinunet (224^2);
+    each converted, then cli.test_2d (2 of its 8 phantom volumes, the rest
+    of (c)'s time) or cli.test_3d --nms 1 (its 2 synthetic volumes of
+    112x112x96, K3 launched a patch batch and counted; the eval's NMS is
+    the host's largest-CC, as chap_tpu's test_LA.py --nms, so K2 3D is
+    counted and stays 0) with --device cuda, and
+    the converted snapshot's label maps (restored by the CLIs' restore)
+    against the same weights loaded straight into the factory's model:
+    within 0.1% of pixels / voxels."""
+    shutil.rmtree(LIB_RUNS, ignore_errors=True)
+    os.makedirs(LIB_RUNS)
+    res = {"launches_test3d": {k: 0 for k in launch_counts()}}
+    cfg = acdc_chap_config()
+    for name, (family, dim, classes) in LIB_PTH.items():
+        key = cli_convert.FAMILIES[family][1]
+        torch.manual_seed(55)
+        if dim == 2:
+            direct = net_factory(key, 1, classes, cfg.model, device="cuda")
+        else:
+            direct = net_factory_3d(key, 1, classes, mode="test", device="cuda")
+        sd = {f"module.{k}": v.cpu() for k, v in direct.state_dict().items()}
+        pth = os.path.join(LIB_RUNS, f"{name}.pth")
+        torch.save({"state_dict": sd}, pth)
+        snap = os.path.join(LIB_RUNS, name)
+        t0 = time.perf_counter()
+        cli_convert.main(["--pth", pth, "--model", family, "--out", snap,
+                          "--num_classes", str(classes), "--device", "cuda"])
+        row = {"convert_s": time.perf_counter() - t0}
+        direct.eval()
+        t0 = time.perf_counter()
+        if dim == 2:
+            with open(os.path.join(snap, "config.json")) as f:
+                conf = json.load(f)
+            conf["data"]["dataset"] = "synthetic"
+            with open(os.path.join(snap, "config.json"), "w") as f:
+                json.dump(conf, f)
+            with mock.patch.object(cli_test, "SyntheticVolumeDataset", TWO_VOLUMES):
+                mean = cli_test.main(["--snapshot", snap, "--device", "cuda"])
+            check(mean.shape == (classes - 1, 4) and np.isfinite(mean[:, 0]).all(),
+                  f"cli.test_2d {name}: {mean}")
+            _, restored = cli_test.restore(snap, "best", "cuda")
+            side = tuple(conf["data"]["image_size"])
+            vols = SyntheticVolumeDataset((10, *side), classes, length=2)
+            maps = [[predict_volume(make_predictor(m, "logit_ensemble", device="cuda"),
+                                    vols[i]["image"], side) for i in range(2)]
+                    for m in (restored, direct)]
+        else:
+            zero_launch_counts()
+            mean = cli_test3d.main(["--dataset", "synthetic", "--snapshot", snap,
+                                    "--model", key, "--num_classes", str(classes),
+                                    "--nms", "1", "--device", "cuda"])
+            got = launch_counts()
+            check(got["K3_sw"] > 0, f"cli.test_3d {name} launches K3: {got}")
+            res["launches_test3d"] = {k: res["launches_test3d"][k] + got[k] for k in got}
+            row["launches"] = got
+            check(np.isfinite(mean[:, 0]).all(), f"cli.test_3d {name}: {mean}")
+            restored = cli_test3d.restore(snap, key, classes, "best", "cuda")
+            cases = cli_test3d._SyntheticCases(classes)
+            maps = [[sw.test_single_case(m, cases[i]["image"], 18, 4, LA_PATCH,
+                                         classes, device="cuda") for i in range(2)]
+                    for m in (restored, direct)]
+        row["eval_s"] = time.perf_counter() - t0
+        total = sum(m.size for m in maps[0])
+        differ = sum(int((a != b).sum()) for a, b in zip(*maps))
+        check(differ <= 1e-3 * total,
+              f"convert {name}: {differ} of {total} labels differ from the direct load")
+        row.update({"mean_dice": float(mean[:, 0].mean()), "labels": total,
+                    "labels_differing": differ})
+        res[name] = row
+    print("convert_library", json.dumps(res), flush=True)
+    shutil.rmtree(LIB_RUNS, ignore_errors=True)
+    return res
+
+
+def phase_library() -> dict:
+    """Phase 25, the library: (a) parity, (b) the full-width forward +
+    backward calls, (c) cli.convert_torch and the test CLIs. Prints the
+    ``library`` line."""
+    t0 = time.perf_counter()
+    res = {"parity": phase_parity_library(), "slice": phase_slice_library(),
+           "convert": phase_convert_library()}
+    res["phase_s"] = time.perf_counter() - t0
+    print("library", json.dumps({"phase_s": res["phase_s"],
+                                 "launches_test3d": res["convert"]["launches_test3d"],
+                                 "timed": {k: v["ms"] for k, v in res["slice"].items()
+                                           if isinstance(v, dict) and "ms" in v}}),
+          flush=True)
+    torch.cuda.empty_cache()
+    return res
+
+
 DIST_RUNS = os.path.join(RUNS_DIR, "dist")
 DIST_STEPS = 3
 # phase 23's control draws of each kind, a bar's samples of the card's
@@ -3305,10 +3797,14 @@ FIRST_STEP_KINDS = ("la",)
 # (e)'s smaller planted fault: every summed gradient scaled by this, an
 # update 5% short from the first step on
 SCALED_GRADIENT = 0.95
-# cli.train_2d at configs/acdc_chap.yml's values with an eval every 6 and a
+# cli.train_2d at configs/acdc_chap.yml's values with an eval every 3 and a
 # log line every step; the synthetic pool cut to 256 slices (labeled_num 7
-# takes 136 of them) so that each rank builds its pool in a second
-DIST_OVERRIDES = ["eval.eval_every=6", "data.synthetic_val_volumes=2",
+# takes 136 of them) so that each rank builds its pool in a second. (c)
+# runs DIST_TRAINER_STEPS then resumes to DIST_RESUME_STEPS, (a) runs
+# DIST_TRAINER_STEPS
+DIST_TRAINER_STEPS = 6
+DIST_RESUME_STEPS = 9
+DIST_OVERRIDES = ["eval.eval_every=3", "data.synthetic_val_volumes=2",
                   "data.synthetic_train_size=256", "run.log_every=1",
                   f"run.snapshot_root={DIST_RUNS}"]
 # (h): cli.train_3d at configs/la_chap.yml as written (bf16), a log line a
@@ -3337,7 +3833,7 @@ SHARE_DIST_ARGV = ["--cfg", ACAL_CFG, "--acal", "--dataset", "synthetic",
                    "data.synthetic_train_size=256", "run.log_every=1",
                    f"run.snapshot_root={DIST_RUNS}"]
 # (l): cli.train_2d --mode ablation at configs/acdc_chap.yml's values
-ABLATION_DIST_STEPS = 6
+ABLATION_DIST_STEPS = 4
 
 
 def dist_config(kind: str):
@@ -3479,7 +3975,9 @@ def dist_steps(init: dict, rows, conv: str = "cudnn", kind: str = "acdc",
                warm_up: bool = True) -> dict:
     """DIST_STEPS bare steps of ``kind`` (DIST_KINDS) from ``init`` (TF32
     off) on ``rows(batch)`` of each global batch, after one warm-up step
-    from the same start (timed runs; a control draw skips it): metrics,
+    from the same start with ``warm_up`` (this process's timed runs; a
+    control draw and the spawned ranks skip it, so a rank's first step
+    time holds its first-call costs): metrics,
     step ms, the final state dict (parameters and BN running statistics)
     and GradSim scores (on the host), the launches and the collectives
     made. ``conv`` picks the convolutions and BatchNorm: cuDNN's
@@ -3827,16 +4325,16 @@ def dist_rank_phase(inits: dict, eval_weights: dict, share_w: dict,
     written (bf16), (f) the BraTS unet_3D steps, (i) the ACAL iterations,
     (j) the ablation steps, (g) the sliding-window eval; then
     ``steps_done`` set (the card is no longer the ranks' alone); (c)
-    cli.train_2d, 12 steps and --resume to 18 (TF32 on, as phase 8), and
+    cli.train_2d, 6 steps and --resume to 9 (TF32 on, as phase 8), and
     the eval of its latest weights at W = 2; (k) cli.train_share_2d with
     TF32 off and on, and the eval of ``share_w`` (trained ACAL weights) at
     W = 2; (l) cli.train_2d --mode ablation."""
     out = {"rank": dist.rank(), "world": dist.world_size()}
-    out["acdc"] = dist_steps(inits["acdc"], dist_rows("acdc"))
+    out["acdc"] = dist_steps(inits["acdc"], dist_rows("acdc"), warm_up=False)
     collective_figures(out["acdc"], replay=True)
     for kind in ("la", "la_bf16", "brats") + SHARE_KINDS:
         out[kind] = dist_steps(inits["la" if kind == "la_bf16" else kind],
-                               dist_rows(kind), kind=kind)
+                               dist_rows(kind), kind=kind, warm_up=False)
         collective_figures(out[kind])
     out["la_left_out"] = wrong_steps(inits["la"], dist_rows("la"), "left_out")
     out["eval3d"] = dist_eval_3d(eval_weights)
@@ -3847,8 +4345,9 @@ def dist_rank_phase(inits: dict, eval_weights: dict, share_w: dict,
     set_tf32(True)
     argv = TRAINER_FLAGS + DIST_OVERRIDES + ["--exp", "w2"]
     zero_launch_counts()
-    first = cli_train.main(argv + ["--max_iterations", "12"])
-    resumed = cli_train.main(argv + ["--max_iterations", "18", "--resume"])
+    first = cli_train.main(argv + ["--max_iterations", str(DIST_TRAINER_STEPS)])
+    resumed = cli_train.main(argv + ["--max_iterations", str(DIST_RESUME_STEPS),
+                                     "--resume"])
     out["trainer"] = {"first": first, "resumed": resumed,
                       "launches": launch_counts()}
     out["eval_w2"] = dist_eval(resumed["save_dir"])
@@ -3866,7 +4365,8 @@ def dist_rank_phase4(inits: dict) -> dict:
     (three labeled and three unlabeled rows a rank)."""
     out = {"rank": dist.rank(), "world": dist.world_size()}
     for kind in ("acdc", "la") + SHARE_KINDS:
-        out[kind] = dist_steps(inits[kind], dist_rows(kind), kind=kind)
+        out[kind] = dist_steps(inits[kind], dist_rows(kind), kind=kind,
+                               warm_up=False)
         collective_figures(out[kind])
     return out
 
@@ -4250,15 +4750,17 @@ def phase_dist(share_w: dict = None) -> dict:
     # NCCL, beside the same runs in this process
     t0 = time.perf_counter()
     launch = torchrun("chap_tpu_torch.cli.train_2d", [
-        *TRAINER_FLAGS, *DIST_OVERRIDES, "--exp", "nccl1", "--max_iterations", "12"])
+        *TRAINER_FLAGS, *DIST_OVERRIDES, "--exp", "nccl1", "--max_iterations",
+        str(DIST_TRAINER_STEPS)])
     launch3d = torchrun("chap_tpu_torch.cli.train_3d", [
         *TRAINER3D_FLAGS, *DIST3D_OVERRIDES, "--exp", "nccl1_3d",
         "--max_iterations", str(DIST3D_STEPS)])
     try:
         set_tf32(True)
         argv = TRAINER_FLAGS + DIST_OVERRIDES + ["--exp", "w1"]
-        w1 = cli_train.main(argv + ["--max_iterations", "12"])
-        cli_train.main(argv + ["--max_iterations", "18", "--resume"])
+        w1 = cli_train.main(argv + ["--max_iterations", str(DIST_TRAINER_STEPS)])
+        cli_train.main(argv + ["--max_iterations", str(DIST_RESUME_STEPS),
+                               "--resume"])
         w1_3d = cli_train3d.main(TRAINER3D_FLAGS + DIST3D_OVERRIDES + [
             "--exp", "w1_3d", "--max_iterations", str(DIST3D_STEPS)])
         w1_share = share_trainer_run("w1_share")
@@ -4279,7 +4781,8 @@ def phase_dist(share_w: dict = None) -> dict:
         launch, said, os.path.join(DIST_RUNS, "synthetic", "nccl1_7_labeled",
                                    "dualdecoder", "run_0"),
         {r["step"]: r["loss"] for r in w1_records
-         if "loss" in r and r["step"] <= 12}, "(a) torchrun W = 1 cli.train_2d")
+         if "loss" in r and r["step"] <= DIST_TRAINER_STEPS},
+        "(a) torchrun W = 1 cli.train_2d")
     res["a_nccl_w1"] = {"largest_rel_loss_gap": gap_a,
                         "torchrun_s_beside_other_runs": torchrun_s}
     la_labeled = la_config().data.labeled_num
@@ -4331,22 +4834,23 @@ def phase_dist(share_w: dict = None) -> dict:
     # (c): rank 0 picked one run dir and wrote it once; evals as W = 1's
     resumed = ranks[0]["trainer"]["resumed"]
     check(all(got["trainer"]["resumed"] == resumed for got in ranks)
-          and resumed["steps"] == 18
+          and resumed["steps"] == DIST_RESUME_STEPS
           and resumed["save_dir"] == ranks[0]["trainer"]["first"]["save_dir"],
-          f"W = 2 resume continues one run to 18: {resumed}")
+          f"W = 2 resume continues one run to {DIST_RESUME_STEPS}: {resumed}")
     check(os.listdir(os.path.dirname(resumed["save_dir"])) == ["run_0"],
           "W = 2 trainer: one run dir")
     w2_records = _records(resumed["save_dir"])
     check([r["step"] for r in w2_records] == [r["step"] for r in w1_records],
           "W = 2 writes W = 1's records, once")
-    want_launches = {k: v * 18 for k, v in LAUNCHES_PER_STEP.items()}
+    want_launches = {k: v * DIST_RESUME_STEPS for k, v in LAUNCHES_PER_STEP.items()}
     for got in ranks:
         check(got["trainer"]["launches"] == want_launches,
               f"W = 2 trainer launches {got['trainer']['launches']}")
     dice = [{r["step"]: r["val_mean_dice"] for r in records
              if "val_mean_dice" in r} for records in (w1_records, w2_records)]
-    check(sorted(dice[0]) == sorted(dice[1]) == [6, 12, 18],
-          f"evals at 6, 12, 18: {dice}")
+    evals_at = [3, 6, 9]        # eval.eval_every=3 to DIST_RESUME_STEPS
+    check(sorted(dice[0]) == sorted(dice[1]) == evals_at,
+          f"evals at {evals_at}: {dice}")
     dice_gap = max(abs(dice[1][s] - dice[0][s]) for s in dice[0])
     val = [[row.split(",")[1:] for row in
             open(os.path.join(d, "val.csv")).read().splitlines()[1:]]
@@ -4456,6 +4960,14 @@ def loop_breakdown(when: str, rounds: int = 2, n: int = 5) -> dict:
 
 
 def main() -> int:
+    phase_s, t_mark = {}, [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        """The seconds since the last lap, as phase ``name``'s."""
+        now = time.perf_counter()
+        phase_s[name] = now - t_mark[0]
+        t_mark[0] = now
+
     # phase 1: device
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA card")
@@ -4486,6 +4998,7 @@ def main() -> int:
     for b in built.values():
         for kernel, use in ptxas_summary(b["log"]):
             print("ptxas", kernel, use, flush=True)
+    lap("1-2_device_build")
 
     # phase 3: K1
     set_tf32(False)
@@ -4520,37 +5033,49 @@ def main() -> int:
                                 dtype=bf16)}
     # the 2D zoo's single-decoder supervised step (R = 1) on the whole batch
     k1_zoo2d = phase_k1((24, 4, 256, 256), 11, 1, timed=True)
+    lap("3_k1")
     # phase 4: K2
     k2 = phase_k2()
+    lap("4_k2")
     # phase 5: CUDA-against-CPU step parity
     phase_parity()
+    lap("5_parity")
     # phase 6: the slice at full width
     launches, bare_step_ms = phase_slice()
+    lap("6_slice")
     # phase 7: eval parity, card against CPU
     phase_eval_parity()
+    lap("7_eval")
     # phase 8: the trainer through its CLI at full width
     trainer = phase_trainer(bare_step_ms)
     torch.cuda.empty_cache()
+    lap("8_trainer")
     # phases 9-14: the 3D path
     k2_3d = phase_k2_3d()
     k3 = phase_k3()
     k3_brats = phase_k3_brats()
     k3_bf16 = phase_k3_bf16()
+    lap("9-10_k2_3d_k3")
     phase_parity_3d()
     launches_3d, slice_3d, profile_3d = phase_slice_3d()
+    lap("11-12_parity_slice_3d")
     trainer_3d = phase_trainer_3d(slice_3d["median_step_ms"])
     torch.cuda.empty_cache()
+    lap("13_trainer3d")
     # phases 14-17: the ACAL trainer and the ablation step
     phase_parity_share()
     slice_share = phase_slice_share()
+    lap("14-15_acal")
     trainer_share = phase_trainer_share()
     trainer_ablation = phase_trainer_ablation()
     torch.cuda.empty_cache()
+    lap("16-17_trainer_acal_ablation")
     # phases 18-20: the 3D zoo and the BraTS supervised protocol
     phase_parity_zoo3d()
     slice_zoo = phase_slice_zoo3d()
     trainer_zoo = phase_trainer_zoo3d()
     torch.cuda.empty_cache()
+    lap("18-20_zoo3d")
     # phase 21: configs/la_chap.yml, pancreas_chap.yml and
     # brats_supervised.yml as written (bf16)
     slice_bf16 = phase_slice_bf16()
@@ -4558,11 +5083,17 @@ def main() -> int:
     # beside it: the ACAL and ablation paths in bf16 (by override)
     share_bf16 = phase_slice_bf16_share()
     torch.cuda.empty_cache()
+    lap("21_bf16")
     # phase 24: the 2D zoo
     zoo2d = phase_zoo2d()
+    lap("24_zoo2d")
+    # phase 25: the library (models no factory key reaches, convert)
+    library = phase_library()
+    lap("25_library")
     # phase 23: data parallelism (torchrun over NCCL at W = 1, two gloo
     # ranks on the card)
     dist_res = phase_dist(trainer_share.pop("weights"))
+    lap("23_dist")
 
     # phase 22: report
     def trainer_launches(run, name, logits=None):
@@ -4728,8 +5259,16 @@ def main() -> int:
         if row["name"] == "K3_sw":
             row["g_gloo_w2_eval3d_launches_per_rank"] = [
                 r["launches"] for r in dist_res["g_gloo_w2_eval3d"]["per_rank"]]
+    # phase 25's cli.test_3d runs (--nms 1) of the converted LA snapshots
+    for row in kernels:
+        if row["name"] in ("K2_ccl3d", "K3_sw"):
+            row["library_test3d_launches"] = library["convert"]["launches_test3d"][
+                row["name"]]
     for row in kernels:
         check(row["launches"] > 0, f"{row['name']} launched on its main path")
+    lap("22_report")
+    phase_s["total"] = sum(phase_s.values())
+    print("phase_s", json.dumps(phase_s), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
