@@ -16,8 +16,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from chap_tpu_torch.models.layers import (BatchNorm2d, Conv2d, Conv3d, Stats,
-                                          set_stats_keys)
+from chap_tpu_torch.models.layers import (BatchNorm2d, Conv2d, Conv3d, Linear,
+                                          Stats, set_stats_keys)
 
 
 class SqEx(nn.Module):
@@ -27,8 +27,8 @@ class SqEx(nn.Module):
 
     def __init__(self, n_features: int, reduction: int = 16):
         super().__init__()
-        self.linear1 = nn.Linear(n_features, n_features // reduction)
-        self.linear2 = nn.Linear(n_features // reduction, n_features)
+        self.linear1 = Linear(n_features, n_features // reduction)
+        self.linear2 = Linear(n_features // reduction, n_features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         s = x.mean(dim=tuple(range(2, x.dim())))

@@ -13,7 +13,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from chap_tpu_torch.models.layers import Conv2d, Conv3d
+from chap_tpu_torch.models.layers import Conv2d, Conv3d, Linear
 
 
 class FC3DDiscriminator(nn.Module):
@@ -27,7 +27,7 @@ class FC3DDiscriminator(nn.Module):
         self.conv2 = Conv3d(ndf, ndf * 2, 4, 2, padding=1)
         self.conv3 = Conv3d(ndf * 2, ndf * 4, 4, 2, padding=1)
         self.conv4 = Conv3d(ndf * 4, ndf * 8, 4, 2, padding=1)
-        self.classifier = nn.Linear(ndf * 8, 2)
+        self.classifier = Linear(ndf * 8, 2)
 
     def forward(self, seg_map: torch.Tensor, image: torch.Tensor) -> torch.Tensor:
         h = F.leaky_relu(self.conv0(seg_map) + self.conv1(image), 0.2)

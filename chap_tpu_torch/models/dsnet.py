@@ -11,7 +11,10 @@ The cross-attention is the same einsums as chap_tpu's, as matmuls; it was
 never a kernel. Dropout: each student's encoder (five draws) and, per
 attention module, the attention map, the projection and the feed-forward's
 two, 18 uniforms in chap_tpu's call order (``dropout_shapes``). Dense and
-LayerNorm carry Flax's semantics (LayerNorm epsilon 1e-6).
+LayerNorm carry Flax's semantics (LayerNorm epsilon 1e-6), also in bf16
+(models/layers.py): the attention's scores and softmax stay in the compute
+dtype, and the residual with the float32 proxy queries is float32 until
+the feed-forward's Dense casts back, as in chap_tpu (dsnet.py:56-69).
 """
 from __future__ import annotations
 
@@ -21,8 +24,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from chap_tpu_torch.models.layers import (BatchNorm2d, Conv2d, Stats,
-                                          dropout_from_uniform, set_stats_keys,
+from chap_tpu_torch.models.layers import (BatchNorm2d, Conv2d, LayerNorm,
+                                          Linear, Stats, dropout_from_uniform,
+                                          matmul, set_stats_keys, softmax,
                                           split_drop_u)
 from chap_tpu_torch.models.unet2d import UNet
 
@@ -35,8 +39,8 @@ class FFN(nn.Module):
 
     def __init__(self, dim: int, hidden: int):
         super().__init__()
-        self.fc1 = nn.Linear(dim, hidden)
-        self.fc2 = nn.Linear(hidden, dim)
+        self.fc1 = Linear(dim, hidden)
+        self.fc2 = Linear(hidden, dim)
 
     def forward(self, x, u1=None, u2=None):
         h = F.relu(self.fc1(x))
@@ -56,12 +60,12 @@ class MyCrossAttention(nn.Module):
     def __init__(self, dim: int, num_heads: int = 2):
         super().__init__()
         self.dim, self.num_heads = dim, num_heads
-        self.q_fc = nn.Linear(dim, dim, bias=False)
-        self.k_fc = nn.Linear(dim, dim, bias=False)
-        self.v_fc = nn.Linear(dim, dim, bias=False)
-        self.proj = nn.Linear(dim, dim, bias=False)
+        self.q_fc = Linear(dim, dim, bias=False)
+        self.k_fc = Linear(dim, dim, bias=False)
+        self.v_fc = Linear(dim, dim, bias=False)
+        self.proj = Linear(dim, dim, bias=False)
         self.ffn = FFN(dim, 3 * dim)
-        self.norm = nn.LayerNorm(dim, eps=FLAX_LN_EPS)
+        self.norm = LayerNorm(dim, eps=FLAX_LN_EPS)
 
     def dropout_shapes(self, rows: int, n: int, tokens: int) -> list:
         """[attention [rows, heads, n, S], projection [rows, n, c], the
@@ -83,15 +87,14 @@ class MyCrossAttention(nn.Module):
 
         q, k, v = (heads(self.q_fc(q_ori)), heads(self.k_fc(supp_feat)),
                    heads(self.v_fc(supp_feat)))
-        attn = torch.softmax(torch.matmul(q, k.transpose(-1, -2)) * hd ** -0.5,
-                             dim=-1)
+        attn = softmax(matmul(q, k.transpose(-1, -2)) * hd ** -0.5, -1)
         if self.training:
             attn = dropout_from_uniform(attn, ATT_DROPOUT, u[0])
-        x = torch.matmul(attn, v).transpose(1, 2).reshape(b, n, c)
+        x = matmul(attn, v).transpose(1, 2).reshape(b, n, c)
         x = self.proj(x)
         if self.training:
             x = dropout_from_uniform(x, ATT_DROPOUT, u[1])
-        x = self.ffn(x + q_ori, u[2], u[3])
+        x = self.ffn(x + q_ori, u[2], u[3])     # float32 until the Dense
         return self.norm(x), attn.mean(dim=1)
 
 
@@ -101,8 +104,8 @@ class CLUBMean(nn.Module):
 
     def __init__(self, x_dim: int, y_dim: int, hidden: int = 512):
         super().__init__()
-        self.fc1 = nn.Linear(x_dim, hidden)
-        self.fc2 = nn.Linear(hidden, y_dim)
+        self.fc1 = Linear(x_dim, hidden)
+        self.fc2 = Linear(hidden, y_dim)
 
     def mu(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(F.relu(self.fc1(x)))

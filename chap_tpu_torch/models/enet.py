@@ -14,7 +14,11 @@ channel) kept where u < 1 - p; its uniforms [B, C, 1, 1] come in as
 The head is Flax's ConvTranspose((3, 3), strides 2, padding "SAME"), whose
 dilated input is padded 2 before and 1 after each axis; PyTorch's
 transposed conv pads alike on both sides, so the head runs at padding 0
-(2 and 2) and drops the last row and column. Flax's PReLU has one slope.
+(2 and 2) and drops the last row and column. Flax's PReLU has one slope,
+and keeps its input's dtype (models/layers.py). In bf16 the initial
+block concatenates the bf16 conv output with the max pool of the input in
+the input's dtype, so a float32 input makes the concatenation float32, as
+jnp.concatenate promotes (its BatchNorm casts back).
 chap_tpu has no converter rules for ENet; the names here are the port's.
 """
 from __future__ import annotations
@@ -26,7 +30,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from chap_tpu_torch.models.layers import (BatchNorm2d, Conv2d, ConvTranspose2d,
-                                          Stats, set_stats_keys, split_drop_u)
+                                          PReLU, Stats, set_stats_keys,
+                                          split_drop_u)
 
 
 def spatial_dropout(h: torch.Tensor, p: float, u: Optional[torch.Tensor]
@@ -47,7 +52,7 @@ class InitialBlock(nn.Module):
         self.conv = Conv2d(in_channels, out_channels - in_channels, 3, 2,
                            padding=1, bias=False)
         self.bn = BatchNorm2d(out_channels)
-        self.prelu = nn.PReLU()
+        self.prelu = PReLU()
 
     def forward(self, x: torch.Tensor, stats: Optional[Stats] = None):
         out = torch.cat([self.conv(x), F.max_pool2d(x, 2)], dim=1)
@@ -80,7 +85,7 @@ class RegularBottleneck(_Bottleneck):
         self.asymmetric = asymmetric
         self.conv1 = Conv2d(channels, inter, 1, bias=False)
         self.bn1 = BatchNorm2d(inter)
-        self.prelu1 = nn.PReLU()
+        self.prelu1 = PReLU()
         if asymmetric:
             self.conv2 = Conv2d(inter, inter, (5, 1), padding=(2, 0), bias=False)
             self.conv2b = Conv2d(inter, inter, (1, 5), padding=(0, 2), bias=False)
@@ -88,10 +93,10 @@ class RegularBottleneck(_Bottleneck):
             self.conv2 = Conv2d(inter, inter, 3, padding=dilation,
                                 dilation=dilation, bias=False)
         self.bn2 = BatchNorm2d(inter)
-        self.prelu2 = nn.PReLU()
+        self.prelu2 = PReLU()
         self.conv3 = Conv2d(inter, channels, 1, bias=False)
         self.bn3 = BatchNorm2d(channels)
-        self.prelu_out = nn.PReLU()
+        self.prelu_out = PReLU()
 
     def forward(self, x, stats=None, u=None):
         h = self.prelu1(self.bn1(self.conv1(x), stats))
@@ -115,13 +120,13 @@ class DownsamplingBottleneck(_Bottleneck):
         self.pad = out_channels - in_channels
         self.conv1 = Conv2d(in_channels, inter, 2, 2, bias=False)
         self.bn1 = BatchNorm2d(inter)
-        self.prelu1 = nn.PReLU()
+        self.prelu1 = PReLU()
         self.conv2 = Conv2d(inter, inter, 3, padding=1, bias=False)
         self.bn2 = BatchNorm2d(inter)
-        self.prelu2 = nn.PReLU()
+        self.prelu2 = PReLU()
         self.conv3 = Conv2d(inter, out_channels, 1, bias=False)
         self.bn3 = BatchNorm2d(out_channels)
-        self.prelu_out = nn.PReLU()
+        self.prelu_out = PReLU()
 
     def forward(self, x, stats=None, u=None) -> Tuple[torch.Tensor, torch.Tensor]:
         main, indices = F.max_pool2d(x, 2, return_indices=True)
@@ -145,13 +150,13 @@ class UpsamplingBottleneck(_Bottleneck):
         self.main_bn = BatchNorm2d(out_channels)
         self.conv1 = Conv2d(in_channels, inter, 1, bias=False)
         self.bn1 = BatchNorm2d(inter)
-        self.prelu1 = nn.PReLU()
+        self.prelu1 = PReLU()
         self.deconv = ConvTranspose2d(inter, inter, 2, 2, bias=False)
         self.bn2 = BatchNorm2d(inter)
-        self.prelu2 = nn.PReLU()
+        self.prelu2 = PReLU()
         self.conv3 = Conv2d(inter, out_channels, 1, bias=False)
         self.bn3 = BatchNorm2d(out_channels)
-        self.prelu_out = nn.PReLU()
+        self.prelu_out = PReLU()
 
     def forward(self, x, indices, stats=None, u=None):
         main = self.main_bn(self.main_conv(x), stats)

@@ -8,6 +8,12 @@ MLP discriminator (the gradient reversal is models/grl.py); TinyUNet3D
 (:457-532) is a 3-scale 3D UNet that adds softmax maps of two coarser
 scales in train mode.
 
+In bf16 (models/layers.py) UNetTsne's two heads stay float32: chap_tpu
+builds them as nn.Dense(32) without a dtype (extras.py:31-32), which
+computes in float32 over its float32 kernel, so they are
+``Linear(promote=True)`` here and a bf16 feature comes out float32.
+TinyUNet3D's softmax maps are bf16, rounded step by step as JAX's.
+
 Names: the UNet's (``encoder`` / ``decoder1``, under ``backbone`` in
 UNetTsne), the heads' Sequential indices, NetD's ``fc1``-``fc3``
 (chap_tpu's Dense_0-2), and chap_tpu's TinyUNet3D names (``enc1_conv``
@@ -21,8 +27,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from chap_tpu_torch.models.layers import (BatchNorm3d, Conv3d, Stats,
-                                          set_stats_keys, upsample2x_trilinear)
+from chap_tpu_torch.models.layers import (BatchNorm3d, Conv3d, Linear, Stats,
+                                          set_stats_keys, softmax,
+                                          upsample2x_trilinear)
 from chap_tpu_torch.models.unet2d import DEFAULT_CHNS, UNet
 
 
@@ -31,7 +38,9 @@ class UNet2dBCP(UNet):
 
 
 def _mlp_head(in_features: int) -> nn.Sequential:
-    return nn.Sequential(nn.Linear(in_features, 32), nn.ReLU(), nn.Linear(32, 32))
+    """nn.Dense(32), ReLU, nn.Dense(32), without a dtype: float32."""
+    return nn.Sequential(Linear(in_features, 32, promote=True), nn.ReLU(),
+                         Linear(32, 32, promote=True))
 
 
 class UNetTsne(nn.Module):
@@ -67,9 +76,9 @@ class NetD(nn.Module):
 
     def __init__(self, total_dim: int):
         super().__init__()
-        self.fc1 = nn.Linear(total_dim, total_dim // 2)
-        self.fc2 = nn.Linear(total_dim // 2, total_dim // 4)
-        self.fc3 = nn.Linear(total_dim // 4, 1)
+        self.fc1 = Linear(total_dim, total_dim // 2)
+        self.fc2 = Linear(total_dim // 2, total_dim // 4)
+        self.fc3 = Linear(total_dim // 4, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = torch.tanh(self.fc1(x.reshape(1, -1)))
@@ -107,6 +116,5 @@ class TinyUNet3D(nn.Module):
         d1 = self._block("dec1", torch.cat([upsample2x_trilinear(d2), e1], 1), stats)
         out = self.out(d1)
         if self.training:
-            return out, (torch.softmax(self.ms2(d2), 1),
-                         torch.softmax(self.ms3(e3), 1))
+            return out, (softmax(self.ms2(d2), 1), softmax(self.ms3(e3), 1))
         return out

@@ -3,14 +3,11 @@ with every 2D key and ``net_factory_3d`` with every 3D key, each with
 chap_tpu's constructor arguments.
 
 ``model.dtype`` is the compute dtype, float32 or bfloat16, as chap_tpu's
-``_dtype`` (factory.py:28-29) reads it: the parameters stay float32, and
-every convolution and norm computes in the compute dtype
-(models/layers.py says op by op what that means). In 2D the port computes
-bf16 for the keys built from the UNet encoder and decoders (``BF16_2D_KEYS``:
-``unet``, ``unetp``, ``dualdecoder`` / ``acalnet``, ``unet_cct``,
-``unet_urpc``); the rest of the 2D zoo runs in float32 (its Dense,
-LayerNorm and PReLU layers have no bf16 semantics here yet) and refuses
-bfloat16.
+``_dtype`` (factory.py:28-29) reads it, for every key of both factories:
+the parameters stay float32, and every convolution, dense layer, norm and
+attention computes in the compute dtype (models/layers.py says op by op
+what that means; the model files say where chap_tpu's own modules compute
+in float32 under bf16, and the port with them).
 """
 from __future__ import annotations
 
@@ -43,11 +40,6 @@ logger = logging.getLogger(__name__)
 # chap_tpu's exact TPU relayouts of the VNet convolutions (ops/s2d.py)
 _TPU_LAYOUT_FLAGS = ("s2d_stem", "s2d_stage2", "zpack_stage2")
 _logged_flags = set()
-# the 2D keys that compute in bf16 under model.dtype=bfloat16: the UNet
-# family, whose convolutions, BatchNorm, dropout and perturbations have
-# chap_tpu's bf16 semantics
-BF16_2D_KEYS = ("unet", "unetp", "dualdecoder", "acalnet", "unet_cct",
-                "unet_urpc")
 
 
 def net_factory(net_type: str, in_chns: int, class_num: int,
@@ -87,10 +79,6 @@ def net_factory(net_type: str, in_chns: int, class_num: int,
     if net_type not in builders:
         raise ValueError(f"unknown 2D net_type {net_type!r} (one of "
                          f"{', '.join(builders)})")
-    if dtype != torch.float32 and net_type not in BF16_2D_KEYS:
-        raise ValueError(f"model.dtype={cfg.dtype} is ported for the 2D keys "
-                         f"{', '.join(BF16_2D_KEYS)}; {net_type!r} runs in "
-                         f"float32")
     return set_compute_dtype(builders[net_type](), dtype).to(dev)
 
 

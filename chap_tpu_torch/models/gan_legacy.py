@@ -16,7 +16,8 @@ NCHW, with the reference's names (the CycleGAN ``model`` Sequentials and
 their indices; ResnetBlock's ``conv_block``). ``norm`` is ``batchnorm``
 (Flax-semantics BatchNorm2d, models/layers.py) or ``instancenorm`` (no
 parameters; Flax's affine-free GroupNorm of one channel a group, epsilon
-1e-6), which turns the conv biases on, as the reference's use_bias.
+1e-6, with its float32 statistics in bf16), which turns the conv biases
+on, as the reference's use_bias.
 
 Two departures of chap_tpu from the reference, kept here since chap_tpu is
 what the port is held to: its "SAME" 3x3 stride-2 transposed convs of
@@ -36,8 +37,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from chap_tpu_torch.models.layers import (BatchNorm2d, Conv2d, ConvTranspose2d,
-                                          FlaxBatchNorm, Stats, dropout_from_uniform,
-                                          instance_norm, set_stats_keys)
+                                          FlaxBatchNorm, GroupNorm, Stats,
+                                          dropout_from_uniform, set_stats_keys)
 
 GAN_IN_EPS = 1e-6     # Flax GroupNorm's default epsilon
 
@@ -68,16 +69,11 @@ class GANLoss:
                         self.fake_label)
 
 
-class _InstanceNorm(nn.Module):
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return instance_norm(x, GAN_IN_EPS)
-
-
 def _norm(norm: str, channels: int) -> nn.Module:
     if norm == "batchnorm":
         return BatchNorm2d(channels)
     if norm == "instancenorm":
-        return _InstanceNorm()
+        return GroupNorm(channels, channels, eps=GAN_IN_EPS, affine=False)
     raise ValueError(f"unknown norm {norm!r}")
 
 

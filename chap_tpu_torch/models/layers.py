@@ -23,13 +23,39 @@ a float32 copy of the input, its output cast to the compute dtype (Flax's
 ``jnp.mean`` / ``jnp.var`` of a bf16 input, which come back in bf16, and
 normalise in bf16 (``instance_norm``); the align-corners up-sampling builds
 its interpolation weights in the input's dtype, the half-pixel resize in
-float32 rounded to it (``upsample2x_*``, ``resize_linear``). Every other op
-runs in its inputs' dtype, as in JAX. ``set_compute_dtype`` sets the dtype
-of a built model (models/factory.py calls it); float32 is the default, and
-at float32 nothing is cast: the model runs in its parameters' dtype (also
-float64, as the tests' float64 references do), PyTorch's own path.
-Softmax and log-softmax of a bf16 tensor round step by step as JAX's do
-(``softmax``, ``log_softmax``).
+float32 rounded to it (``upsample2x_*``, ``resize_linear``). The dense
+layers follow the same rules as the convolutions: ``Linear`` casts input,
+kernel and bias to the compute dtype (nn.Dense(dtype=)), and a ``Linear``
+built with ``promote=True`` is Flax's nn.Dense without a dtype, which
+computes in the promotion of its input's and kernel's dtypes, so float32
+over float32 parameters whatever the model's compute dtype (it does not
+follow ``set_compute_dtype``). ``LayerNorm`` is Flax's nn.LayerNorm(dtype=)
+as the norms above are: F.layer_norm of a float32 copy (its statistics,
+normalisation and affine in float32), the output cast to the compute
+dtype; Flax's one-pass variance E[x^2] - E[x]^2 and PyTorch's two-pass one
+differ at float32 precision, below the output's bf16 rounding. ``PReLU`` is Flax's
+nn.PReLU, which has no dtype: its float32 slope is cast to the input's
+dtype and the output keeps it. ``MultiHeadDotProductAttention`` is Flax's
+module of that name: q, k and v in the compute dtype, the query divided
+by sqrt(head_dim) rounded to it, the softmax in it (at float32 PyTorch's
+fused attention). Matrix products of
+activations (``matmul``) take their operands' dtype; JAX promotes mixed
+operands, which the callers cast to by hand (torch.matmul refuses mixed
+dtypes). On the CPU a bf16 product (``matmul``, ``Linear``) is the float32
+product of the bf16 operands rounded once, as the convolutions' are (a
+convolution's bias is added after, a Linear's inside: ``_cast_conv``), the
+card's rule. A Linear's bias inside the float32 sum departs from Flax's
+nn.Dense, which rounds the bf16 product and then adds the bf16 bias in
+bf16: the port follows the card's GEMM epilogue, one bf16 rounding from
+chap_tpu. PyTorch's own bf16 CPU matmul also accumulates in float32
+and rounds once; both differ from XLA's CPU dot only by summation order,
+in a small share of the elements. Every other op runs in its inputs' dtype,
+as in JAX (a bf16 tensor plus a float32 one is float32 in both).
+``set_compute_dtype`` sets the dtype of a built model (models/factory.py
+calls it); float32 is the default, and at float32 nothing is cast: the
+model runs in its parameters' dtype (also float64, as the tests' float64
+references do), PyTorch's own path. Softmax and log-softmax of a bf16
+tensor round step by step as JAX's do (``softmax``, ``log_softmax``).
 """
 from __future__ import annotations
 
@@ -88,33 +114,56 @@ def log_softmax(x: torch.Tensor, dim: int) -> torch.Tensor:
 
 class _ComputeDtype:
     """Mixin of the modules whose forward follows the model's compute dtype
-    (an attribute that ``set_compute_dtype`` sets; float32 by default)."""
+    (an attribute that ``set_compute_dtype`` sets; float32 by default). A
+    module whose ``follows_model`` is False keeps float32."""
 
     compute_dtype: torch.dtype = torch.float32
+    follows_model: bool = True
 
 
 def set_compute_dtype(model: nn.Module, dtype: torch.dtype) -> nn.Module:
-    """Make every convolution and norm of ``model`` compute in ``dtype``
-    over its float32 parameters (the module docstring says how); returns
-    the model. ``model.compute_dtype`` records it."""
+    """Make every convolution, dense layer, norm and attention of ``model``
+    compute in ``dtype`` over its float32 parameters (the module docstring
+    says how); returns the model. ``model.compute_dtype`` records it."""
     if dtype not in COMPUTE_DTYPES.values():
         raise ValueError(f"compute dtype {dtype} is not float32 or bfloat16")
     for module in model.modules():
-        if isinstance(module, _ComputeDtype):
+        if isinstance(module, _ComputeDtype) and module.follows_model:
             module.compute_dtype = dtype
     model.compute_dtype = dtype
     return model
 
 
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of two activations of one dtype (JAX's einsum of them). On
+    the CPU a bf16 product is the float32 product rounded once (the
+    module docstring says why); elsewhere PyTorch's own."""
+    if reduced_dtype(a.dtype) and a.device.type == "cpu":
+        return (a.float() @ b.float()).to(a.dtype)
+    return a @ b
+
+
+def scale_in(dtype: torch.dtype, value: float) -> float:
+    """``value`` rounded to ``dtype``, as ``jnp.asarray(value).astype(dtype)``
+    makes a constant that a tensor of ``dtype`` is divided by."""
+    return float(torch.tensor(value, dtype=torch.float64).to(dtype))
+
+
 def _cast_conv(conv, x: torch.Tensor, weight: torch.Tensor,
-               bias: Optional[torch.Tensor], dt: torch.dtype) -> torch.Tensor:
+               bias: Optional[torch.Tensor], dt: torch.dtype,
+               bias_inside: bool = False) -> torch.Tensor:
     """``conv(x, weight, bias)`` with all three cast to ``dt``, the output
-    in ``dt``. On the CPU in bf16 the same product of the bf16 operands is
-    taken in float32 and rounded once, which is what the card's bf16
-    convolution computes (float32 accumulation): oneDNN's own bf16
-    convolution gives wrong sums for some strided shapes (a [2, 32, 6, 4,
-    2] input, 3^3 kernel, stride 2, padding 1 comes out 7.6 off at a scale
-    of 6.6 with torch 2.13's CPU build)."""
+    in ``dt``. On the CPU in bf16 the product of the bf16 operands is taken
+    in float32 and rounded once, and the bf16 bias is then added in bf16
+    (rounded again): what the card's bf16 convolution computes (float32
+    accumulation; PyTorch adds a cuDNN convolution's bias after it, as
+    Flax's nn.Conv adds its bias to the bf16 product); chip_smoke.py's
+    ``bf16_products`` check holds this to the card's product. ``bias_inside``:
+    the bias joins the float32 accumulation and the sum is rounded once, as
+    the card's bf16 GEMM adds a Linear's bias in its epilogue. Not
+    oneDNN's own bf16 convolution: it gives wrong sums for some strided
+    shapes (a [2, 32, 6, 4, 2] input, 3^3 kernel, stride 2, padding 1 comes
+    out 7.6 off at a scale of 6.6 with torch 2.13's CPU build)."""
     if not reduced_dtype(dt):
         # a float32 model takes reduced-precision input in its own dtype, as
         # Flax's nn.Conv(dtype=float32) promotes it
@@ -123,8 +172,11 @@ def _cast_conv(conv, x: torch.Tensor, weight: torch.Tensor,
     bias = None if bias is None else bias.to(dt)
     if x.device.type != "cpu":
         return conv(x, weight, bias)
-    return conv(x.float(), weight.float(),
-                None if bias is None else bias.float()).to(dt)
+    if bias is None or bias_inside:
+        return conv(x.float(), weight.float(),
+                    None if bias is None else bias.float()).to(dt)
+    y = conv(x.float(), weight.float(), None).to(dt)
+    return y + bias.view((1, -1) + (1,) * (y.dim() - 2))
 
 
 class _CastConv(_ComputeDtype):
@@ -132,9 +184,11 @@ class _CastConv(_ComputeDtype):
     (Flax nn.Conv(dtype=) / nn.ConvTranspose(dtype=)), so the gradient
     reaches the float32 kernel."""
 
+    bias_inside = False
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return _cast_conv(self._apply_conv, x, self.weight, self.bias,
-                          self.compute_dtype)
+                          self.compute_dtype, self.bias_inside)
 
 
 class Conv2d(_CastConv, nn.Conv2d):
@@ -159,6 +213,91 @@ class ConvTranspose3d(_CastConv, nn.ConvTranspose3d):
         return F.conv_transpose3d(x, weight, bias, self.stride, self.padding,
                                   self.output_padding, self.groups,
                                   self.dilation)
+
+
+class Linear(_CastConv, nn.Linear):
+    """nn.Linear as Flax's nn.Dense(dtype=): input, kernel and bias cast to
+    the compute dtype, the output in it; on the card a bf16 GEMM with
+    float32 accumulation. The bias joins the float32 sum before the one
+    rounding (``bias_inside``), as the card's GEMM epilogue adds it; Flax
+    rounds the product first and adds the bias in bf16, one rounding
+    apart. ``promote=True``: nn.Dense without a dtype, the
+    layer computes in its parameters' dtype whatever the model's (a bf16
+    input is promoted to float32)."""
+
+    bias_inside = True
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 promote: bool = False):
+        super().__init__(in_features, out_features, bias)
+        self.follows_model = not promote
+
+    def _apply_conv(self, x, weight, bias):
+        return F.linear(x, weight, bias)
+
+
+class LayerNorm(_ComputeDtype, nn.LayerNorm):
+    """nn.LayerNorm over the last axis as Flax's nn.LayerNorm(dtype=): in
+    the parameters' dtype, the output in the compute dtype where that is
+    reduced (the module docstring); ``eps`` is the caller's (Flax's default
+    1e-6, Swin's 1e-5)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.weight.dtype
+        y = F.layer_norm(x.to(dt), self.normalized_shape, self.weight,
+                         self.bias, self.eps)
+        return y.to(self.compute_dtype) if reduced_dtype(self.compute_dtype) else y
+
+
+class PReLU(nn.PReLU):
+    """Flax's nn.PReLU, one float32 slope: where(x >= 0, x, slope * x) with
+    the slope cast to x's dtype, so the output keeps x's dtype (F.prelu
+    rounds the product once, as JAX's multiply does)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.prelu(x, self.weight.to(x.dtype))
+
+
+class MultiHeadDotProductAttention(_ComputeDtype, nn.Module):
+    """Flax's nn.MultiHeadDotProductAttention(num_heads, qkv_features=dim,
+    dtype=) without mask or dropout, over nn.MultiheadAttention's
+    parameters (``in_proj_weight`` / ``in_proj_bias``, the q, k, v rows
+    stacked, and ``out_proj``): q, k and v projected in the compute dtype,
+    the query divided by sqrt(head_dim) rounded to it, the scores and their
+    softmax in it (``force_fp32_for_softmax`` is False), the output
+    projection in it. At float32 the attention is PyTorch's fused one
+    (F.scaled_dot_product_attention, as nn.MultiheadAttention runs it):
+    the same products in float32, one kernel a pass where the composition
+    takes five. forward(q_in, k_in, v_in [B, L, dim]) -> [B, Lq, dim]."""
+
+    def __init__(self, dim: int, num_heads: int):
+        super().__init__()
+        self.num_heads = num_heads
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * dim, dim))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * dim))
+        self.out_proj = Linear(dim, dim)
+        nn.init.xavier_uniform_(self.in_proj_weight)
+        nn.init.zeros_(self.out_proj.bias)
+
+    def forward(self, q_in: torch.Tensor, k_in: torch.Tensor,
+                v_in: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        b, n, dim = q_in.shape
+        hd = dim // self.num_heads
+
+        def project(t, i):
+            w = self.in_proj_weight[i * dim:(i + 1) * dim]
+            t = _cast_conv(F.linear, t, w, self.in_proj_bias[i * dim:(i + 1) * dim],
+                           dt, bias_inside=True)
+            return t.reshape(b, t.shape[1], self.num_heads, hd).transpose(1, 2)
+
+        q, k, v = project(q_in, 0), project(k_in, 1), project(v_in, 2)
+        if reduced_dtype(dt):
+            q = q / scale_in(dt, float(np.sqrt(hd)))
+            out = matmul(softmax(matmul(q, k.transpose(-1, -2)), -1), v)
+        else:
+            out = F.scaled_dot_product_attention(q, k, v)
+        return self.out_proj(out.transpose(1, 2).reshape(b, n, dim))
 
 
 @functools.lru_cache(maxsize=None)

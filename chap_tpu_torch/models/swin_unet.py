@@ -14,7 +14,11 @@ chap_tpu swin_unet.py:303 does. A one-channel input is repeated to three
 (chap_tpu's einsums, swin_unet.py:60,76); it was never a kernel. The
 shifted-window masks are built once per resolution on the host at
 construction. Flax semantics kept: Dense's GELU is the tanh approximation,
-LayerNorm's epsilon 1e-5.
+LayerNorm's epsilon 1e-5. In bf16 (models/layers.py) the window
+attention promotes as chap_tpu's (swin_unet.py:57-78): the scores are
+bf16, the float32 relative-position bias and shift mask make them float32,
+the softmax and the product with the bf16 values are float32, and only
+``proj`` casts back to bf16.
 
 Module names are the reference's SwinTransformerSys names that chap_tpu's
 ``swinunet_rules`` spell out (convert/torch_import.py:214-263):
@@ -32,7 +36,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from chap_tpu_torch.models.layers import Conv2d, Stats
+from chap_tpu_torch.models.layers import (Conv2d, LayerNorm, Linear, Stats,
+                                          matmul)
 
 LN_EPS = 1e-5
 
@@ -80,8 +85,8 @@ class WindowAttention(nn.Module):
         super().__init__()
         self.num_heads = num_heads
         self.scale = (dim // num_heads) ** -0.5
-        self.qkv = nn.Linear(dim, 3 * dim)
-        self.proj = nn.Linear(dim, dim)
+        self.qkv = Linear(dim, 3 * dim)
+        self.proj = Linear(dim, dim)
         self.relative_position_bias_table = nn.Parameter(
             torch.zeros((2 * window_size - 1) ** 2, num_heads))
         nn.init.trunc_normal_(self.relative_position_bias_table, std=0.02)
@@ -93,22 +98,24 @@ class WindowAttention(nn.Module):
         hd = c // self.num_heads
         qkv = self.qkv(x).reshape(b_, n, 3, self.num_heads, hd).permute(2, 0, 3, 1, 4)
         q, k, v = qkv[0] * self.scale, qkv[1], qkv[2]
-        attn = torch.matmul(q, k.transpose(-1, -2))
+        attn = matmul(q, k.transpose(-1, -2))
         bias = self.relative_position_bias_table[self.relative_position_index]
+        # the float32 bias promotes bf16 scores to float32, as in JAX
         attn = attn + bias.reshape(n, n, -1).permute(2, 0, 1)[None]
         if mask is not None:
             nw = mask.shape[0]
             attn = (attn.reshape(b_ // nw, nw, self.num_heads, n, n)
                     + mask[None, :, None]).reshape(-1, self.num_heads, n, n)
-        out = torch.matmul(torch.softmax(attn, dim=-1), v)
+        attn = torch.softmax(attn, dim=-1)
+        out = matmul(attn, v.to(attn.dtype))
         return self.proj(out.transpose(1, 2).reshape(b_, n, c))
 
 
 class Mlp(nn.Module):
     def __init__(self, dim: int, hidden: int):
         super().__init__()
-        self.fc1 = nn.Linear(dim, hidden)
-        self.fc2 = nn.Linear(hidden, dim)
+        self.fc1 = Linear(dim, hidden)
+        self.fc2 = Linear(hidden, dim)
 
     def forward(self, x):
         return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
@@ -127,9 +134,9 @@ class SwinBlock(nn.Module):
         if min(h, w) <= window_size:
             window_size, shift_size = min(h, w), 0
         self.resolution, self.ws, self.shift = (h, w), window_size, shift_size
-        self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
+        self.norm1 = LayerNorm(dim, eps=LN_EPS)
         self.attn = WindowAttention(dim, window_size, num_heads)
-        self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
+        self.norm2 = LayerNorm(dim, eps=LN_EPS)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
         mask = (torch.from_numpy(shift_attn_mask(h, w, window_size, shift_size))
                 if shift_size > 0 else None)
@@ -156,8 +163,8 @@ class PatchMerging(nn.Module):
     def __init__(self, dim: int, resolution: Tuple[int, int]):
         super().__init__()
         self.resolution = resolution
-        self.norm = nn.LayerNorm(4 * dim, eps=LN_EPS)
-        self.reduction = nn.Linear(4 * dim, 2 * dim, bias=False)
+        self.norm = LayerNorm(4 * dim, eps=LN_EPS)
+        self.reduction = Linear(4 * dim, 2 * dim, bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h, w = self.resolution
@@ -179,8 +186,8 @@ class PatchExpand(nn.Module):
         super().__init__()
         self.resolution, self.scale = resolution, scale
         self.out_dim = dim // 2 if out_dim is None else out_dim
-        self.expand = nn.Linear(dim, scale * scale * self.out_dim, bias=False)
-        self.norm = nn.LayerNorm(self.out_dim, eps=LN_EPS)
+        self.expand = Linear(dim, scale * scale * self.out_dim, bias=False)
+        self.norm = LayerNorm(self.out_dim, eps=LN_EPS)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h, w = self.resolution
@@ -216,7 +223,7 @@ class PatchEmbed(nn.Module):
     def __init__(self, in_chns: int, embed_dim: int, patch_size: int):
         super().__init__()
         self.proj = Conv2d(in_chns, embed_dim, patch_size, patch_size)
-        self.norm = nn.LayerNorm(embed_dim, eps=LN_EPS)
+        self.norm = LayerNorm(embed_dim, eps=LN_EPS)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.norm(self.proj(x).flatten(2).transpose(1, 2))
@@ -241,7 +248,7 @@ class SwinUNet(nn.Module):
             BasicLayer(embed_dim * 2 ** i, depths[i], num_heads[i], res0 >> i,
                        window_size, "down" if i < n - 1 else None)
             for i in range(n))
-        self.norm = nn.LayerNorm(embed_dim * 2 ** (n - 1), eps=LN_EPS)
+        self.norm = LayerNorm(embed_dim * 2 ** (n - 1), eps=LN_EPS)
         layers_up = [PatchExpand(embed_dim * 2 ** (n - 1), (res0 >> (n - 1),) * 2)]
         concat = [nn.Identity()]
         for j in range(1, n):
@@ -249,10 +256,10 @@ class SwinUNet(nn.Module):
             dim = embed_dim * 2 ** i
             layers_up.append(BasicLayer(dim, depths[i], num_heads[i], res0 >> i,
                                         window_size, "up" if j < n - 1 else None))
-            concat.append(nn.Linear(2 * dim, dim))
+            concat.append(Linear(2 * dim, dim))
         self.layers_up = nn.ModuleList(layers_up)
         self.concat_back_dim = nn.ModuleList(concat)
-        self.norm_up = nn.LayerNorm(embed_dim, eps=LN_EPS)
+        self.norm_up = LayerNorm(embed_dim, eps=LN_EPS)
         self.up = PatchExpand(embed_dim, (res0, res0), 4, embed_dim)
         self.output = Conv2d(embed_dim, num_classes, 1, bias=False)
 

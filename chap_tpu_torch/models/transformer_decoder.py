@@ -24,7 +24,21 @@ default). Names follow mask2former's decoder (``input_proj.{i}``,
 ``decoder_norm``, ``class_embed``, ``mask_embed.layers.{i}``,
 ``seg_head_layers.{l}``); inside the layers chap_tpu's (``q``, ``k``,
 ``v``, ``proj``, ``norm``; ``linear1`` / ``linear2`` / ``norm``; the
-self-attention is nn.MultiheadAttention, as mask2former's).
+self-attention ``self_attn`` has nn.MultiheadAttention's parameters, as
+mask2former's).
+
+In bf16 (models/layers.py; set_compute_dtype, as chap_tpu's ``dtype=``)
+every Dense, LayerNorm and attention computes as Flax's does, and the
+float32 tensors promote where chap_tpu's do: the query embeddings and the
+level embeddings are float32 parameters and the sine position encoding a
+float32 array, so a bf16 projection plus one of them is float32 until the
+next Dense casts it. The attention scores are divided by sqrt(head_dim)
+rounded to bf16 and their softmax is bf16; the self-attention is Flax's
+nn.MultiHeadDotProductAttention (``MultiHeadDotProductAttention``), not
+PyTorch's fused attention, which it runs at float32. KMax's straight-through argmax over bf16
+logits takes the first of tied queries, as JAX's does. V1's mask einsum
+of the bf16 query embedding and the mask features is in their promoted
+dtype.
 """
 from __future__ import annotations
 
@@ -36,7 +50,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from chap_tpu_torch.models.layers import Conv2d
+from chap_tpu_torch.models.layers import (Conv2d, LayerNorm, Linear,
+                                          MultiHeadDotProductAttention, matmul,
+                                          scale_in, softmax)
 
 LN_EPS = 1e-6
 
@@ -68,8 +84,9 @@ def _pos_on(h: int, w: int, dim: int, dtype: torch.dtype, device: torch.device
 
 
 def _pos(h: int, w: int, dim: int, like: torch.Tensor) -> torch.Tensor:
-    """The encoding [1, H * W, dim] in ``like``'s dtype and device, made
-    once a size (the layers of a forward share it)."""
+    """The encoding [1, H * W, dim] in ``like``'s dtype and device (a
+    parameter: chap_tpu's encoding is float32 whatever the compute dtype),
+    made once a size (the layers of a forward share it)."""
     return _pos_on(h, w, dim, like.dtype, like.device)
 
 
@@ -80,8 +97,8 @@ class CrossAttentionLayer(nn.Module):
     def __init__(self, dim: int, num_heads: int = 8):
         super().__init__()
         self.num_heads = num_heads
-        self.q, self.k, self.v, self.proj = (nn.Linear(dim, dim) for _ in range(4))
-        self.norm = nn.LayerNorm(dim, eps=LN_EPS)
+        self.q, self.k, self.v, self.proj = (Linear(dim, dim) for _ in range(4))
+        self.norm = LayerNorm(dim, eps=LN_EPS)
 
     def forward(self, tgt, memory, query_pos, pos):
         b, n, c = tgt.shape
@@ -93,8 +110,8 @@ class CrossAttentionLayer(nn.Module):
         q = heads(self.q(tgt + query_pos))
         k = heads(self.k(memory + pos))
         v = heads(self.v(memory))
-        logits = q @ k.transpose(-1, -2) / float(np.sqrt(hd))
-        out = torch.softmax(logits, -1) @ v
+        logits = matmul(q, k.transpose(-1, -2)) / scale_in(q.dtype, np.sqrt(hd))
+        out = matmul(softmax(logits, -1), v)
         out = self.proj(out.transpose(1, 2).reshape(b, n, c))
         return self.norm(tgt + out), logits.mean(dim=1)
 
@@ -105,12 +122,12 @@ class SelfAttentionLayer(nn.Module):
 
     def __init__(self, dim: int, num_heads: int = 8):
         super().__init__()
-        self.self_attn = nn.MultiheadAttention(dim, num_heads, batch_first=True)
-        self.norm = nn.LayerNorm(dim, eps=LN_EPS)
+        self.self_attn = MultiHeadDotProductAttention(dim, num_heads)
+        self.norm = LayerNorm(dim, eps=LN_EPS)
 
     def forward(self, tgt, query_pos):
         q = tgt + query_pos
-        h = self.self_attn(q, q, tgt, need_weights=False)[0]
+        h = self.self_attn(q, q, tgt)
         return self.norm(tgt + h)
 
 
@@ -120,9 +137,9 @@ class FFNLayer(nn.Module):
 
     def __init__(self, dim: int, hidden: int = 2048):
         super().__init__()
-        self.linear1 = nn.Linear(dim, hidden)
-        self.linear2 = nn.Linear(hidden, dim)
-        self.norm = nn.LayerNorm(dim, eps=LN_EPS)
+        self.linear1 = Linear(dim, hidden)
+        self.linear2 = Linear(hidden, dim)
+        self.norm = LayerNorm(dim, eps=LN_EPS)
 
     def forward(self, x):
         return self.norm(x + self.linear2(F.relu(self.linear1(x))))
@@ -136,17 +153,18 @@ class KMaxCrossAttentionLayer(nn.Module):
 
     def __init__(self, dim: int):
         super().__init__()
-        self.q, self.k, self.v, self.proj = (nn.Linear(dim, dim) for _ in range(4))
-        self.norm = nn.LayerNorm(dim, eps=LN_EPS)
+        self.q, self.k, self.v, self.proj = (Linear(dim, dim) for _ in range(4))
+        self.norm = LayerNorm(dim, eps=LN_EPS)
 
     def forward(self, tgt, memory):
         n = tgt.shape[1]
-        logits = (self.q(tgt) @ self.k(memory).transpose(-1, -2)
-                  / float(np.sqrt(tgt.shape[-1])))
-        soft = torch.softmax(logits, 1)
+        q = self.q(tgt)
+        logits = (matmul(q, self.k(memory).transpose(-1, -2))
+                  / scale_in(q.dtype, np.sqrt(tgt.shape[-1])))
+        soft = softmax(logits, 1)
         hard = F.one_hot(logits.argmax(1), n).transpose(1, 2).to(soft.dtype)
         assign = soft + (hard - soft).detach()
-        pooled = assign @ self.v(memory)
+        pooled = matmul(assign, self.v(memory))
         pooled = pooled / (assign.sum(-1, keepdim=True) + 1e-6)
         return self.norm(tgt + self.proj(pooled)), logits
 
@@ -157,7 +175,7 @@ class MlpHead(nn.Module):
     def __init__(self, in_dim: int, hidden: int, out: int, num_layers: int = 3):
         super().__init__()
         dims = [in_dim] + [hidden] * (num_layers - 1)
-        self.layers = nn.ModuleList(nn.Linear(i, o) for i, o in
+        self.layers = nn.ModuleList(Linear(i, o) for i, o in
                                     zip(dims, dims[1:] + [out]))
 
     def forward(self, x):
@@ -204,7 +222,7 @@ class MaskTransformerDecoder(_QueryDecoder):
             SelfAttentionLayer(hidden_dim, num_heads) for _ in range(num_layers))
         self.transformer_ffn_layers = nn.ModuleList(
             FFNLayer(hidden_dim) for _ in range(num_layers))
-        self.seg_head_layers = nn.ModuleList(nn.Linear(1, 1) for _ in range(num_layers))
+        self.seg_head_layers = nn.ModuleList(Linear(1, 1) for _ in range(num_layers))
 
     def forward(self, features: Sequence[torch.Tensor]
                 ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
@@ -218,7 +236,7 @@ class MaskTransformerDecoder(_QueryDecoder):
         for layer in range(self.num_layers):
             lvl = layer % len(features)
             tgt, attn = self.transformer_cross_attention_layers[layer](
-                tgt, tokens[lvl], qpos, _pos(*hw[lvl], d, tgt))
+                tgt, tokens[lvl], qpos, _pos(*hw[lvl], d, qpos))
             tgt = self.transformer_self_attention_layers[layer](tgt, qpos)
             tgt = self.transformer_ffn_layers[layer](tgt)
             seg = self.seg_head_layers[layer](attn[..., None])[..., 0]
@@ -246,8 +264,8 @@ class MaskTransformerDecoderV1(_QueryDecoder):
         self.num_layers, self.num_classes = num_layers, num_classes
         self.query_embed = nn.Embedding(num_queries, hidden_dim)
         self.level_embed = nn.Embedding(num_layers, hidden_dim)
-        self.decoder_norm = nn.LayerNorm(hidden_dim, eps=LN_EPS)
-        self.class_embed = nn.Linear(hidden_dim, num_classes + 1)
+        self.decoder_norm = LayerNorm(hidden_dim, eps=LN_EPS)
+        self.class_embed = Linear(hidden_dim, num_classes + 1)
         self.mask_embed = MlpHead(hidden_dim, hidden_dim, mask_dim)
         self.transformer_cross_attention_layers = nn.ModuleList(
             CrossAttentionLayer(hidden_dim, 1) for _ in range(num_layers))
@@ -256,7 +274,7 @@ class MaskTransformerDecoderV1(_QueryDecoder):
         self.transformer_ffn_layers = nn.ModuleList(
             FFNLayer(hidden_dim) for _ in range(num_layers))
         self.seg_head_layers = nn.ModuleList(
-            nn.Linear(num_queries, num_classes) for _ in range(num_layers))
+            Linear(num_queries, num_classes) for _ in range(num_layers))
 
     def forward(self, features: Sequence[torch.Tensor], mask_features: torch.Tensor):
         if self.num_layers > len(features):
@@ -271,12 +289,14 @@ class MaskTransformerDecoderV1(_QueryDecoder):
         qpos = self.query_embed.weight[None].expand(b, -1, -1)
         dec = self.decoder_norm(tgt)
         outputs_class = self.class_embed(dec)
-        outputs_mask = torch.einsum("bqc,bchw->bqhw", self.mask_embed(dec),
-                                    mask_features)
+        embed = self.mask_embed(dec)
+        dt = torch.promote_types(embed.dtype, mask_features.dtype)
+        outputs_mask = torch.einsum("bqc,bchw->bqhw", embed.to(dt),
+                                    mask_features.to(dt))
         seg_maps = []
         for layer in range(self.num_layers):
             tgt, attn = self.transformer_cross_attention_layers[layer](
-                tgt, tokens[layer], qpos, _pos(*hw[layer], d, tgt))
+                tgt, tokens[layer], qpos, _pos(*hw[layer], d, qpos))
             seg = self.seg_head_layers[layer](attn.transpose(1, 2))   # [B, hw, C]
             seg_maps.append(seg.transpose(1, 2).reshape(b, self.num_classes, *hw[layer]))
             tgt = self.transformer_self_attention_layers[layer](tgt, qpos)
@@ -299,12 +319,12 @@ class KMaxTransformerDecoder(_QueryDecoder):
             SelfAttentionLayer(hidden_dim, num_heads) for _ in range(num_layers))
         self.transformer_ffn_layers = nn.ModuleList(
             FFNLayer(hidden_dim) for _ in range(num_layers))
-        self.seg_head_layers = nn.ModuleList(nn.Linear(1, 1) for _ in range(num_layers))
+        self.seg_head_layers = nn.ModuleList(Linear(1, 1) for _ in range(num_layers))
 
     def forward(self, features: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         b, d = features[0].shape[0], self.hidden_dim
         hw = [tuple(f.shape[2:]) for f in features]
-        tokens = [self.tokens(i, f) + _pos(*hw[i], d, f)
+        tokens = [self.tokens(i, f) + _pos(*hw[i], d, self.query_feat.weight)
                   for i, f in enumerate(features)]
         tgt = self.queries(b)
         qpos = torch.zeros_like(tgt)

@@ -23,8 +23,9 @@ Phases (any failure raises and the script exits non-zero):
                ce and d/dlogits (also with one region's grads None) at
                rtol 2e-3, two calls bit-identical; then at bf16 logits (the
                configs as written) at [1, 2, 112, 112, 80] (R = 2),
-               [2, 2, 112, 112, 80] (R = 1), [4, 2, 96, 96, 96] (R = 1) and
-               the ACAL / ablation steps' [12, 4, 256, 256] (R = 1):
+               [2, 2, 112, 112, 80] (R = 1), [4, 2, 96, 96, 96] (R = 1),
+               the ACAL / ablation steps' [12, 4, 256, 256] (R = 1) and the
+               2D zoo's bf16 single-decoder step's [24, 4, 256, 256] (R = 1):
                losses at rtol 2e-3, the bf16 gradients within one bf16
                rounding of the plain version's; at the timed shapes
                torch.profiler counts the device kernels of 3 forward calls
@@ -288,7 +289,21 @@ Phases (any failure raises and the script exits non-zero):
                unet, resunet, swinunet, enet, pnet and efficient_unet,
                1 / 1 K1 a step asserted, step ms and peak memory; a train
                and an eval forward of unetp, unet_cct, unet_urpc and
-               dual_student, which that step refuses; (c) cli.test_2d (2 of
+               dual_student, which that step refuses; (a-bf16) the CPU's
+               bf16 products (convolutions, a Linear) equal to the card's
+               on all but 1e-3 of the elements (``bf16_products``), then
+               (a)'s passes again with every key in bf16 on the card and on
+               the CPU from the same weights and draws: every output and
+               the BN statistics within twice the CPU's own bf16-vs-float32
+               gap of the CPU's bf16 and float32 (bar 2 of
+               tests/test_torch_bf16.py), the eval pass's label maps by its
+               bar 4;
+               (b-bf16) (b) again with model.dtype=bfloat16 on bf16 phantom
+               images, every K1 launch at bf16 logits, step ms and peak
+               memory beside the float32 figures (``slice_zoo2d_bf16``),
+               torch.profiler over one bf16 step of swinunet and of enet,
+               which must show bf16 GEMM or convolution kernels
+               (``profile_zoo2d_bf16_*``); (c) cli.test_2d (2 of
                its 8 phantom volumes) on a
                snapshot of every key written from (b)'s weights, over the
                ensemble modes for the keys of several outputs, and
@@ -300,14 +315,17 @@ Phases (any failure raises and the script exits non-zero):
                transformer_decoder}.py and EffiUNet-b3 at a small width on
                the card and on the CPU from the same weights and dropout
                draws (TF32 off): every output in eval and train mode and
-               the BN batch statistics at 5e-4 of the output's scale; the
-               parameter gradients of GRL (a UNet's features reversed into
-               NetD), KMax, the GAN pair (ResnetGenerator under
-               NLayerDiscriminator) and TinyUNet3D at rtol 2e-3 as vectors;
-               mask_selection with the same uniforms, equal
-               (``parity_library``); (b) at full width (TF32 on, random
-               weights from a seed) one warm-up and three timed forward +
-               backward calls each: resnet50 and resnet50_16s on 24 x 3 x
+               the BN batch statistics at 5e-4 of the output's scale, then
+               in bf16 (set_compute_dtype, the inputs in bf16) by bar 2 of
+               tests/test_torch_bf16.py against the CPU's bf16 and float32;
+               the parameter gradients of GRL (a UNet's features reversed
+               into NetD), KMax, the GAN pair (ResnetGenerator under
+               NLayerDiscriminator) and TinyUNet3D at rtol 2e-3 as vectors,
+               and in bf16 by bar 2, one vector each; mask_selection with
+               the same uniforms, equal (``parity_library``); (b) at full
+               width (TF32 on, random weights from a seed) one warm-up and
+               three timed forward + backward calls each, in float32 and in
+               bf16: resnet50 and resnet50_16s on 24 x 3 x
                256^2, the three transformer decoders at their default
                widths on resnet50's pyramid of that batch, ResnetGenerator,
                UnetGenerator and NLayerDiscriminator at 4 x 3 x 256^2,
@@ -329,7 +347,9 @@ Phases (any failure raises and the script exits non-zero):
                launches on each rank; K1 at bf16 logits at the ACAL shape
                has rows of its own, and K1 at the 2D zoo's step shape
                [24, 4, 256, 256] (``K1_{fwd,bwd}_zoo2d``: launches over
-               phase 24's timed steps); the R = 1 rows carry
+               phase 24's timed steps) and at bf16 logits
+               (``K1_{fwd,bwd}_bf16_zoo2d``: over (b-bf16)'s); the R = 1
+               rows carry
                ``caller_bound_ms``, the bound for what their supervised
                callers need: the logits and uint8 labels, no mask; a
                count no run measured is null), the ``phase_s`` line (each
@@ -360,6 +380,7 @@ the kept design (``k2_3d_variant`` lines).
 from __future__ import annotations
 
 import concurrent.futures
+import copy
 import ctypes
 import dataclasses
 import functools
@@ -408,7 +429,9 @@ from chap_tpu_torch.models.factory import net_factory, net_factory_3d
 from chap_tpu_torch.models.gan_legacy import (NLayerDiscriminator, ResnetGenerator,
                                               UnetGenerator, gan_loss)
 from chap_tpu_torch.models.grl import gradient_reverse
-from chap_tpu_torch.models.layers import FlaxBatchNorm, set_compute_dtype
+from chap_tpu_torch.models.layers import (Conv2d, Conv3d, ConvTranspose2d,
+                                          FlaxBatchNorm, Linear, _cast_conv,
+                                          set_compute_dtype)
 from chap_tpu_torch.models.perturb import mask_selection
 from chap_tpu_torch.models.pnet import PNet2D
 from chap_tpu_torch.models.resunet2d import ResUNet2d
@@ -3147,14 +3170,139 @@ def zoo2d_predictor_parity(gen) -> dict:
     return res
 
 
+def hold_card_bf16(what: str, card: torch.Tensor, cpu: torch.Tensor,
+                   cpu32: torch.Tensor) -> list:
+    """Bar 2 of tests/test_torch_bf16.py with the CPU's port as the
+    reference: the card's bf16 tensor within twice the CPU's own
+    bf16-against-float32 gap (measured here) of the CPU's bf16 tensor and
+    of its float32 one. Returns [card - CPU bf16, card - CPU float32, the
+    CPU's gap] (largest absolute values)."""
+    a, b, b32 = (t.detach().double().cpu() for t in (card, cpu, cpu32))
+    gap = float((b - b32).abs().max())
+    d, d32 = float((a - b).abs().max()), float((a - b32).abs().max())
+    check(d <= 2 * gap + 1e-6 and d32 <= 2 * gap + 1e-6,
+          f"{what}: the card's bf16 is {d} from the CPU's bf16 and {d32} from its "
+          f"float32; the CPU's bf16 gap {gap}")
+    return [d, d32, gap]
+
+
+def hold_card_maps(what: str, card: torch.Tensor, cpu: torch.Tensor,
+                   cpu32: torch.Tensor) -> list:
+    """Bar 4 of tests/test_torch_bf16.py: the label maps (argmax over the
+    classes) of the card's bf16 logits agree with the CPU's bf16 maps on at
+    least the share on which the CPU's bf16 and float32 maps agree, less
+    0.5 points. Returns [that share, the CPU's]."""
+    m, m_cpu, m32 = (t.detach().float().argmax(1).cpu() for t in (card, cpu, cpu32))
+    share_ref = float((m_cpu == m32).float().mean())
+    share = float((m == m_cpu).float().mean())
+    check(share >= share_ref - 0.005, f"{what}: the card's bf16 label maps agree "
+                                      f"with the CPU's on {share}, the CPU's bf16 "
+                                      f"and float32 maps on {share_ref}")
+    return [share, share_ref]
+
+
+def stats_vector(stats: dict) -> torch.Tensor:
+    """A pass's BatchNorm statistics, every layer's mean and variance, as
+    one float64 vector on the CPU."""
+    return torch.cat([t.detach().double().cpu().reshape(-1)
+                      for k in sorted(stats) for t in stats[k]])
+
+
+def bf16_pair_parity(tag: str, cpu, card, call, outs32: dict, stats32: dict,
+                     maps: bool = True) -> dict:
+    """A model pair (same weights) in bf16 on the card and on the CPU, each
+    of ``call(model, device, stats)``'s outputs (bf16) in eval and train
+    mode held
+    by hold_card_bf16 against the CPU's bf16 and float32 outputs
+    (``outs32[train]``), the eval pass's 4-D logits' label maps by
+    hold_card_maps (where ``maps``: the outputs are class logits; the maps
+    a user reads. A train pass's perturbed heads feed losses, and their
+    hard thresholds flip a coarse map's argmax with one bf16 rounding:
+    URPC's feature-dropout head at 8 x 8, up-sampled to 32 x 32, differed
+    on 3 of 128 coarse pixels, card against CPU, where its value gap was
+    inside the bar), the
+    train pass's BatchNorm statistics (float32) as one vector; the pair
+    back in float32 after."""
+    out = {"outputs": [], "maps": [], "stats": []}
+    try:
+        for m in (cpu, card):
+            set_compute_dtype(m, torch.bfloat16)
+        for train in (False, True):
+            s_cpu, s_card = {}, {}
+            with torch.no_grad():
+                o_cpu = _flat(call(cpu.train(train), "cpu", s_cpu))
+                o_card = _flat(call(card.train(train), "cuda", s_card))
+            check(len(o_cpu) == len(o_card) == len(outs32[train]), f"{tag} outputs")
+            for i, (a, b, b32) in enumerate(zip(o_card, o_cpu, outs32[train])):
+                what = f"{tag} bf16 output {i} (train={train})"
+                check(a.dtype == b.dtype == torch.bfloat16, f"{what} dtype")
+                out["outputs"].append(hold_card_bf16(what, a, b, b32))
+                if maps and not train and a.dim() == 4:
+                    out["maps"].append(hold_card_maps(what, a, b, b32))
+            if stats32.get(train):
+                check(set(s_cpu) == set(s_card) == set(stats32[train])
+                      and all(t.dtype == torch.float32 for v in s_card.values()
+                              for t in v), f"{tag} bf16 BN statistics")
+                out["stats"].append(hold_card_bf16(
+                    f"{tag} bf16 BN statistics", stats_vector(s_card),
+                    stats_vector(s_cpu), stats_vector(stats32[train])))
+    finally:
+        for m in (cpu, card):
+            set_compute_dtype(m, torch.float32)
+    return out
+
+
+def bf16_products() -> dict:
+    """The CPU's bf16 products (models/layers.py ``_cast_conv``: the float32
+    product of the bf16 operands rounded once, a convolution's bf16 bias
+    added after it in bf16, a Linear's inside the sum) against the card's
+    on the same bf16 operands and weights (TF32 off): a conv2d, a strided
+    conv3d, a transposed conv2d, a 1x1 conv2d and a Linear. The share of
+    elements that differ must stay under 1e-3 (a float32 sum's other order
+    moves a rounding now and then); beside it, the share by which the
+    other bias rule (inside for a convolution, after for a Linear) would
+    differ from the card. Prints the ``bf16_products`` line."""
+    set_tf32(False)
+    torch.manual_seed(62)
+    cases = {"conv2d": (Conv2d(32, 48, 3, padding=1), (8, 32, 64, 64)),
+             "conv3d_stride2": (Conv3d(32, 64, 3, 2, padding=1), (2, 32, 16, 16, 8)),
+             "conv_transpose2d": (ConvTranspose2d(32, 48, 2, 2), (8, 32, 32, 32)),
+             "conv2d_1x1": (Conv2d(64, 16, 1), (8, 64, 32, 32)),
+             "linear": (Linear(96, 288), (4096, 96))}
+    res = {}
+    for name, (layer, shape) in cases.items():
+        with torch.no_grad():
+            layer.bias.normal_(0.0, 0.5)
+            x = torch.randn(shape).bfloat16()
+            cpu = set_compute_dtype(layer, torch.bfloat16)(x)
+            card = set_compute_dtype(copy.deepcopy(layer).cuda(), torch.bfloat16)(
+                x.cuda()).cpu()
+            other = _cast_conv(layer._apply_conv, x, layer.weight, layer.bias,
+                               torch.bfloat16, not layer.bias_inside)
+        differ = float((card != cpu).float().mean())
+        check(card.dtype == cpu.dtype == torch.bfloat16 and differ < 1e-3,
+              f"bf16 {name}: the CPU's product differs from the card's in "
+              f"{differ} of the elements")
+        res[name] = {"differ": differ,
+                     "other_bias_rule_differs": float((card != other).float().mean())}
+    res["settings"] = tf32_settings()
+    print("bf16_products", json.dumps(res), flush=True)
+    return res
+
+
 def phase_parity_zoo2d() -> dict:
     """(a) every 2D net_factory key but the dual decoder (phase 5's) at a
     small width on the card and on the CPU from the same weights and
     draws (TF32 off): every output in eval and train mode and the train
     pass's BatchNorm batch statistics at 5e-4 of the output's scale
-    (zoo_tol), as phase 18; the predictors (zoo2d_predictor_parity)."""
+    (zoo_tol), as phase 18; (a-bf16) the CPU's bf16 products against the
+    card's (bf16_products), then the same passes in bf16
+    (model.dtype=bfloat16), held by bars 2 and 4 of tests/test_torch_bf16.py
+    against the CPU's bf16 and float32 (bf16_pair_parity); the predictors
+    (zoo2d_predictor_parity)."""
+    res = {"forward_max_abs_err": {}, "stats_max_abs_err": {}, "bf16": {},
+           "bf16_products": bf16_products()}
     set_tf32(False)
-    res = {"forward_max_abs_err": {}, "stats_max_abs_err": {}}
     gen = torch.Generator().manual_seed(30)
     for key in ZOO2D_SINGLE + ZOO2D_SEVERAL:
         torch.manual_seed(7)
@@ -3165,6 +3313,7 @@ def phase_parity_zoo2d() -> dict:
         kw = zoo2d_draws(cpu, 2, side, gen, "cpu")
         kw_card = {k: [u.cuda() for u in v] for k, v in kw.items()}
         err = stats_err = 0.0
+        outs32, stats32 = {}, {}
         for train in (False, True):
             cpu.train(train)
             card.train(train)
@@ -3172,6 +3321,7 @@ def phase_parity_zoo2d() -> dict:
             with torch.no_grad():
                 o_cpu = _flat(cpu(x, stats=s_cpu, **kw))
                 o_card = _flat(card(x.cuda(), stats=s_card, **kw_card))
+            outs32[train], stats32[train] = o_cpu, s_cpu
             check(len(o_cpu) == len(o_card), f"{key} outputs")
             for a, b in zip(o_card, o_cpu):
                 e = float((a.cpu() - b).abs().max())
@@ -3185,6 +3335,10 @@ def phase_parity_zoo2d() -> dict:
                     stats_err = max(stats_err, e)
         res["forward_max_abs_err"][key] = err
         res["stats_max_abs_err"][key] = stats_err
+        res["bf16"][key] = bf16_pair_parity(
+            f"zoo2d {key}", cpu, card, lambda m, dev, stats: m(
+                x.to(dev), stats=stats, **(kw if dev == "cpu" else kw_card)),
+            outs32, stats32)
     res["predictors"] = zoo2d_predictor_parity(gen)
     res["settings"] = tf32_settings()
     print("parity_zoo2d", json.dumps(res), flush=True)
@@ -3201,84 +3355,126 @@ def zoo2d_config(key: str):
     return cfg
 
 
+def zoo2d_key_slice(key: str, dtype: str) -> tuple:
+    """One key of (b) at full width in ``dtype`` (model.dtype; bf16 phantom
+    images for bfloat16, the pool's dtype): a single-output key's 1 warm-up
+    and 3 timed single-decoder supervised steps with their launches
+    asserted (every K1 launch at bf16 logits in bf16), a key of several
+    outputs refused by that step and its train and eval forward. Returns
+    (the figures, the state, the step and its batches and generator)."""
+    cfg = zoo2d_config(key)
+    cfg.model.dtype = dtype
+    batches = [phantom_inputs(cfg, 60 + i, "cuda") for i in range(5)]
+    if dtype == "bfloat16":
+        batches = [{"image": b["image"].bfloat16(), "label": b["label"]}
+                   for b in batches]
+    gen = torch.Generator(device="cuda").manual_seed(1337)
+    torch.manual_seed(1337)
+    torch.cuda.reset_peak_memory_stats()
+    model = net_factory(key, 1, 4, cfg.model, device="cuda")
+    opt = make_optimizer(model, cfg.optim.base_lr, cfg.optim.momentum,
+                         cfg.optim.weight_decay)
+    state = create_train_state(model, opt)
+    step = build_supervised_train_step(model, opt, cfg, device="cuda")
+    res = {"params": sum(p.numel() for p in model.parameters()),
+           "batch": cfg.data.batch_size, "side": cfg.data.image_size[0],
+           "dtype": dtype}
+    if key in ZOO2D_SINGLE:
+        step(state, batches[0], gen)              # warm-up
+        torch.cuda.synchronize()
+        zero_launch_counts()
+        times, losses = [], []
+        for batch in batches[1:4]:
+            t0 = time.perf_counter()
+            m = step(state, batch, gen).metrics
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(m["loss"]))
+        launches = launch_counts()
+        want = {k: 3 * v for k, v in supervised_launches(1).items()}
+        check(launches == want, f"zoo2d {key} {dtype} launches over 3 steps "
+                                f"{launches}, expected {want}")
+        if dtype == "bfloat16":
+            res["launches_bf16"] = check_all_bf16(f"the zoo2d {key} bf16 step")
+        check(all(math.isfinite(v) for v in losses),
+              f"zoo2d {key} {dtype} losses {losses}")
+        res.update({"step_ms": times, "median_step_ms": statistics.median(times),
+                    "slices_per_s": 1e3 * cfg.data.batch_size
+                    / statistics.median(times),
+                    "launches": launches, "losses": losses})
+    else:
+        try:
+            step(state, batches[0], gen)
+            refused = False
+        except ValueError as e:
+            refused = type(model).__name__ in str(e) and state.step == 0
+        check(refused, f"the single-decoder step refuses {key} ({dtype})")
+        torch.cuda.reset_peak_memory_stats()    # the forwards' peak alone
+        x = batches[0]["image"]
+        kw = zoo2d_draws(model, x.shape[0], x.shape[-1],
+                         torch.Generator().manual_seed(61), "cuda")
+        for train in (True, False):
+            model.train(train)
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                outs = _flat(model(x, stats={}, **kw) if train else model(x))
+            torch.cuda.synchronize()
+            res[f"{'train' if train else 'eval'}_forward_ms"] = \
+                (time.perf_counter() - t0) * 1e3
+            check(all(bool(torch.isfinite(o).all()) for o in outs),
+                  f"zoo2d {key} {dtype} finite outputs (train={train})")
+            check(dtype != "bfloat16" or all(o.dtype == torch.bfloat16 for o in outs),
+                  f"zoo2d {key} bf16 outputs (train={train})")
+            res[f"{'train' if train else 'eval'}_outputs"] = [
+                list(o.shape) for o in outs]
+    res["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    res["card"] = card_line()
+    return res, state, step, batches, gen
+
+
 def phase_slice_zoo2d() -> dict:
     """(b) at full width (zoo2d_config, TF32 on as PyTorch's default, random
-    weights from a seed, phantom batches): the single-decoder supervised
-    step of each single-output key, 1 warm-up and 3 timed steps, 1 K1
-    forward and 1 backward a step asserted, step ms (median), peak memory;
-    each key of several outputs refused by that step, and one train-mode
-    and one eval-mode forward of it, its peak. Returns the figures, the K1
-    launches of every timed step together, and the state of each key for
-    (c)."""
+    weights from a seed, phantom batches): every key in float32, then
+    (b-bf16) every key again with model.dtype=bfloat16 (zoo2d_key_slice);
+    the bf16 line of a key stands beside its float32 figures. Then
+    torch.profiler over one bf16 step of swinunet and one of enet, which
+    must show bf16 GEMM or convolution kernels. Returns the figures, the K1
+    launches of every timed step together (float32 and bf16 apart), and
+    the float32 state of each key for (c)."""
     set_tf32(True)
-    out = {"keys": {}, "states": {}}
+    out = {"keys": {}, "keys_bf16": {}, "states": {}, "profiles": {}}
     total = {k: 0 for k in launch_counts()}
+    total_bf16 = {k: 0 for k in bf16_launch_counts()}
     for key in ZOO2D_SINGLE + ZOO2D_SEVERAL:
-        cfg = zoo2d_config(key)
-        batches = [phantom_inputs(cfg, 60 + i, "cuda") for i in range(4)]
-        gen = torch.Generator(device="cuda").manual_seed(1337)
-        torch.manual_seed(1337)
-        torch.cuda.reset_peak_memory_stats()
-        model = net_factory(key, 1, 4, cfg.model, device="cuda")
-        opt = make_optimizer(model, cfg.optim.base_lr, cfg.optim.momentum,
-                             cfg.optim.weight_decay)
-        state = create_train_state(model, opt)
-        res = {"params": sum(p.numel() for p in model.parameters()),
-               "batch": cfg.data.batch_size, "side": cfg.data.image_size[0]}
-        if key in ZOO2D_SINGLE:
-            step = build_supervised_train_step(model, opt, cfg, device="cuda")
-            step(state, batches[0], gen)              # warm-up
-            torch.cuda.synchronize()
-            zero_launch_counts()
-            times, losses = [], []
-            for batch in batches[1:]:
-                t0 = time.perf_counter()
-                m = step(state, batch, gen).metrics
-                torch.cuda.synchronize()
-                times.append((time.perf_counter() - t0) * 1e3)
-                losses.append(float(m["loss"]))
-            launches = launch_counts()
-            want = {k: 3 * v for k, v in supervised_launches(1).items()}
-            check(launches == want, f"zoo2d {key} launches over 3 steps "
-                                    f"{launches}, expected {want}")
-            check(all(math.isfinite(v) for v in losses), f"zoo2d {key} losses {losses}")
-            total = {k: total[k] + launches[k] for k in total}
-            res.update({"step_ms": times, "median_step_ms": statistics.median(times),
-                        "slices_per_s": 1e3 * cfg.data.batch_size
-                        / statistics.median(times),
-                        "launches": launches, "losses": losses})
-        else:
-            try:
-                build_supervised_train_step(model, opt, cfg, device="cuda")(
-                    state, batches[0], gen)
-                refused = False
-            except ValueError as e:
-                refused = type(model).__name__ in str(e) and state.step == 0
-            check(refused, f"the single-decoder step refuses {key}")
-            torch.cuda.reset_peak_memory_stats()    # the forwards' peak alone
-            x = batches[0]["image"]
-            kw = zoo2d_draws(model, x.shape[0], x.shape[-1],
-                             torch.Generator().manual_seed(61), "cuda")
-            for train in (True, False):
-                model.train(train)
-                t0 = time.perf_counter()
-                with torch.no_grad():
-                    outs = _flat(model(x, stats={}, **kw) if train else model(x))
-                torch.cuda.synchronize()
-                res[f"{'train' if train else 'eval'}_forward_ms"] = \
-                    (time.perf_counter() - t0) * 1e3
-                check(all(bool(torch.isfinite(o).all()) for o in outs),
-                      f"zoo2d {key} finite outputs (train={train})")
-                res[f"{'train' if train else 'eval'}_outputs"] = [
-                    list(o.shape) for o in outs]
-        res["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
-        res["card"] = card_line()
+        res, state, _, _, _ = zoo2d_key_slice(key, "float32")
+        if "launches" in res:
+            total = {k: total[k] + res["launches"][k] for k in total}
         print("slice_zoo2d", key, json.dumps(res), flush=True)
-        out["keys"][key] = res
-        out["states"][key] = state
-        del model, opt, batches
+        out["keys"][key], out["states"][key] = res, state
         torch.cuda.empty_cache()
-    out["launches"] = total
+    for key in ZOO2D_SINGLE + ZOO2D_SEVERAL:
+        res, state, step, batches, gen = zoo2d_key_slice(key, "bfloat16")
+        if "launches" in res:
+            total_bf16 = {k: total_bf16[k] + res["launches_bf16"][k]
+                          for k in total_bf16}
+        f32 = out["keys"][key]
+        res["float32"] = {k: f32[k] for k in ("median_step_ms", "peak_mem_bytes",
+                                              "train_forward_ms", "eval_forward_ms")
+                          if k in f32}
+        print("slice_zoo2d_bf16", key, json.dumps(res), flush=True)
+        if key in ("swinunet", "enet"):
+            prof = phase_profile(state, step, batches[4:5], gen,
+                                 tag=f"profile_zoo2d_bf16_{key}")
+            conv = prof["ms_per_step_by_class"].get("conv", 0.0)
+            check(prof["conv_bf16_ms_per_step"] > 0,
+                  f"zoo2d {key}: the profile shows bf16 GEMM or convolution "
+                  f"kernels ({prof['conv_bf16_ms_per_step']} of {conv} ms)")
+            res["conv_bf16_share"] = prof["conv_bf16_ms_per_step"] / conv
+            out["profiles"][key] = prof
+        out["keys_bf16"][key] = res
+        del state, step, batches
+        torch.cuda.empty_cache()
+    out["launches"], out["launches_bf16"] = total, total_bf16
     out["settings"] = tf32_settings()
     return out
 
@@ -3331,8 +3527,9 @@ def phase_test_zoo2d(states: dict) -> dict:
 
 
 def phase_zoo2d() -> dict:
-    """Phase 24, the 2D zoo: (a) parity, (b) the full-width steps and
-    forwards, (c) cli.test_2d on every key. Prints the ``zoo2d`` line."""
+    """Phase 24, the 2D zoo: (a) parity in float32 and bf16, (b) the
+    full-width steps and forwards in float32 and bf16, (c) cli.test_2d on
+    every key. Prints the ``zoo2d`` line."""
     t0 = time.perf_counter()
     parity = phase_parity_zoo2d()
     slice_ = phase_slice_zoo2d()
@@ -3340,7 +3537,9 @@ def phase_zoo2d() -> dict:
     res = {"parity": parity, "slice": slice_, "test": test,
            "phase_s": time.perf_counter() - t0}
     print("zoo2d", json.dumps({"phase_s": res["phase_s"],
-                               "launches": slice_["launches"]}), flush=True)
+                               "launches": slice_["launches"],
+                               "launches_bf16": slice_["launches_bf16"]}),
+          flush=True)
     torch.cuda.empty_cache()
     return res
 
@@ -3474,10 +3673,20 @@ def tiny_loss(out, lab) -> torch.Tensor:
             + sum((p[:, 1] ** 2).mean() for p in maps))
 
 
+def grad_vector(model: torch.nn.Module) -> torch.Tensor:
+    """Every parameter's gradient (zeros where none reached it) as one
+    float64 vector on the CPU."""
+    return torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p))
+                      .detach().double().cpu().reshape(-1)
+                      for p in model.parameters()])
+
+
 def library_grad_parity(gen) -> dict:
     """(a)'s gradients card against CPU (TF32 off, train mode, the same
     weights): GRL, KMax, the GAN pair, TinyUNet3D; rtol 2e-3 as vectors
-    (grad_gap)."""
+    (grad_gap); then each pair in bf16 (set_compute_dtype), every
+    parameter's gradient as one vector held by hold_card_bf16 against the
+    CPU's bf16 and float32 gradients."""
     w = [torch.randn((2, 4, 8, 8), generator=gen) for _ in range(2)]
     lab = torch.randint(0, 2, (2, 16, 16, 16), generator=gen)
     cases = {
@@ -3512,6 +3721,18 @@ def library_grad_parity(gen) -> dict:
         check(max(gap["whole"], gap["largest_parameter"]) <= RTOL,
               f"library {name} gradients: gaps {gap}")
         res[name] = {"loss": losses, "grad_rel_gap": gap}
+        grads32 = grad_vector(cpu)
+        grads = {}
+        try:
+            for model, dev in ((cpu, "cpu"), (card, "cuda")):
+                set_compute_dtype(model, torch.bfloat16).zero_grad(set_to_none=True)
+                loss_fn(model, _to(inputs, dev)[0]).float().backward()
+                grads[dev] = grad_vector(model)
+        finally:
+            for model in (cpu, card):
+                set_compute_dtype(model, torch.float32)
+        res[name]["bf16_grad"] = hold_card_bf16(
+            f"library {name} bf16 gradients", grads["cuda"], grads["cpu"], grads32)
     return res
 
 
@@ -3520,11 +3741,14 @@ def phase_parity_library() -> dict:
     gan_legacy, transformer_decoder}.py and EffiUNet-b3 at a small width on
     the card and on the CPU from the same weights and draws (TF32 off):
     every output in eval and train mode and the BN batch statistics at
-    5e-4 of the output's scale (zoo_tol); the gradients of GRL, KMax, the
-    GAN pair and TinyUNet3D (library_grad_parity); mask_selection with the
-    same uniforms, equal."""
+    5e-4 of the output's scale (zoo_tol); then every model in bf16
+    (set_compute_dtype) on the inputs rounded to bf16, held by bars 2 and 4
+    of tests/test_torch_bf16.py against the CPU's bf16 and float32
+    (bf16_pair_parity); the gradients of GRL, KMax, the GAN pair and
+    TinyUNet3D in float32 and bf16 (library_grad_parity); mask_selection
+    with the same uniforms, equal."""
     set_tf32(False)
-    res = {"forward_max_abs_err": {}}
+    res = {"forward_max_abs_err": {}, "bf16": {}}
     gen = torch.Generator().manual_seed(50)
     for name, (make, shapes) in library_models().items():
         torch.manual_seed(52)
@@ -3533,6 +3757,7 @@ def phase_parity_library() -> dict:
         inputs = _rand_inputs(shapes, gen)
         train_kw = _train_kwargs(cpu, inputs, gen)
         err = 0.0
+        outs32, stats32 = {}, {}
         for train in (False, True):
             cpu.train(train)
             card.train(train)
@@ -3543,6 +3768,7 @@ def phase_parity_library() -> dict:
             with torch.no_grad():
                 o_cpu = _flat(cpu(*inputs, **kw_cpu))
                 o_card = _flat(card(*_to(inputs, "cuda"), **kw_card))
+            outs32[train], stats32[train] = o_cpu, kw_cpu.get("stats")
             check(len(o_cpu) == len(o_card), f"library {name} outputs")
             for a, b in zip(o_card, o_cpu):
                 e = float((a.cpu() - b).abs().max())
@@ -3558,6 +3784,18 @@ def phase_parity_library() -> dict:
                         e = float((a.cpu() - b).abs().max())
                         check(e <= zoo_tol(b), f"library BN statistics {name} {k}: {e}")
         res["forward_max_abs_err"][name] = err
+        inputs16 = [[t.bfloat16() for t in x] if isinstance(x, list) else x.bfloat16()
+                    for x in inputs]
+
+        def call(m, dev, stats):
+            if not m.training:
+                return m(*_to(inputs16, dev))
+            return m(*_to(inputs16, dev), **{
+                k: (stats if k == "stats" else [u.to(dev) for u in v])
+                for k, v in train_kw.items()})
+
+        res["bf16"][name] = bf16_pair_parity(f"library {name}", cpu, card, call,
+                                             outs32, stats32, maps=False)
     res["gradients"] = library_grad_parity(gen)
     scores = torch.rand((4, 32), generator=gen)
     u = torch.rand((4, 32), generator=gen)
@@ -3598,62 +3836,74 @@ def _mean_loss(out) -> torch.Tensor:
     return sum(o.float().mean() for o in _flat(out))
 
 
+def _cast(inputs, dtype) -> list:
+    return [[t.to(dtype) for t in x] if isinstance(x, list) else x.to(dtype)
+            for x in inputs]
+
+
 def phase_slice_library() -> dict:
     """(b) at full width (TF32 on, random weights from a seed): one warm-up
-    and three timed forward + backward calls of each, ms and peak GB:
-    resnet50 and resnet50_16s on 24 x 3 x 256^2; the three decoders at
-    their default widths on resnet50's pyramid of that batch ([c5, c4, c3,
-    c2]; V1's mask features c1); ResnetGenerator, UnetGenerator and
-    NLayerDiscriminator at 4 x 3 x 256^2; FCDiscriminator on 24 x 4 x
-    256^2 and NetD on its [24, 1, 8, 8] map (NetD flattens its whole input
-    into one row: on the image batch it would hold 2e13 weights); UNetTsne
-    on 24 x 1 x 256^2; TinyUNet3D on 4 x 1 x 96^3; EffiUNet-b3 on 24 x 1 x
-    256^2; then utils.timing.benchmark_fwd_bwd on the ACDC DualDecoder
-    (configs/acdc_chap.yml's widths, 24 x 1 x 256^2)."""
+    and three timed forward + backward calls of each, ms and peak GB, in
+    float32 and (under ``bf16``) with the model in bf16 on its inputs in
+    bf16 (set_compute_dtype): resnet50 and resnet50_16s on 24 x 3 x 256^2;
+    the three decoders at their default widths on resnet50's pyramid of
+    that batch ([c5, c4, c3, c2]; V1's mask features c1); ResnetGenerator,
+    UnetGenerator and NLayerDiscriminator at 4 x 3 x 256^2;
+    FCDiscriminator on 24 x 4 x 256^2 and NetD on its [24, 1, 8, 8] map
+    (NetD flattens its whole input into one row: on the image batch it
+    would hold 2e13 weights); UNetTsne on 24 x 1 x 256^2; TinyUNet3D on 4 x
+    1 x 96^3; EffiUNet-b3 on 24 x 1 x 256^2; then
+    utils.timing.benchmark_fwd_bwd on the ACDC DualDecoder
+    (configs/acdc_chap.yml's widths, 24 x 1 x 256^2), in float32 and with
+    model.dtype=bfloat16."""
     set_tf32(True)
     gen = torch.Generator(device="cuda").manual_seed(53)
     img3 = torch.randn((24, 3, 256, 256), generator=gen, device="cuda")
     out = {}
 
     def model_loss(make, *inputs, train=True, **kw):
-        def build():
+        def build(dtype):
             torch.manual_seed(54)
-            model = make().cuda().train(train)
-            return (lambda: _mean_loss(model(*inputs, **kw))), list(model.parameters())
+            model = set_compute_dtype(make().cuda().train(train), dtype)
+            args = _cast(inputs, dtype)
+            return (lambda: _mean_loss(model(*args, **kw))), list(model.parameters())
         return build
 
-    cases = {
+    def timed(cases):
+        for name, build in cases.items():
+            out[name] = fwd_bwd_timed(functools.partial(build, torch.float32))
+            out[name]["bf16"] = fwd_bwd_timed(functools.partial(build, torch.bfloat16))
+
+    timed({
         "resnet50": model_loss(lambda: resnet.resnet50(in_chns=3), img3),
         "resnet50_16s": model_loss(lambda: resnet.resnet50_16s(in_chns=3), img3),
-    }
-    for name, build in cases.items():
-        out[name] = fwd_bwd_timed(build)
+    })
     torch.manual_seed(54)
     with torch.no_grad():
         pyramid = resnet.resnet50(in_chns=3).cuda().eval()(img3)
     levels = pyramid[:0:-1]                 # c5, c4, c3, c2
     chans = [f.shape[1] for f in levels]
-    decoders = {
+    timed({
         "mask_decoder": model_loss(lambda: MaskTransformerDecoder(chans), levels),
         "mask_decoder_v1": model_loss(lambda: MaskTransformerDecoderV1(
             chans, pyramid[0].shape[1]), levels, pyramid[0]),
         "kmax_decoder": model_loss(lambda: KMaxTransformerDecoder(chans), levels),
-    }
-    for name, build in decoders.items():
-        out[name] = fwd_bwd_timed(build)
+    })
     del pyramid, levels
     img4 = torch.randn((4, 3, 256, 256), generator=gen, device="cuda")
     seg = torch.randn((24, 4, 256, 256), generator=gen, device="cuda").softmax(1)
     gray = torch.randn((24, 1, 256, 256), generator=gen, device="cuda")
     vol = torch.randn((4, 1, 96, 96, 96), generator=gen, device="cuda")
 
-    def fc_netd():
+    def fc_netd(dtype):
         torch.manual_seed(54)
-        d, netd = FCDiscriminator(4).cuda(), NetD(24 * 8 * 8).cuda()
-        return (lambda: netd(d(seg)).mean(),
+        d = set_compute_dtype(FCDiscriminator(4).cuda(), dtype)
+        netd = set_compute_dtype(NetD(24 * 8 * 8).cuda(), dtype)
+        x = seg.to(dtype)
+        return (lambda: netd(d(x)).float().mean(),
                 list(d.parameters()) + list(netd.parameters()))
 
-    cases = {
+    timed({
         "resnet_generator": model_loss(lambda: ResnetGenerator(3, 3), img4),
         "unet_generator": model_loss(lambda: UnetGenerator(3, 3), img4),
         "nlayer_discriminator": model_loss(lambda: NLayerDiscriminator(3), img4),
@@ -3662,15 +3912,20 @@ def phase_slice_library() -> dict:
         "tiny_unet3d": model_loss(lambda: TinyUNet3D(1, 2), vol),
         "effiunet_b3": model_loss(lambda: EffiUNet(1, 4, encoder_name="efficientnet-b3"),
                                   gray),
-    }
-    for name, build in cases.items():
-        out[name] = fwd_bwd_timed(build)
-    cfg = acdc_chap_config()
-    torch.manual_seed(54)
-    dual = net_factory("dualdecoder", 1, 4, cfg.model, device="cuda")
-    torch.cuda.reset_peak_memory_stats()
-    out["timing_dualdecoder"] = {**benchmark_fwd_bwd(dual, gray, num_iters=3),
-                                 "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    })
+    for dtype in ("float32", "bfloat16"):
+        cfg = acdc_chap_config()
+        cfg.model.dtype = dtype
+        torch.manual_seed(54)
+        dual = net_factory("dualdecoder", 1, 4, cfg.model, device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        row = {**benchmark_fwd_bwd(dual, gray.to(getattr(torch, dtype)), num_iters=3),
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        if dtype == "float32":
+            out["timing_dualdecoder"] = row
+        else:
+            out["timing_dualdecoder"]["bf16"] = row
+        del dual
     out["settings"] = tf32_settings()
     out["card"] = card_line()
     print("slice_library", json.dumps(out), flush=True)
@@ -3773,7 +4028,10 @@ def phase_library() -> dict:
     print("library", json.dumps({"phase_s": res["phase_s"],
                                  "launches_test3d": res["convert"]["launches_test3d"],
                                  "timed": {k: v["ms"] for k, v in res["slice"].items()
-                                           if isinstance(v, dict) and "ms" in v}}),
+                                           if isinstance(v, dict) and "ms" in v},
+                                 "timed_bf16": {
+                                     k: v["bf16"]["ms"] for k, v in res["slice"].items()
+                                     if isinstance(v, dict) and "ms" in v}}),
           flush=True)
     torch.cuda.empty_cache()
     return res
@@ -5030,7 +5288,10 @@ def main() -> int:
                "brats": phase_k1((4, 2) + BRATS_PATCH, 9, 1, timed=True,
                                  dtype=bf16),
                "acal": phase_k1((12, 4, 256, 256), 10, 1, timed=True,
-                                dtype=bf16)}
+                                dtype=bf16),
+               # the 2D zoo's bf16 single-decoder step on the whole batch
+               "zoo2d": phase_k1((24, 4, 256, 256), 12, 1, timed=True,
+                                 dtype=bf16)}
     # the 2D zoo's single-decoder supervised step (R = 1) on the whole batch
     k1_zoo2d = phase_k1((24, 4, 256, 256), 11, 1, timed=True)
     lap("3_k1")
@@ -5231,6 +5492,15 @@ def main() -> int:
                            ("K1_bwd_zoo2d", "chap_tpu/ops/fused_losses.py:159")):
         row = k1_row(name, replaces, name[:6], k1_zoo2d, k1_zoo2d,
                      zoo2d["slice"]["launches"], None)
+        del row["acal_ablation_launches"]
+        row["zoo2d_keys"] = list(ZOO2D_SINGLE)
+        kernels.append(row)
+    # the same steps in bf16 (model.dtype=bfloat16): every launch at bf16
+    # logits, [24, 4, 256, 256] (swinunet [24, 4, 224, 224])
+    for name, replaces in (("K1_fwd_bf16_zoo2d", "chap_tpu/ops/fused_losses.py:99"),
+                           ("K1_bwd_bf16_zoo2d", "chap_tpu/ops/fused_losses.py:159")):
+        row = k1_row(name, replaces, name[:6], k1_bf16["zoo2d"], k1_bf16["zoo2d"],
+                     zoo2d["slice"]["launches_bf16"], None)
         del row["acal_ablation_launches"]
         row["zoo2d_keys"] = list(ZOO2D_SINGLE)
         kernels.append(row)

@@ -224,9 +224,12 @@ def test_instance_norm_gradient_in_bf16():
 
 def test_bf16_conv_on_the_cpu_is_the_cards_product():
     """A bf16 convolution on the CPU is the float32 product of the bf16
-    operands rounded once (the card's bf16 convolution, float32
-    accumulation), also at the strided shape where oneDNN's own bf16
-    convolution is 7.6 off at a scale of 6.6; the gradient reaches the
+    operands rounded once, the bf16 bias then added in bf16 (the card's
+    bf16 convolution: float32 accumulation, and PyTorch adds a cuDNN
+    convolution's bias after it, as Flax's nn.Conv adds its bias to the
+    bf16 product; chip_smoke.py's ``bf16_products`` line holds the CPU's
+    product to the card's), also at the strided shape where oneDNN's own
+    bf16 convolution is 7.6 off at a scale of 6.6; the gradient reaches the
     float32 kernel."""
     torch.manual_seed(0)
     conv = set_compute_dtype(Conv3d(32, 64, 3, stride=2, padding=1), torch.bfloat16)
@@ -234,7 +237,8 @@ def test_bf16_conv_on_the_cpu_is_the_cards_product():
     out = conv(x)
     assert out.dtype == torch.bfloat16 and conv.weight.dtype == torch.float32
     want = F.conv3d(x.bfloat16().float(), conv.weight.bfloat16().float(),
-                    conv.bias.bfloat16().float(), stride=2, padding=1).bfloat16()
+                    None, stride=2, padding=1).bfloat16()
+    want = want + conv.bias.bfloat16().view(1, -1, 1, 1, 1)
     assert torch.equal(out, want)
     out.float().sum().backward()
     assert conv.weight.grad.dtype == torch.float32
@@ -287,7 +291,8 @@ def test_float32_statistics_norms_in_bf16(norm):
 # the factories
 # ---------------------------------------------------------------------------
 
-KEYS_2D = ("unet", "unetp", "dualdecoder", "acalnet", "unet_cct", "unet_urpc")
+KEYS_2D = ("unet", "unetp", "dualdecoder", "acalnet", "unet_cct", "unet_urpc",
+           "resunet", "dual_student", "swinunet", "enet", "pnet", "efficient_unet")
 KEYS_3D = ("unet_3D", "attention_unet", "unet_3D_dv_semi", "voxresnet", "vnet",
            "vnet_ds", "dualdecoder", "resvnet")
 
@@ -296,7 +301,8 @@ KEYS_3D = ("unet_3D", "attention_unet", "unet_3D_dv_semi", "voxresnet", "vnet",
                          + [f"3d:{k}" for k in KEYS_3D])
 def test_factories_build_every_key_in_bf16(key):
     """model.dtype=bfloat16 builds every key of both factories: float32
-    parameters, bf16 outputs (train and eval), float32 gradients."""
+    parameters, bf16 outputs (train and eval), float32 gradients (swinunet
+    at its factory's 224^2)."""
     rank, name = key.split(":")
     cfg = ModelConfig()
     cfg.dtype = "bfloat16"
@@ -304,7 +310,8 @@ def test_factories_build_every_key_in_bf16(key):
     cfg.n_filters_3d = 2
     if rank == "2d":
         model = net_factory(name, 1, 2, cfg, device="cpu")
-        x = torch.randn(2, 1, 32, 32)
+        side = 224 if name == "swinunet" else 32
+        x = torch.randn(2, 1, side, side)
     else:
         model = net_factory_3d(name, 1, 2, "train", cfg, device="cpu")
         x = torch.randn(2, 1, 16, 16, 16)

@@ -214,7 +214,7 @@ def seeded_variables(shapes, seed: int = 0) -> dict:
             return (rs.randn(*shape) / np.sqrt(fan_in)).astype(np.float32)
         if name == "scale":
             return (1.0 + 0.1 * rs.randn(*shape)).astype(np.float32)
-        return (0.1 * rs.randn(*shape)).astype(np.float32)
+        return np.asarray(0.1 * rs.randn(*shape), np.float32)
 
     params = jax.tree_util.tree_map_with_path(fill, shapes["params"])
     stats = jax.tree.map(lambda a: rs.uniform(0.5, 1.5, a.shape).astype(np.float32),

@@ -216,7 +216,9 @@ def assert_outputs(got, want, key, what):
 def test_factory_builds_every_chap_tpu_key():
     """The port's net_factory takes exactly chap_tpu's 2D keys with its
     constructor arguments (the output count and shape at 64^2, 224^2 for
-    swinunet); an unknown key raises and lists them."""
+    swinunet); an unknown key raises and lists them; model.dtype=bfloat16
+    builds enet (as every key: tests/test_torch_bf16.py) and it gives bf16
+    logits over float32 parameters."""
     keys = ("unet", "unetp", "dualdecoder", "acalnet", "unet_cct", "unet_urpc",
             "resunet", "dual_student", "swinunet", "enet", "pnet",
             "efficient_unet")
@@ -235,8 +237,11 @@ def test_factory_builds_every_chap_tpu_key():
         jax_factory.net_factory("unet_2dbcp", 1, 4, jcfg.model)
     cfg = Config()
     cfg.model.dtype = "bfloat16"
-    with pytest.raises(ValueError, match="runs in float32"):
-        net_factory("enet", 1, 4, cfg.model, device="cpu")
+    enet = net_factory("enet", 1, 4, cfg.model, device="cpu").eval()
+    with torch.no_grad():
+        logits = enet(torch.zeros(1, 1, 64, 64))
+    assert logits.dtype == torch.bfloat16 and logits.shape == (1, 4, 64, 64)
+    assert all(p.dtype == torch.float32 for p in enet.parameters())
 
 
 @pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
@@ -282,8 +287,9 @@ def test_zoo_forward_matches_chap_tpu(monkeypatch, key, train):
         assert key == "swinunet" and not jax.tree.leaves(upd)
 
 
-# the keys that compute in bf16 (factory.BF16_2D_KEYS but the DualDecoder's,
-# which tests/test_torch_bf16.py holds) and chap_tpu's module of each
+# the UNet family's keys but the DualDecoder's (which tests/test_torch_bf16.py
+# holds; the other keys: tests/test_torch_bf16_zoo2d.py) and chap_tpu's
+# module of each
 BF16_ZOO = {"unet": JaxUNet, "unetp": JaxUNetPlus, "unet_cct": JaxUNetCCT,
             "unet_urpc": JaxUNetURPC}
 
