@@ -20,12 +20,11 @@ writes its files; the process group is destroyed at exit, also on error.
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import logging
 import os
 from typing import List, Optional
 
-from chap_tpu_torch.config import apply_overrides, load_config
+from chap_tpu_torch.config import apply_overrides, config_to_dict, load_config
 from chap_tpu_torch.device import resolve_device
 from chap_tpu_torch.parallel import dist
 from chap_tpu_torch.utils.launch import open_run_dir
@@ -116,7 +115,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
         model_dir = (cfg.model.name_3d if method == "supervised"
                      else "dualdecoder3d")
         save_dir = open_run_dir(snapshot_path, model_dir, args.resume,
-                                args.text, dataclasses.asdict(cfg), device)
+                                args.text, config_to_dict(cfg), device)
 
         from chap_tpu_torch.train.trainer_3d import train
         result = train(cfg, save_dir, labeled_cases=cfg.data.labeled_num,

@@ -26,12 +26,11 @@ writes its files; the process group is destroyed at exit, also on error.
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import logging
 import os
 from typing import List, Optional
 
-from chap_tpu_torch.config import load_config
+from chap_tpu_torch.config import config_to_dict, load_config
 from chap_tpu_torch.device import resolve_device
 from chap_tpu_torch.parallel import dist
 from chap_tpu_torch.utils.launch import open_run_dir
@@ -100,7 +99,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
             cfg.run.snapshot_root, cfg.data.dataset,
             f"{cfg.run.exp}_{cfg.data.labeled_num}_labeled")
         save_dir = open_run_dir(snapshot_path, "acalnet", False, cfg.run.text,
-                                dataclasses.asdict(cfg), device)
+                                config_to_dict(cfg), device)
 
         from chap_tpu_torch.train.trainer_share import train
         result = train(cfg, save_dir, device=device)

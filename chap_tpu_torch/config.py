@@ -248,3 +248,8 @@ def acdc_chap_config() -> Config:
                  "noise_mag": 10.0, "adv_losstype": "kl", "topk1": 0.1},
         "run": {"exp": "bcp"},
     }, Config())
+
+
+def config_to_dict(cfg: Any) -> dict:
+    """A config dataclass as nested plain dicts (the run dir's config.json)."""
+    return dataclasses.asdict(cfg)

@@ -205,6 +205,37 @@ def _swin_depths(params: Mapping[str, Any]) -> Tuple[int, ...]:
     return tuple(depths)
 
 
+def swin_decoder_rules(params: Mapping[str, Any]) -> List[Rule]:
+    """chap SwinDecoder (swin_unet.py:194-279) -> the port's SwinDecoder:
+    the level count and each stage's depth read off the tree (stage inx's
+    blocks ``up{inx}_blk{d}``), the projector head where the tree holds it
+    (Flax makes it only when a call asks for the features)."""
+    n = _count(params, "patch_proj")
+    rules: List[Rule] = []
+    for i in range(n):
+        rules += [(f"patch_embed.{i}.proj", "conv", f"patch_proj{i}"),
+                  (f"patch_embed.{i}.norm", "ln", f"patch_norm{i}")]
+    rules += [("layers_up.0.expand", "linear", "expand0/Dense_0"),
+              ("layers_up.0.norm", "ln", "expand0/LayerNorm_0")]
+    for inx in range(1, n):
+        d = 0
+        while f"up{inx}_blk{d}" in params:
+            rules += _swin_block_rules(f"layers_up.{inx}.blocks.{d}", f"up{inx}_blk{d}")
+            d += 1
+        rules.append((f"concat_back_dim.{inx}", "linear", f"concat_back{inx}"))
+        if inx < n - 1:
+            rules += [(f"layers_up.{inx}.upsample.expand", "linear",
+                       f"expand{inx}/Dense_0"),
+                      (f"layers_up.{inx}.upsample.norm", "ln",
+                       f"expand{inx}/LayerNorm_0")]
+    rules += [("norm_up", "ln", "norm_up"), ("up.expand", "linear", "final_expand"),
+              ("up.norm", "ln", "final_norm"), ("output", "conv", "output")]
+    if "proj1" in params:
+        rules += [("proj1", "conv", "proj1"), ("proj_bn", "bn", "proj_bn"),
+                  ("proj2", "conv", "proj2")]
+    return rules
+
+
 def enet_rules() -> List[Rule]:
     """ENet: the initial block and the bottlenecks under chap_tpu's names."""
     def bn_prelu(tp, fp, i):
@@ -479,7 +510,8 @@ def resvnet_rules(normalization: str = "instancenorm") -> List[Rule]:
 
 
 # -- models no factory key reaches (models/{blocks, resnet, discriminator,
-# extras, gan_legacy, transformer_decoder}.py): LIBRARY_FAMILIES
+# extras, gan_legacy, transformer_decoder}.py, swin_unet.SwinDecoder):
+# LIBRARY_FAMILIES
 
 def _count(tree: Mapping[str, Any], prefix: str) -> int:
     """How many of ``prefix``0, ``prefix``1 ... a tree holds."""
@@ -711,6 +743,7 @@ LIBRARY_FAMILIES = {
     "unet_generator": unet_generator_rules,
     "nlayer_discriminator": nlayer_discriminator_rules,
     "mask_decoder": mask_decoder_rules, "kmax_decoder": kmax_decoder_rules,
+    "swin_decoder": swin_decoder_rules,
 }
 
 

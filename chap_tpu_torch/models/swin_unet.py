@@ -4,7 +4,8 @@ swin_transformer_unet_skip_expand_decoder_sys.py:63-817): a Swin
 Transformer encoder-decoder on tokens [B, L, C], windowed attention with a
 relative position bias, shifted windows (a roll and an attention mask),
 patch merging down, linear patch expanding up, skip concat + linear reduce,
-and a 4x expanding head.
+and a 4x expanding head. ``SwinDecoder`` is the decoder alone, over a
+5-level CNN feature pyramid.
 
 The factory builds it at img_size 224, as chap_tpu's does
 (chap_tpu/models/factory.py:55-57): the token grid is fixed at
@@ -25,7 +26,11 @@ Module names are the reference's SwinTransformerSys names that chap_tpu's
 ``patch_embed.proj``, ``layers.{i}.blocks.{d}.attn.qkv``,
 ``layers.{i}.downsample.reduction``, ``layers_up.0.expand``,
 ``layers_up.{j}.blocks.{d}``, ``concat_back_dim.{j}``, ``up.expand``,
-``output`` ...
+``output`` ... chap_tpu has no torch names for SwinDecoder
+(convert/torch_import.py has no rules for it); its modules here reuse
+SwinUNet's decoder names (``layers_up``, ``concat_back_dim``, ``norm_up``,
+``up``, ``output``) and convert/from_jax.py's ``swin_decoder_rules`` maps
+chap_tpu's Flax names onto them.
 """
 from __future__ import annotations
 
@@ -36,8 +41,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from chap_tpu_torch.models.layers import (Conv2d, LayerNorm, Linear, Stats,
-                                          matmul)
+from chap_tpu_torch.models.layers import (BatchNorm2d, Conv2d, LayerNorm,
+                                          Linear, Stats, matmul,
+                                          set_stats_keys)
 
 LN_EPS = 1e-5
 
@@ -291,3 +297,93 @@ class SwinUNet(nn.Module):
         b, side = x.shape[0], 4 * self.up.resolution[0]
         x = x.reshape(b, side, side, -1).permute(0, 3, 1, 2)
         return self.output(x)
+
+
+class SwinDecoder(nn.Module):
+    """Decoder-only Swin (chap_tpu/models/swin_unet.py:194-279; the
+    reference's SwinTransformer_Decoder, swin_..._original.py:807-1036):
+    each level of a 5-level CNN pyramid (``in_chans`` channels, e.g. a UNet
+    encoder's (16, 32, 64, 128, 256)) is patch-embedded by a stride
+    ``patch_size`` conv to embed_dim * 2 ** i channels and a LayerNorm
+    (``patch_embed.{i}``); the deepest embedding seeds the decoder through
+    a PatchExpand (``layers_up.0``); each stage 1..4 concatenates the
+    matching level's embedding, reduces it linearly (``concat_back_dim``)
+    and runs Swin blocks, shifted on every second, with depths[lvl] and
+    num_heads[lvl] of its level lvl = 4 - stage (the deepest level's
+    entries are unused, as in chap_tpu); every stage but the last expands
+    2x. Then ``norm_up``, a ``patch_size`` x expand that keeps the
+    channels (``up``), and a bias-free 1x1 ``output`` conv.
+
+    forward(features [B, in_chans[i], S / 2 ** i, S / 2 ** i] for i < 5,
+    with_features=False, stats=None) -> logits [B, C, S, S], or with
+    ``with_features`` (logits, projection [B, projection_dim, S, S]) from
+    the projector head proj1 -> BatchNorm (Flax train-mode semantics) ->
+    ReLU -> proj2. The token grids are fixed at construction from
+    ``img_size`` = S, where chap_tpu's follow the features: the shifted
+    windows' masks and each block's window (clamped to a grid no larger
+    than it) are built then, and chap_tpu's parameter shapes follow the
+    same grids, so a pyramid of another size raises. The window must
+    divide every grid larger than it (224 with patch 2 and window 7: grids
+    112 to 7). The wrong number of levels raises ValueError, as in
+    chap_tpu."""
+
+    def __init__(self, in_chans: Sequence[int] = (16, 32, 64, 128, 256),
+                 num_classes: int = 4, img_size: int = 224, embed_dim: int = 48,
+                 patch_size: int = 2, depths: Sequence[int] = (2, 2, 2, 2, 2),
+                 num_heads: Sequence[int] = (3, 6, 12, 24, 24),
+                 window_size: int = 7, projection_dim: int = 64):
+        super().__init__()
+        n = len(depths)
+        if len(in_chans) != n:
+            raise ValueError(f"need {n} pyramid channel counts, got {len(in_chans)}")
+        self.img_size, self.patch_size = img_size, patch_size
+        self.grids = [img_size // 2 ** i // patch_size for i in range(n)]
+        deepest = self.grids[-1]
+        self.patch_embed = nn.ModuleList(
+            PatchEmbed(c, embed_dim * 2 ** i, patch_size)
+            for i, c in enumerate(in_chans))
+        layers_up = [PatchExpand(embed_dim * 2 ** (n - 1), (deepest, deepest))]
+        concat = [nn.Identity()]
+        for inx in range(1, n):
+            lvl = n - 1 - inx
+            dim = embed_dim * 2 ** lvl
+            layers_up.append(BasicLayer(dim, depths[lvl], num_heads[lvl],
+                                        deepest << inx, window_size,
+                                        "up" if inx < n - 1 else None))
+            concat.append(Linear(2 * dim, dim))
+        self.layers_up = nn.ModuleList(layers_up)
+        self.concat_back_dim = nn.ModuleList(concat)
+        self.norm_up = LayerNorm(embed_dim, eps=LN_EPS)
+        side = deepest << (n - 1)
+        self.up = PatchExpand(embed_dim, (side, side), patch_size, embed_dim)
+        self.output = Conv2d(embed_dim, num_classes, 1, bias=False)
+        self.proj1 = Conv2d(embed_dim, projection_dim, 1)
+        self.proj_bn = BatchNorm2d(projection_dim)
+        self.proj2 = Conv2d(projection_dim, projection_dim, 1)
+        set_stats_keys(self)
+
+    def forward(self, features: Sequence[torch.Tensor], *,
+                with_features: bool = False, stats: Optional[Stats] = None):
+        n = len(self.patch_embed)
+        if len(features) != n:
+            raise ValueError(f"need {n} pyramid levels, got {len(features)}")
+        grids = [tuple(f.shape[2:]) for f in features]
+        if grids != [(s * self.patch_size,) * 2 for s in self.grids]:
+            raise ValueError(f"SwinDecoder is built for img_size {self.img_size} "
+                             f"(level grids {[s * self.patch_size for s in self.grids]}"
+                             f"), got {grids}")
+        embeds = [embed(f) for embed, f in zip(self.patch_embed, features)]
+        x = self.layers_up[0](embeds[-1])
+        for inx in range(1, n):
+            x = self.concat_back_dim[inx](torch.cat([x, embeds[n - 1 - inx]], dim=-1))
+            x = self.layers_up[inx](x)
+            if hasattr(self.layers_up[inx], "upsample"):
+                x = self.layers_up[inx].upsample(x)
+        x = self.up(self.norm_up(x))
+        side = self.patch_size * self.up.resolution[0]
+        x = x.reshape(x.shape[0], side, side, -1).permute(0, 3, 1, 2)
+        logits = self.output(x)
+        if not with_features:
+            return logits
+        p = F.relu(self.proj_bn(self.proj1(x), stats))
+        return logits, self.proj2(p)

@@ -33,7 +33,7 @@ def generate_mask_nd(spatial: Sequence[int], starts: Optional[Sequence] = None,
     outside."""
     spatial = tuple(int(s) for s in spatial)
     if starts is None:
-        starts = draw_box_starts(spatial, generator, patch_frac)
+        starts = draw_box_starts(spatial, generator, patch_frac, device)
     inside = None
     for axis, (size, psize, st) in enumerate(
             zip(spatial, patch_size_nd(spatial, patch_frac), starts)):
@@ -43,6 +43,15 @@ def generate_mask_nd(spatial: Sequence[int], starts: Optional[Sequence] = None,
         in_axis = (coord >= st) & (coord < st + psize)
         inside = in_axis if inside is None else (inside & in_axis)
     return torch.where(inside, 0, 1).to(torch.int32)
+
+
+def generate_mask(img_x: int, img_y: int, starts: Optional[Sequence] = None,
+                  generator: Optional[torch.Generator] = None,
+                  patch_frac: float = 2.0 / 3.0,
+                  device: Optional[torch.device] = None) -> torch.Tensor:
+    """2D wrapper: mask [img_x, img_y] int32 in {0,1}
+    (train_ours_2D.py:91-101)."""
+    return generate_mask_nd((img_x, img_y), starts, generator, patch_frac, device)
 
 
 def mix_images(a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

@@ -226,3 +226,12 @@ def largest_cc_mask(mask: torch.Tensor) -> torch.Tensor:
         return largest_cc_mask_plain(mask)
     return _kernel_for(mask)(mask.to(torch.int32), 2) == 1
 
+
+def get_masks_with_nms(logits: torch.Tensor, num_classes: int,
+                       nms: bool = True) -> torch.Tensor:
+    """Argmax pseudo-labels [B, *spatial] int32 of logits [B, C, *spatial],
+    each class's largest component kept where ``nms`` (get_ACDC_masks;
+    chap_tpu's argmax is over its last axis, the class axis here is 1): K2
+    on a CUDA tensor, its plain version on a CPU one."""
+    pseudo = torch.argmax(logits, dim=1).to(torch.int32)
+    return largest_cc_batch(pseudo, num_classes) if nms else pseudo

@@ -12,17 +12,22 @@ decay to the gradient and then applies momentum, which is chap_tpu's
 ``optax.chain(add_decayed_weights, sgd(momentum))`` (state.py:35-42). The LR
 is base * (1 - min(k, max) / max) ** 0.9 at the step count k BEFORE the
 increment, as optax evaluates its schedule.
+
+``update_ema`` is chap_tpu's mean-teacher EMA over a second model
+(``TrainState.ema_model``, chap_tpu's ``ema_params``); no trainer of either
+package calls it.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Mapping, Sequence, Tuple
+from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 
 from chap_tpu_torch.models.layers import BN_MOMENTUM, FlaxBatchNorm
 from chap_tpu_torch.semi.gradsim import init_sim_scores
+from chap_tpu_torch.utils.timing import param_count  # noqa: F401
 
 
 @dataclass
@@ -31,6 +36,7 @@ class TrainState:
     model: nn.Module
     optimizer: torch.optim.Optimizer
     sim_scores: List[torch.Tensor] = field(default_factory=list)
+    ema_model: Optional[nn.Module] = None
 
 
 def make_lr_schedule(base_lr: float, max_iterations: int, power: float = 0.9
@@ -77,3 +83,18 @@ def fold_batch_stats(model: nn.Module,
                 new_var = BN_MOMENTUM * new_var + (1 - BN_MOMENTUM) * b_var
             mean.copy_(new_mean)
             var.copy_(new_var)
+
+
+def update_ema(ema_model: nn.Module, model: nn.Module, decay: float,
+               step: int) -> nn.Module:
+    """Mean-teacher EMA with a true-average warm-up
+    (train_ours_2D.py:50-54 update_ema_variables; chap_tpu/train/state.py:
+    70-75): every parameter of ``ema_model`` becomes alpha * ema + (1 -
+    alpha) * param with alpha = min(1 - 1 / (step + 1), decay), in place;
+    returns ``ema_model``. Parameters only, as chap_tpu's over
+    ``params``: the BatchNorm running statistics are left alone."""
+    alpha = min(1.0 - 1.0 / (step + 1.0), decay)
+    with torch.no_grad():
+        for e, p in zip(ema_model.parameters(), model.parameters()):
+            e.mul_(alpha).add_(p.detach().to(e.dtype), alpha=1.0 - alpha)
+    return ema_model

@@ -55,9 +55,9 @@ Phases (any failure raises and the script exits non-zero):
                >= 99.9% of predicted pixels agree, mean dice within 1e-3
   8. trainer   chap_tpu_torch.cli.train_2d.main in process at
                configs/acdc_chap.yml's values with --dataset synthetic
-               (1,312-slice device pool, labeled_num 7): 20 CHAP steps with
-               an eval every 10 on 2 val volumes of 10 x 256^2, --resume to
-               30 (the step counter continues, the best slot is kept), then
+               (1,312-slice device pool, labeled_num 7): 10 CHAP steps with
+               an eval every 5 on 2 val volumes of 10 x 256^2, --resume to
+               15 (the step counter continues, the best slot is kept), then
                cli.test_2d on ``best`` (2 of its 8 phantom volumes); 5 supervised steps and 10 CHAP steps
                on the host loader path (data.device_input=false). Launch
                counters are set to 0 just before each run and read just
@@ -241,13 +241,13 @@ Phases (any failure raises and the script exits non-zero):
                two 160x160x96 volumes (stride 18 / 4, sw_batch 16) against
                W = 1's label maps (under 0.1% of voxels may differ; the
                count printed) with each rank's K3 launches; (a)
-               cli.train_2d (6 steps) and (h) cli.train_3d at
+               cli.train_2d (4 steps) and (h) cli.train_3d at
                configs/la_chap.yml as written (4 steps) under ``torchrun
                --nproc_per_node 1`` (NCCL) against the same runs in this
                process: losses within rtol 2e-3; (c) cli.train_2d in the
-               two gloo ranks: 6 steps and --resume to 9 (an eval every 3),
+               two gloo ranks: 4 steps and --resume to 6 (an eval every 2),
                one run dir written by rank 0, the records, val.csv and eval
-               dice of W = 1's run (dice within 5e-3), 9 x (4 + 12 / 1) launches a
+               dice of W = 1's run (dice within 5e-3), 6 x (4 + 12 / 1) launches a
                rank, and the eval of its final weights at W = 2 equal to
                this process's eval of them, exactly; (i) the ACAL iteration
                (joint step, decoder max-step, encoder min-step) at
@@ -312,7 +312,10 @@ Phases (any failure raises and the script exits non-zero):
  25. library   (runs after 24, before 23) the models no factory key
                reaches and the .pth import: (a) every model of
                models/{blocks, resnet, discriminator, extras, gan_legacy,
-               transformer_decoder}.py and EffiUNet-b3 at a small width on
+               transformer_decoder}.py, EffiUNet-b3 and SwinDecoder (with
+               its projector head, tests/test_torch_swin_decoder.py's size,
+               its weights through chap_tpu's Flax layout and back by
+               state_dict_from_flax) at a small width on
                the card and on the CPU from the same weights and dropout
                draws (TF32 off): every output in eval and train mode and
                the BN batch statistics at 5e-4 of the output's scale, then
@@ -320,7 +323,9 @@ Phases (any failure raises and the script exits non-zero):
                tests/test_torch_bf16.py against the CPU's bf16 and float32;
                the parameter gradients of GRL (a UNet's features reversed
                into NetD), KMax, the GAN pair (ResnetGenerator under
-               NLayerDiscriminator) and TinyUNet3D at rtol 2e-3 as vectors,
+               NLayerDiscriminator), TinyUNet3D and SwinDecoder (K1's
+               dice + CE on its logits plus its projection's mean) at rtol
+               2e-3 as vectors,
                and in bf16 by bar 2, one vector each; mask_selection with
                the same uniforms, equal (``parity_library``); (b) at full
                width (TF32 on, random weights from a seed) one warm-up and
@@ -331,8 +336,13 @@ Phases (any failure raises and the script exits non-zero):
                UnetGenerator and NLayerDiscriminator at 4 x 3 x 256^2,
                FCDiscriminator on 24 x 4 x 256^2 with NetD on its map,
                UNetTsne on 24 x 1 x 256^2, TinyUNet3D on 4 x 1 x 96^3,
-               EffiUNet-b3, and utils.timing.benchmark_fwd_bwd on the ACDC
-               DualDecoder: ms and peak GB (``slice_library``); (c)
+               EffiUNet-b3, utils.timing.benchmark_fwd_bwd on the ACDC
+               DualDecoder, and SwinDecoder (default widths, projector
+               head) on the ACDC UNet Encoder's pyramid of 24 x 1 x 224^2
+               under dice_ce_supervised, the launch counters set to 0
+               after the warm-up and 1 + 1 K1 a call asserted, then one
+               get_masks_with_nms on its logits (one K2 launch, maps equal
+               to the plain version's): ms and peak GB (``slice_library``); (c)
                reference-named .pth files of seeded weights (``module.``
                prefixes in a ``{"state_dict": ...}`` wrapper: the ACDC
                DualDecoder, LA's VNet and DualDecoder3d at n_filters_3d
@@ -348,7 +358,10 @@ Phases (any failure raises and the script exits non-zero):
                has rows of its own, and K1 at the 2D zoo's step shape
                [24, 4, 256, 256] (``K1_{fwd,bwd}_zoo2d``: launches over
                phase 24's timed steps) and at bf16 logits
-               (``K1_{fwd,bwd}_bf16_zoo2d``: over (b-bf16)'s); the R = 1
+               (``K1_{fwd,bwd}_bf16_zoo2d``: over (b-bf16)'s; both with
+               phase 25's SwinDecoder calls as
+               ``library_swin_decoder_launches``, and the K2 row with its
+               ``library_get_masks_with_nms_launches``); the R = 1
                rows carry
                ``caller_bound_ms``, the bound for what their supervised
                callers need: the logits and uint8 labels, no mask; a
@@ -407,12 +420,14 @@ from chap_tpu_torch.cli import train_2d as cli_train
 from chap_tpu_torch.cli import train_3d as cli_train3d
 from chap_tpu_torch.cli import train_share_2d as cli_share
 from chap_tpu_torch.config import acdc_chap_config, load_config
+from chap_tpu_torch.convert.from_jax import state_dict_from_flax, swin_decoder_rules
 from chap_tpu_torch.data.datasets import (SyntheticSliceDataset, SyntheticVolumeDataset,
                                           build_datasets, patients_to_slices,
                                           phantom_batch)
 from chap_tpu_torch.data.device_data import build_device_batch_fn, build_device_pool
 from chap_tpu_torch.data.pipeline import to_device
 from chap_tpu_torch.eval import sliding_window as sw
+from chap_tpu_torch.losses.dice import dice_ce_supervised
 from chap_tpu_torch.eval.eval2d import (evaluate_volumes, make_adv_predictor,
                                         make_ds_predictor, make_predictor,
                                         predict_volume, test_single_adv_polyp,
@@ -436,11 +451,11 @@ from chap_tpu_torch.models.perturb import mask_selection
 from chap_tpu_torch.models.pnet import PNet2D
 from chap_tpu_torch.models.resunet2d import ResUNet2d
 from chap_tpu_torch.models.resvnet import ResVNet
-from chap_tpu_torch.models.swin_unet import SwinUNet
+from chap_tpu_torch.models.swin_unet import SwinDecoder, SwinUNet
 from chap_tpu_torch.models.transformer_decoder import (KMaxTransformerDecoder,
                                                        MaskTransformerDecoder,
                                                        MaskTransformerDecoderV1)
-from chap_tpu_torch.models.unet2d import UNet, UNetCCT, UNetPlus, UNetURPC
+from chap_tpu_torch.models.unet2d import Encoder, UNet, UNetCCT, UNetPlus, UNetURPC
 from chap_tpu_torch.models.unet3d import UNet3D
 from chap_tpu_torch.models.unet3d_dv import UNet3DDvSemi
 from chap_tpu_torch.models.vnet3d import DualDecoder3d, VNet, VNetDS
@@ -466,6 +481,8 @@ from chap_tpu_torch.utils.timing import benchmark_fwd_bwd
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 FP32_FLOP_PER_S = 67e12        # outside the tensor cores
 RTOL = 2e-3
+# the pause at each end of a torch.profiler session (device_kernels)
+PROFILER_MARGIN_S = 0.02
 # per CHAP step: 4 mix_loss calls, each one K1 forward over both regions and
 # one K1 backward in each of grads_l, grads_u and total.backward(); one K2
 # (the 2D kernel for slices, the 3D one for patches); no K3 (eval only)
@@ -481,8 +498,8 @@ RUNS_DIR = os.path.join("build", "chip_smoke_runs")
 TRAINER_FLAGS = ["--cfg", "configs/acdc_chap.yml", "--dataset", "synthetic",
                  "--adv_noise", "--dropout", "--labeled_num", "7",
                  "--device", "cuda"]
-TRAINER_OVERRIDES = ["eval.eval_every=10", "data.synthetic_val_volumes=2",
-                     "run.log_every=10", f"run.snapshot_root={RUNS_DIR}"]
+TRAINER_OVERRIDES = ["eval.eval_every=5", "data.synthetic_val_volumes=2",
+                     "run.log_every=5", f"run.snapshot_root={RUNS_DIR}"]
 # cli.test_2d's synthetic set cut to 2 of its 8 phantom volumes (phases 8,
 # 24 and 25; the host's surface metrics take most of a run)
 TWO_VOLUMES = functools.partial(SyntheticVolumeDataset, length=2)
@@ -581,29 +598,42 @@ def device_kernels(fn, n: int = 1) -> list:
     times, from Kineto's raw events: ``prof.events()`` drops a device
     kernel it cannot tie to a CPU op, and lost one of three K1 backward
     kernels in each of three sessions in a row on an H100 (the backward
-    launches from autograd's device thread)."""
+    launches from autograd's device thread).
+
+    Kineto also keeps only the device events that fall inside the
+    session's window on its own clock, and the first kernel fn launched
+    right after the session opened went missing: 2 of 3 launches of K1's
+    first forward kernel and of its backward kernel in six sessions in a
+    row of one process on an H100. So the session opens with a marker
+    kernel (``torch.cuda._sleep``'s ``spin_kernel``, left out of the list)
+    and a pause before fn's first launch, and closes after a pause past
+    its last."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        time.sleep(PROFILER_MARGIN_S)
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
+        time.sleep(PROFILER_MARGIN_S)
     return [(ev.name(), ev.duration_ns() / 1e3)
             for ev in prof.profiler.kineto_results.events()
-            if ev.device_type() == torch.autograd.DeviceType.CUDA]
+            if ev.device_type() == torch.autograd.DeviceType.CUDA
+            and "spin_kernel" not in ev.name()]
 
 
 def kernel_counts(fn, n: int) -> dict:
     """name -> number of device kernels torch.profiler sees while fn runs n
     times, where fn launches each of its kernels at every call. A session
     that saw no device kernel, or a kernel fewer than n times and none more,
-    has lost events and is taken again, up to three sessions:
-    torch.profiler has returned an empty session for a short call, and
-    once 2 launches of a kernel over 3 calls of K1's Function. A kernel
-    seen more than n times ends the retries, and a kernel of another name
-    shows in every session."""
-    for _ in range(3):
+    has lost events and is taken again, up to six sessions:
+    torch.profiler has returned an empty session for a short call. A
+    kernel seen more than n times ends the retries, and a kernel of another
+    name shows in every session."""
+    for _ in range(6):
         counts = {}
         for name, _ in device_kernels(fn, n):
             counts[name] = counts.get(name, 0) + 1
@@ -1174,21 +1204,21 @@ def phase_trainer(bare_step_ms: float) -> dict:
     set_tf32(True)     # PyTorch's defaults, as in phase 6
     shutil.rmtree(RUNS_DIR, ignore_errors=True)
     torch.cuda.reset_peak_memory_stats()
-    first = trainer_run(["--max_iterations", "20"], [], 20, LAUNCHES_PER_STEP)
+    first = trainer_run(["--max_iterations", "10"], [], 10, LAUNCHES_PER_STEP)
     peak = torch.cuda.max_memory_allocated()
     save_dir = first["save_dir"]
-    check(first["steps"] == 20, f"20 CHAP steps, ran {first['steps']}")
+    check(first["steps"] == 10, f"10 CHAP steps, ran {first['steps']}")
     best_before = _meta(save_dir)
-    resumed = trainer_run(["--max_iterations", "30", "--resume"], [], 10,
+    resumed = trainer_run(["--max_iterations", "15", "--resume"], [], 5,
                           LAUNCHES_PER_STEP)
-    check(resumed["save_dir"] == save_dir and resumed["steps"] == 30,
-          f"resume continues the run to step 30: {resumed['steps']}")
+    check(resumed["save_dir"] == save_dir and resumed["steps"] == 15,
+          f"resume continues the run to step 15: {resumed['steps']}")
     evals = [r for r in resumed["records"] if "val_mean_dice" in r]
-    check([r["step"] for r in evals] == [10, 20, 30],
-          f"evals at 10, 20, 30: {[r['step'] for r in evals]}")
+    check([r["step"] for r in evals] == [5, 10, 15],
+          f"evals at 5, 10, 15: {[r['step'] for r in evals]}")
     best_after = _meta(save_dir)
     check(best_after["best_metric"] >= best_before["best_metric"] and
-          (best_after == best_before or best_after["best_iteration"] == 30),
+          (best_after == best_before or best_after["best_iteration"] == 15),
           f"best slot kept across the resume: {best_before} -> {best_after}")
     t0 = time.perf_counter()
     with mock.patch.object(cli_test, "SyntheticVolumeDataset", TWO_VOLUMES):
@@ -1228,16 +1258,16 @@ def phase_trainer(bare_step_ms: float) -> dict:
         # steps over the wall time from the run's loop start to each log
         # step, the evals and checkpoints before it included
         "window_steps_per_s": {
-            "chap_20": rates(first, "steps_per_sec"),
-            "resume_10": rates(resumed, "steps_per_sec", after=20)},
+            "chap_10": rates(first, "steps_per_sec"),
+            "resume_5": rates(resumed, "steps_per_sec", after=10)},
         "eval_s": [r["eval_s"] for r in evals],
         "checkpoint_ms": [r["checkpoint_ms"] for r in evals],
         "val_dice": [r["val_mean_dice"] for r in evals],
         "best": best_after, "test_2d_mean": test_mean.mean(axis=0).tolist(),
         "test_2d_s": test_s, "peak_mem_bytes": peak,
-        "wall_s": {"chap_20": first["wall_s"], "resume_10": resumed["wall_s"],
+        "wall_s": {"chap_10": first["wall_s"], "resume_5": resumed["wall_s"],
                    "supervised_5": supervised["wall_s"], "host_10": host["wall_s"]},
-        "launches": {"chap_20": first["launches"], "resume_10": resumed["launches"],
+        "launches": {"chap_10": first["launches"], "resume_5": resumed["launches"],
                      "supervised_5": supervised["launches"],
                      "host_10": host["launches"]},
         "settings": tf32_settings()}
@@ -3547,6 +3577,75 @@ def phase_zoo2d() -> dict:
 # phase 25: the library (models no factory key reaches, convert, timing)
 LIB_RUNS = os.path.join(RUNS_DIR, "library")
 LIB_CHNS = (4, 8, 16, 16, 32)
+# SwinDecoder at tests/test_torch_swin_decoder.py's size (chap_tpu's
+# tests/test_swin_decoder.py): a 5-level pyramid of 32^2 and below
+SWIN_DEC_CHANS = (16, 32, 64, 128, 256)
+SWIN_DEC_SMALL = dict(num_classes=4, img_size=32, embed_dim=8,
+                      num_heads=(1, 2, 2, 4, 4), window_size=4, projection_dim=16)
+SWIN_DEC_PYRAMID = [(2, c, 32 >> i, 32 >> i) for i, c in enumerate(SWIN_DEC_CHANS)]
+
+
+class SwinDecoderFeatures(SwinDecoder):
+    """SwinDecoder called with its projector head: (logits, projection)."""
+
+    def forward(self, features, stats=None):
+        return super().forward(features, with_features=True, stats=stats)
+
+
+def flax_layout(model: torch.nn.Module, rules) -> tuple:
+    """The Flax variables (numpy params, batch_stats) that ``rules`` carry
+    onto ``model``'s state_dict: state_dict_from_flax's layouts undone
+    (a 2D conv's kernel (kh, kw, I, O), a Dense's (I, O), a norm's scale)."""
+    sd = {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()}
+    params, stats = {}, {}
+
+    def node(tree, path):
+        for part in path.split("/"):
+            tree = tree.setdefault(part, {})
+        return tree
+
+    for tp, kind, fp in rules:
+        if kind == "raw":
+            parent, _, name = fp.rpartition("/")
+            node(params, parent)[name] = sd[tp]
+            continue
+        leaf, w = node(params, fp), sd[f"{tp}.weight"]
+        leaf["kernel" if kind in ("conv", "linear") else "scale"] = (
+            np.transpose(w, (2, 3, 1, 0)) if kind == "conv" else
+            w.T if kind == "linear" else w)
+        if f"{tp}.bias" in sd:
+            leaf["bias"] = sd[f"{tp}.bias"]
+        if kind == "bn":
+            node(stats, fp).update(mean=sd[f"{tp}.running_mean"],
+                                   var=sd[f"{tp}.running_var"])
+    return params, stats
+
+
+def carried_swin_decoder() -> SwinDecoderFeatures:
+    """A seeded SwinDecoder at the tests' size (non-trivial running
+    statistics) whose weights went to chap_tpu's Flax layout and came back
+    through state_dict_from_flax (family ``swin_decoder``), as the CPU
+    tests carry chap_tpu's: the round trip must give every tensor back."""
+    model = SwinDecoderFeatures(SWIN_DEC_CHANS, **SWIN_DEC_SMALL)
+    with torch.no_grad():
+        model.proj_bn.running_mean.uniform_(-0.5, 0.5)
+        model.proj_bn.running_var.uniform_(0.5, 1.5)
+    names = [f"patch_proj{i}" for i in range(len(SWIN_DEC_CHANS))] + ["proj1"] + [
+        f"up{inx}_blk{d}" for inx, layer in enumerate(model.layers_up) if inx
+        for d in range(len(layer.blocks))]
+    params, stats = flax_layout(model, swin_decoder_rules(dict.fromkeys(names)))
+    sd, want = state_dict_from_flax(params, stats, family="swin_decoder"), model.state_dict()
+    check(set(sd) == set(want) and all(torch.equal(sd[k], want[k]) for k in sd),
+          "SwinDecoder's weights through the Flax layout and back")
+    model.load_state_dict(sd)
+    return model
+
+
+def swin_decoder_loss(out, labels) -> torch.Tensor:
+    """dice_ce_supervised (K1 on the card) on the logits plus the
+    projection's mean."""
+    logits, proj = out
+    return dice_ce_supervised(logits, labels, logits.shape[1]) + proj.float().mean()
 
 
 def library_models() -> dict:
@@ -3590,6 +3689,7 @@ def library_models() -> dict:
                          [[(2, 16, 8, 8)]]),
         "effiunet_b3": (lambda: EffiUNet(1, 4, encoder_name="efficientnet-b3"),
                         [(2, 1, 64, 64)]),
+        "swin_decoder": (carried_swin_decoder, [SWIN_DEC_PYRAMID]),
     }
 
 
@@ -3686,7 +3786,9 @@ def library_grad_parity(gen) -> dict:
     weights): GRL, KMax, the GAN pair, TinyUNet3D; rtol 2e-3 as vectors
     (grad_gap); then each pair in bf16 (set_compute_dtype), every
     parameter's gradient as one vector held by hold_card_bf16 against the
-    CPU's bf16 and float32 gradients."""
+    CPU's bf16 and float32 gradients. SwinDecoder's: dice_ce_supervised
+    (K1 on the card) on its logits plus its projection's mean, train
+    mode."""
     w = [torch.randn((2, 4, 8, 8), generator=gen) for _ in range(2)]
     lab = torch.randint(0, 2, (2, 16, 16, 16), generator=gen)
     cases = {
@@ -3703,6 +3805,10 @@ def library_grad_parity(gen) -> dict:
                         [torch.randn((2, 1, 16, 16, 16), generator=gen)],
                         lambda m, x: tiny_loss(m(x), lab.to(x.device))),
     }
+    pyramid = [torch.randn(s, generator=gen) for s in SWIN_DEC_PYRAMID]
+    lab2d = torch.randint(0, 4, (2, 32, 32), generator=gen)
+    cases["swin_decoder"] = (carried_swin_decoder, [pyramid], lambda m, x: swin_decoder_loss(
+        m(x, stats={}), lab2d.to(x[0].device)))
     res = {}
     for name, (make, inputs, loss_fn) in cases.items():
         torch.manual_seed(51)
@@ -3806,19 +3912,23 @@ def phase_parity_library() -> dict:
             check(torch.equal(got, want), f"mask_selection wrs={wrs} {percent}")
     res["mask_selection_equal"] = True
     res["settings"] = tf32_settings()
+    res["card"] = card_line()
     print("parity_library", json.dumps(res), flush=True)
     return res
 
 
-def fwd_bwd_timed(make_loss, n: int = 3) -> dict:
+def fwd_bwd_timed(make_loss, n: int = 3, before_timed=None) -> dict:
     """``make_loss()`` built, then one warm-up and ``n`` timed forward +
     backward calls of the loss it returns (a sync after each): median ms,
-    peak GB of the whole (warm-up included)."""
+    peak GB of the whole (warm-up included). ``before_timed()`` is called
+    after the warm-up."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     loss_fn, params = make_loss()
     times = []
     for i in range(n + 1):
+        if i == 1 and before_timed is not None:
+            before_timed()
         for p in params:
             p.grad = None
         t0 = time.perf_counter()
@@ -3926,9 +4036,73 @@ def phase_slice_library() -> dict:
         else:
             out["timing_dualdecoder"]["bf16"] = row
         del dual
+    out["swin_decoder"] = swin_decoder_slice()
     out["settings"] = tf32_settings()
     out["card"] = card_line()
     print("slice_library", json.dumps(out), flush=True)
+    return out
+
+
+def swin_decoder_slice(n: int = 3) -> dict:
+    """(b)'s SwinDecoder: the ACDC UNet Encoder (configs/acdc_chap.yml's
+    widths 16-256, train mode) on 24 x 1 x 224^2 feeding a default
+    SwinDecoder (embed_dim 48, patch 2, depths (2,) x 5, heads (3, 6, 12,
+    24, 24), window 7, projection 64) with its projector head; the loss
+    swin_decoder_loss. One warm-up and ``n`` timed forward + backward calls
+    in float32 (TF32 on) and, under ``bf16``, with both models in bf16 on
+    the bf16 image: ms and peak GB, the launch counters set to 0 after the
+    warm-up and read after the timed calls, 1 + 1 K1 a call (at bf16
+    logits in bf16). Then get_masks_with_nms on the last float32 logits:
+    one K2 launch, its maps equal to largest_cc_batch_plain's on the same
+    argmax."""
+    cfg = acdc_chap_config()
+    gen = torch.Generator(device="cuda").manual_seed(56)
+    img = torch.randn((24, 1, 224, 224), generator=gen, device="cuda")
+    labels = torch.randint(0, 4, (24, 224, 224), generator=gen, device="cuda")
+    last = {}
+
+    def build(dtype):
+        torch.manual_seed(57)
+        enc = Encoder(1, cfg.model.feature_chns, cfg.model.dropout).cuda()
+        dec = SwinDecoder(tuple(cfg.model.feature_chns), num_classes=4,
+                          img_size=224).cuda()
+        for m in (enc, dec):
+            set_compute_dtype(m.train(), dtype)
+        x = img.to(dtype)
+
+        def loss():
+            out = dec(enc(x), with_features=True, stats={})
+            last["logits"] = out[0].detach()
+            return swin_decoder_loss(out, labels)
+        return loss, list(enc.parameters()) + list(dec.parameters())
+
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        row = fwd_bwd_timed(functools.partial(build, dtype), n, zero_launch_counts)
+        row["launches"], row["launches_bf16"] = launch_counts(), bf16_launch_counts()
+        bf16 = n if dtype == torch.bfloat16 else 0
+        check(row["launches"] == {**{k: 0 for k in row["launches"]},
+                                  "K1_fwd": n, "K1_bwd": n}
+              and row["launches_bf16"] == {"K1_fwd": bf16, "K1_bwd": bf16, "K3_sw": 0},
+              f"SwinDecoder {dtype}: 1 + 1 K1 a call over {n} calls: {row}")
+        check(last["logits"].dtype == dtype and last["logits"].shape == (24, 4, 224, 224),
+              f"SwinDecoder logits {last['logits'].dtype} {tuple(last['logits'].shape)}")
+        rows[dtype] = row
+        if dtype == torch.float32:
+            logits = last["logits"]
+            zero_launch_counts()
+            maps = nms.get_masks_with_nms(logits, 4)
+            k2 = launch_counts()
+            want = nms.largest_cc_batch_plain(logits.argmax(1).to(torch.int32), 4)
+            check(k2 == {**{k: 0 for k in k2}, "K2_ccl": 1},
+                  f"get_masks_with_nms launches K2 once: {k2}")
+            check(maps.dtype == torch.int32 and torch.equal(maps, want),
+                  "get_masks_with_nms maps equal to largest_cc_batch_plain's")
+            row["get_masks_with_nms"] = {"launches": k2["K2_ccl"], "maps": 24,
+                                         "equal_to_plain": True}
+        last.clear()
+    out = rows[torch.float32]
+    out["bf16"] = rows[torch.bfloat16]
     return out
 
 
@@ -4055,14 +4229,15 @@ FIRST_STEP_KINDS = ("la",)
 # (e)'s smaller planted fault: every summed gradient scaled by this, an
 # update 5% short from the first step on
 SCALED_GRADIENT = 0.95
-# cli.train_2d at configs/acdc_chap.yml's values with an eval every 3 and a
-# log line every step; the synthetic pool cut to 256 slices (labeled_num 7
+# cli.train_2d at configs/acdc_chap.yml's values with an eval every
+# DIST_EVAL_EVERY steps and a log line every step; the synthetic pool cut to 256 slices (labeled_num 7
 # takes 136 of them) so that each rank builds its pool in a second. (c)
 # runs DIST_TRAINER_STEPS then resumes to DIST_RESUME_STEPS, (a) runs
 # DIST_TRAINER_STEPS
-DIST_TRAINER_STEPS = 6
-DIST_RESUME_STEPS = 9
-DIST_OVERRIDES = ["eval.eval_every=3", "data.synthetic_val_volumes=2",
+DIST_TRAINER_STEPS = 4
+DIST_RESUME_STEPS = 6
+DIST_EVAL_EVERY = 2
+DIST_OVERRIDES = [f"eval.eval_every={DIST_EVAL_EVERY}", "data.synthetic_val_volumes=2",
                   "data.synthetic_train_size=256", "run.log_every=1",
                   f"run.snapshot_root={DIST_RUNS}"]
 # (h): cli.train_3d at configs/la_chap.yml as written (bf16), a log line a
@@ -5106,7 +5281,7 @@ def phase_dist(share_w: dict = None) -> dict:
               f"W = 2 trainer launches {got['trainer']['launches']}")
     dice = [{r["step"]: r["val_mean_dice"] for r in records
              if "val_mean_dice" in r} for records in (w1_records, w2_records)]
-    evals_at = [3, 6, 9]        # eval.eval_every=3 to DIST_RESUME_STEPS
+    evals_at = list(range(DIST_EVAL_EVERY, DIST_RESUME_STEPS + 1, DIST_EVAL_EVERY))
     check(sorted(dice[0]) == sorted(dice[1]) == evals_at,
           f"evals at {evals_at}: {dice}")
     dice_gap = max(abs(dice[1][s] - dice[0][s]) for s in dice[0])
@@ -5488,12 +5663,18 @@ def main() -> int:
             "ablation_bf16_slice_3_steps": share_bf16["ablation"]["launches_bf16"][key]}
     # the 2D zoo's single-decoder steps: launches over phase 24's timed
     # steps of the six single-output keys (3 each); no trainer runs them
+    swin_dec = library["slice"]["swin_decoder"]
+    # phase 25 (b): get_masks_with_nms on the SwinDecoder's logits
+    next(r for r in kernels if r["name"] == "K2_ccl")[
+        "library_get_masks_with_nms_launches"] = swin_dec["get_masks_with_nms"]["launches"]
     for name, replaces in (("K1_fwd_zoo2d", "chap_tpu/ops/fused_losses.py:99"),
                            ("K1_bwd_zoo2d", "chap_tpu/ops/fused_losses.py:159")):
         row = k1_row(name, replaces, name[:6], k1_zoo2d, k1_zoo2d,
                      zoo2d["slice"]["launches"], None)
         del row["acal_ablation_launches"]
         row["zoo2d_keys"] = list(ZOO2D_SINGLE)
+        # phase 25 (b): the SwinDecoder's timed calls at [24, 4, 224, 224]
+        row["library_swin_decoder_launches"] = swin_dec["launches"][name[:6]]
         kernels.append(row)
     # the same steps in bf16 (model.dtype=bfloat16): every launch at bf16
     # logits, [24, 4, 256, 256] (swinunet [24, 4, 224, 224])
@@ -5503,6 +5684,8 @@ def main() -> int:
                      zoo2d["slice"]["launches_bf16"], None)
         del row["acal_ablation_launches"]
         row["zoo2d_keys"] = list(ZOO2D_SINGLE)
+        row["library_swin_decoder_launches"] = swin_dec["bf16"]["launches_bf16"][
+            name[:6]]
         kernels.append(row)
     # phase 23's bare steps and eval at W gloo ranks: each rank's launches
     # (3 steps; a rank without rows launches K1's forward over nothing and
