@@ -7,6 +7,6 @@ without a card and without that request they raise (device.resolve_device).
 
 Hand-written kernels (each with a plain PyTorch version beside it, used for
 CPU tensors only, and a launch counter on its wrapper):
-    ops/fused_losses.py   K1: fused masked dice+CE statistics (Triton)
+    ops/fused_losses.py   K1: fused masked dice+CE statistics (CUDA)
     semi/nms.py + csrc/   K2: union-find largest connected component (CUDA)
 """

@@ -43,12 +43,12 @@ def dice_loss_bcp(probs: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor,
 def dice_ce_supervised(logits: torch.Tensor, labels: torch.Tensor,
                        num_classes: int) -> torch.Tensor:
     """The supervised arm 0.5 * (CE + Dice) (train_share_encoder_2D.py:322-327),
-    through K1 with an all-ones mask (its plain version on the CPU)."""
+    through K1 with no mask: every pixel counts (its plain version on the
+    CPU), the labels read in their own dtype."""
     if logits.shape[1] != num_classes:
         raise ValueError(f"logits have {logits.shape[1]} classes, expected "
                          f"{num_classes}")
-    ones = torch.ones(labels.shape, dtype=torch.float32, device=labels.device)
-    dice, ce = fused_masked_dice_ce(logits, labels, ones, smooth_dice=1e-5)
+    dice, ce = fused_masked_dice_ce(logits, labels, None, smooth_dice=1e-5)
     return 0.5 * (ce + dice)
 
 

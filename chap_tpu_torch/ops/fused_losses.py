@@ -1,4 +1,5 @@
-"""K1: fused masked dice + cross-entropy over one or two regions, in Triton.
+"""K1: fused masked dice + cross-entropy over one or two regions, a CUDA
+C++ kernel for Hopper (csrc/fused_losses.cu) bound with ctypes.
 
 Replaces chap_tpu/ops/fused_losses.py::masked_seg_stats -> _stats_kernel
 (the Pallas kernel, :36-72 and :99-133) and the XLA custom-VJP backward
@@ -17,61 +18,45 @@ labels l_r [B, *spatial] and weight w_r
     ce_r = sum_c CE_rc / (sum_c Y_rc + eps)
 (a pixel counts only where its label is in [0, C), as in chap_tpu).
 
-What bounds it on the H100: bytes, and on the main path the host. At
-mix_loss's shape [6, 4, 256, 256] a forward reads 6.3 MB of fp32 logits,
-two 1.6 MB int32 label maps and a 1.6 MB fp32 mask (11.0 MB, 3.3 us at
-3.35 TB/s); the backward reads the same and writes 6.3 MB of gradient
-(17.3 MB, 5.2 us). At the 3D CHAP step's [1, 2, 112, 112, 80] (R = 2) a
-forward reads 8.0 MB of logits and 12.0 MB of labels and mask (20.1 MB,
-6.0 us). Both are tens of flops a pixel, far below the rate the card
-computes at. What the design does about it:
-  * one read of the logits serves both regions: mix_loss calls K1 once
-    (R = 2, ``1 - mask`` formed in registers), not once per region;
-  * forward, two launches: ``stats_partials`` (two programs per SM) reduces
-    a strided range of pixels per program into fp32 partials
-    [P, R, 4, C_PAD]; ``stats_finalize`` (one program, one pass over the
-    partials) sums them in a fixed order and composes dice_r and ce_r on
-    the device, so two calls are bit-identical (no atomics) and no tiny
-    PyTorch kernels follow;
-  * backward, one launch for any R: ``stats_grad`` recomputes p once,
-    forms every region's per-class coefficients from the saved statistics
-    and the incoming grads (pointers, never read on the host), and writes
-    one gradient, the sum over the regions. A region whose grads are None
-    reads a device zero and contributes nothing. It is the gradient of the
-    forward also where a label lies outside [0, C), where chap_tpu's
-    ``_bwd`` is not (it keeps m p / (sum Y + eps) for such a pixel).
-Measured by chip_smoke.py on an H100 80GB HBM3 at 700 W at that shape with
-R = 2: 11.5 us of kernel time forward (two kernels) and 4.5-5.2 us
-backward, at its bytes bound; the host's 37-120 us per call to launch them
-now costs more than the card's work does.
+The kernels take the logits in fp32, bf16 or fp16 (computing in fp32 and
+storing the gradient in the logits' dtype), the labels in the dtype the
+caller holds (uint8, int32 or int64, both regions one dtype) and an fp32
+mask, or ``mask=None`` with one region, meaning every pixel counts:
+``dice_ce_supervised`` passes no mask and ``_prepare`` converts no dtype.
+What bounds them on the H100 is bytes (tens of flops a pixel against 5-18
+bytes); the design (the source's header has it in full): a grid of
+(chunk of the spatial plane, batch row) with one base pointer per class
+plane and no per-pixel division, 16-byte loads and stores where the plane
+length and the pointers allow (else a scalar path), a forward of two
+launches (the blocks' partial sums, then one block that adds them in a
+fixed order and composes dice and ce on the device: no float atomics, so
+two calls are bit-identical), and one backward launch for both regions
+that recomputes p and takes the coefficients from the saved statistics
+and the incoming grads on the device. The backward is the gradient of the
+forward also where a label lies outside [0, C), where chap_tpu's ``_bwd``
+is not (it keeps m p / (sum Y + eps) for such a pixel). Until commit dabe82d K1 was
+three Triton kernels; PERF.md §6 has both designs' times on the card.
 
 Beside the kernels, the plain PyTorch versions used for CPU tensors and by
 chip_smoke.py as the kernels' reference: ``region_stats_plain`` and
 ``compose_plain`` (forward, differentiable by autograd) and
-``stats_grad_plain`` (the backward's analytic gradient). A CUDA tensor
-launches the kernels or raises. ``stats_kernel.launches`` and
-``stats_grad_kernel.launches`` count launches of the forward and the
-backward, and their ``launches_bf16`` the launches at bf16 logits (a bf16
-model's: Triton compiles the kernels again for that pointer type; they load
-the logits as bf16 and compute in fp32, and the gradient is stored in
-bf16). At bf16 logits chip_smoke.py measured (same card) 0.031 / 0.031 ms
-forward / backward at [1, 2, 112, 112, 80] R = 2 and 0.088 / 0.101 ms at
-[4, 2, 96, 96, 96] R = 1, 2-4.6x the fp32 instantiation's time though the
-logits' bytes halve; why is not yet known (ROADMAP §2).
+``stats_grad_plain`` (the backward's analytic gradient), which take the
+same labels and masks. A CUDA tensor launches the kernels or raises.
+``stats_kernel.launches`` and ``stats_grad_kernel.launches`` count
+launches of the forward and the backward, and their ``launches_bf16`` the
+launches at bf16 logits (a bf16 model's).
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 from typing import Optional, Sequence, Tuple
 
 import torch
 
+from chap_tpu_torch.ops import cuda_build
 from chap_tpu_torch.parallel import dist
-
-BLOCK = 512            # pixels per tile, forward and backward
-PROGRAMS_PER_SM = 2    # forward programs; more pixels loop inside a program
-FIN_ROWS = 128         # partial rows the finalising program sums per step
 
 Stats = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
               torch.Tensor]
@@ -92,8 +77,14 @@ def _class_view(logits: torch.Tensor) -> torch.Tensor:
         (1, c) + (1,) * (logits.dim() - 2))
 
 
-def _regions(mask: torch.Tensor, labels: torch.Tensor,
+def _regions(mask: Optional[torch.Tensor], labels: torch.Tensor,
              labels2: Optional[torch.Tensor]):
+    """[(labels, weight)] per region; mask None weighs every pixel 1."""
+    if mask is None:
+        if labels2 is not None:
+            raise ValueError("mask=None (every pixel counts) takes one "
+                             "region: region 2 is weighed by 1 - mask")
+        return [(labels, torch.ones(labels.shape, device=labels.device))]
     m = mask.float()
     if labels2 is None:
         return [(labels, m)]
@@ -101,11 +92,12 @@ def _regions(mask: torch.Tensor, labels: torch.Tensor,
 
 
 def region_stats_plain(logits: torch.Tensor, labels: torch.Tensor,
-                       mask: torch.Tensor,
+                       mask: Optional[torch.Tensor],
                        labels2: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain version of K1's statistics: [R, 4, C] rows (I, Z, Y, CE) per
     class for region 1 (labels, mask) and, with ``labels2``, region 2
-    (labels2, 1 - mask). Logits [B, C, *spatial]; differentiable."""
+    (labels2, 1 - mask). Logits [B, C, *spatial], integer labels of any
+    dtype, mask None for every pixel (one region); differentiable."""
     x = logits.float()
     p = torch.softmax(x, dim=1)
     logp = torch.log_softmax(x, dim=1)
@@ -133,7 +125,7 @@ def compose_plain(stats: torch.Tensor, smooth_dice: float,
 
 
 def masked_seg_stats_plain(logits: torch.Tensor, labels: torch.Tensor,
-                           mask: torch.Tensor) -> Stats:
+                           mask: Optional[torch.Tensor]) -> Stats:
     """(I[C], Z[C], Y[C], ce_sum, mask_sum) for logits [B, C, *spatial]
     (chap_tpu's _masked_seg_stats_xla)."""
     inter, z, y, ce_c = region_stats_plain(logits, labels, mask)[0]
@@ -141,7 +133,7 @@ def masked_seg_stats_plain(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def stats_grad_plain(logits: torch.Tensor, labels: torch.Tensor,
-                     mask: torch.Tensor, stats: torch.Tensor,
+                     mask: Optional[torch.Tensor], stats: torch.Tensor,
                      grads: torch.Tensor, smooth_dice: float, eps_ce: float,
                      labels2: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain version of K1's backward, the arithmetic ``stats_grad`` does on
@@ -171,242 +163,119 @@ def stats_grad_plain(logits: torch.Tensor, labels: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Triton kernels
+# kernel wrappers (csrc/fused_losses.cu)
 # ---------------------------------------------------------------------------
+
+_SOURCE = "fused_losses.cu"
+LOGIT_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+LABEL_TYPES = {torch.uint8: 0, torch.int32: 1, torch.int64: 2}
+
 
 @functools.lru_cache(maxsize=None)
-def _kernels():
-    """Define the Triton kernels on first use (Triton is imported here, not
-    when the module is imported: the CPU tests import every module)."""
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def _load_probs(logits_ptr, offs, ok, hw, C: tl.constexpr,
-                    C_PAD: tl.constexpr):
-        cls = tl.arange(0, C_PAD)
-        cls_ok = cls < C
-        o64 = offs.to(tl.int64)
-        b = o64 // hw
-        base = b * (C * hw) + (o64 - b * hw)
-        off = base[None, :] + (cls.to(tl.int64) * hw)[:, None]
-        ld = cls_ok[:, None] & ok[None, :]
-        x = tl.load(logits_ptr + off, mask=ld, other=0.0).to(tl.float32)
-        x = tl.where(cls_ok[:, None], x, float("-inf"))
-        mx = tl.max(x, axis=0)
-        xs = x - mx[None, :]
-        ex = tl.exp(xs)
-        den = tl.sum(ex, axis=0)
-        p = ex / den[None, :]
-        logp = xs - tl.log(den)[None, :]
-        return p, logp, off, ld
-
-    @triton.jit
-    def _load_labels(lab_ptr, offs, ok, C: tl.constexpr):
-        """Labels, with those outside [0, C) (and the tile's tail) as -1:
-        they match no class, also not a padded one in [C, C_PAD)."""
-        lab = tl.load(lab_ptr + offs, mask=ok, other=-1)
-        return tl.where(lab < C, lab, -1)
-
-    @triton.jit
-    def stats_partials(logits_ptr, lab1_ptr, lab2_ptr, mask_ptr, part_ptr,
-                       n_pix, hw, C: tl.constexpr, C_PAD: tl.constexpr,
-                       R: tl.constexpr, BLOCK: tl.constexpr):
-        pid = tl.program_id(0)
-        nprog = tl.num_programs(0)
-        cls = tl.arange(0, C_PAD)
-        i1 = tl.zeros([C_PAD, BLOCK], dtype=tl.float32)
-        z1 = tl.zeros([C_PAD, BLOCK], dtype=tl.float32)
-        y1 = tl.zeros([C_PAD, BLOCK], dtype=tl.float32)
-        ce1 = tl.zeros([C_PAD, BLOCK], dtype=tl.float32)
-        i2 = tl.zeros([C_PAD, BLOCK], dtype=tl.float32)
-        z2 = tl.zeros([C_PAD, BLOCK], dtype=tl.float32)
-        y2 = tl.zeros([C_PAD, BLOCK], dtype=tl.float32)
-        ce2 = tl.zeros([C_PAD, BLOCK], dtype=tl.float32)
-        for start in range(pid * BLOCK, n_pix, nprog * BLOCK):
-            offs = start + tl.arange(0, BLOCK)
-            ok = offs < n_pix
-            p, logp, _, _ = _load_probs(logits_ptr, offs, ok, hw, C, C_PAD)
-            pp = p * p
-            m = tl.load(mask_ptr + offs, mask=ok, other=0.0)
-            lab = _load_labels(lab1_ptr, offs, ok, C)
-            t = cls[:, None] == lab[None, :]
-            wt = tl.where(t, m[None, :], 0.0)
-            i1 += p * wt
-            z1 += pp * m[None, :]
-            y1 += wt
-            ce1 += tl.where(t, -logp * m[None, :], 0.0)
-            if R == 2:
-                w2 = tl.where(ok, 1.0 - m, 0.0)
-                lab = _load_labels(lab2_ptr, offs, ok, C)
-                t = cls[:, None] == lab[None, :]
-                wt = tl.where(t, w2[None, :], 0.0)
-                i2 += p * wt
-                z2 += pp * w2[None, :]
-                y2 += wt
-                ce2 += tl.where(t, -logp * w2[None, :], 0.0)
-        out = part_ptr + pid * (R * 4 * C_PAD) + cls
-        tl.store(out, tl.sum(i1, axis=1))
-        tl.store(out + C_PAD, tl.sum(z1, axis=1))
-        tl.store(out + 2 * C_PAD, tl.sum(y1, axis=1))
-        tl.store(out + 3 * C_PAD, tl.sum(ce1, axis=1))
-        if R == 2:
-            tl.store(out + 4 * C_PAD, tl.sum(i2, axis=1))
-            tl.store(out + 5 * C_PAD, tl.sum(z2, axis=1))
-            tl.store(out + 6 * C_PAD, tl.sum(y2, axis=1))
-            tl.store(out + 7 * C_PAD, tl.sum(ce2, axis=1))
-
-    @triton.jit
-    def stats_finalize(part_ptr, out_ptr, n_part, smooth, eps,
-                       C: tl.constexpr, C_PAD: tl.constexpr, R: tl.constexpr,
-                       ROWS: tl.constexpr):
-        rows = tl.arange(0, ROWS)
-        kk = tl.arange(0, 4 * R)              # (I, Z, Y, CE) of each region
-        cls = tl.arange(0, C_PAD)
-        col = kk[:, None] * C_PAD + cls[None, :]
-        acc = tl.zeros([ROWS, 4 * R, C_PAD], dtype=tl.float32)
-        for start in range(0, n_part, ROWS):
-            r = start + rows
-            acc += tl.load(part_ptr + r[:, None, None] * (4 * R * C_PAD)
-                           + col[None, :, :],
-                           mask=(r < n_part)[:, None, None], other=0.0)
-        tot = tl.sum(acc, axis=0)             # rows summed in a fixed order
-        tl.store(out_ptr + col, tot)
-        cls_ok = cls < C
-        for q in tl.static_range(R):
-            inter = tl.sum(tl.where(kk[:, None] == 4 * q, tot, 0.0), axis=0)
-            z = tl.sum(tl.where(kk[:, None] == 4 * q + 1, tot, 0.0), axis=0)
-            y = tl.sum(tl.where(kk[:, None] == 4 * q + 2, tot, 0.0), axis=0)
-            ce = tl.sum(tl.where(kk[:, None] == 4 * q + 3, tot, 0.0), axis=0)
-            frac = (2.0 * inter + smooth) / (z + y + smooth)
-            dice = tl.sum(tl.where(cls_ok, 1.0 - frac, 0.0), axis=0) / C
-            ce_loss = tl.sum(ce, axis=0) / (tl.sum(y, axis=0) + eps)
-            tl.store(out_ptr + R * 4 * C_PAD + 2 * q, dice)
-            tl.store(out_ptr + R * 4 * C_PAD + 2 * q + 1, ce_loss)
-
-    @triton.jit
-    def _region_coef(stats_ptr, g_dice_ptr, g_ce_ptr, smooth, eps,
-                     C: tl.constexpr, C_PAD: tl.constexpr):
-        """Per-class dL/dI (a), the dL/dp coefficient of p (b) and the CE
-        scale (k) of one region, from its statistics and incoming grads."""
-        cls = tl.arange(0, C_PAD)
-        cls_ok = cls < C
-        inter = tl.load(stats_ptr + cls)
-        y = tl.load(stats_ptr + 2 * C_PAD + cls)
-        denom = tl.load(stats_ptr + C_PAD + cls) + y + smooth
-        g_dice = tl.load(g_dice_ptr)
-        a = tl.where(cls_ok, g_dice * (-2.0 / denom / C), 0.0)
-        b = tl.where(cls_ok, g_dice * 2.0 * (2.0 * inter + smooth)
-                     / (denom * denom) / C, 0.0)
-        k = tl.load(g_ce_ptr) / (tl.sum(y, axis=0) + eps)
-        return a, b, k
-
-    @triton.jit
-    def stats_grad(logits_ptr, lab1_ptr, lab2_ptr, mask_ptr, stats_ptr,
-                   gd1_ptr, gc1_ptr, gd2_ptr, gc2_ptr, grad_ptr, n_pix, hw,
-                   smooth, eps, C: tl.constexpr, C_PAD: tl.constexpr,
-                   R: tl.constexpr, BLOCK: tl.constexpr):
-        pid = tl.program_id(0)
-        cls = tl.arange(0, C_PAD)
-        offs = pid * BLOCK + tl.arange(0, BLOCK)
-        ok = offs < n_pix
-        p, _, off, ld = _load_probs(logits_ptr, offs, ok, hw, C, C_PAD)
-        m = tl.load(mask_ptr + offs, mask=ok, other=0.0)[None, :]
-        a, b, k = _region_coef(stats_ptr, gd1_ptr, gc1_ptr, smooth, eps,
-                               C, C_PAD)
-        lab = _load_labels(lab1_ptr, offs, ok, C)
-        t = tl.where(cls[:, None] == lab[None, :], 1.0, 0.0)
-        dl_dp = m * (a[:, None] * t + b[:, None] * p)
-        # a pixel whose label is outside [0, C) adds nothing to CE
-        d_ce = tl.where(lab[None, :] >= 0, k * m, 0.0) * (p - t)
-        if R == 2:
-            w2 = tl.where(ok, 1.0 - m, 0.0)
-            a, b, k = _region_coef(stats_ptr + 4 * C_PAD, gd2_ptr, gc2_ptr,
-                                   smooth, eps, C, C_PAD)
-            lab = _load_labels(lab2_ptr, offs, ok, C)
-            t = tl.where(cls[:, None] == lab[None, :], 1.0, 0.0)
-            dl_dp += w2 * (a[:, None] * t + b[:, None] * p)
-            d_ce += tl.where(lab[None, :] >= 0, k * w2, 0.0) * (p - t)
-        inner = tl.sum(dl_dp * p, axis=0)
-        g = p * (dl_dp - inner[None, :]) + d_ce
-        tl.store(grad_ptr + off, g.to(grad_ptr.dtype.element_ty), mask=ld)
-
-    return stats_partials, stats_finalize, stats_grad
+def _library() -> ctypes.CDLL:
+    return bind(cuda_build.load(_SOURCE))
 
 
-# ---------------------------------------------------------------------------
-# kernel wrappers
-# ---------------------------------------------------------------------------
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entry points' arguments on a loaded build of
+    fused_losses.cu."""
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.chap_k1_forward.argtypes = [ptr] * 6 + [i32] * 9 + [f32, f32, ptr]
+    lib.chap_k1_forward.restype = i32
+    lib.chap_k1_backward.argtypes = [ptr] * 10 + [i32] * 7 + [f32, f32, ptr]
+    lib.chap_k1_backward.restype = i32
+    lib.chap_k1_max_rows.restype = i32
+    lib.max_rows = lib.chap_k1_max_rows()
+    return lib
 
-def _prepare(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor,
+
+def _prepare(logits: torch.Tensor, labels: torch.Tensor,
+             mask: Optional[torch.Tensor],
              labels2: Optional[torch.Tensor] = None):
     """Check what the kernels take: float logits [B, C, *spatial] on the card
-    with one to three spatial axes, labels and mask [B, *spatial]. Labels
-    become int32 and the mask fp32 (no-ops when they already are)."""
-    if not 3 <= logits.dim() <= 5 or logits.dtype not in (
-            torch.float32, torch.bfloat16, torch.float16):
+    with one to three spatial axes; uint8, int32 or int64 labels [B,
+    *spatial] (both regions one dtype); an fp32 mask [B, *spatial], or None
+    (every pixel counts, one region only). No dtype is converted: a tensor
+    is copied only when it is not contiguous."""
+    if not 3 <= logits.dim() <= 5 or logits.dtype not in LOGIT_TYPES:
         raise ValueError(f"logits must be float [B, C, *spatial] with 1-3 "
                          f"spatial axes ([B, C, H, W], [B, C, X, Y, Z]), got "
                          f"{tuple(logits.shape)} {logits.dtype}")
     if logits.numel() >= 1 << 31:
         raise ValueError("K1 indexes pixels with int32: logits must hold "
                          "fewer than 2**31 values")
-    want = (logits.shape[0],) + tuple(logits.shape[2:])
-    maps = [labels, mask] + ([] if labels2 is None else [labels2])
-    if any(tuple(t.shape) != want for t in maps):
+    if logits.shape[0] > 65535:
+        raise ValueError("K1 takes at most 65535 rows (a grid dimension)")
+    want = logits.shape[:1] + logits.shape[2:]
+    maps = [t for t in (labels, mask, labels2) if t is not None]
+    if any(t.shape != want for t in maps):
         raise ValueError(f"labels / mask {[tuple(t.shape) for t in maps]} "
-                         f"must be {want}")
+                         f"must be {tuple(want)}")
+    if mask is None and labels2 is not None:
+        raise ValueError("mask=None (every pixel counts) takes one region: "
+                         "region 2 is weighed by 1 - mask")
+    if labels.dtype not in LABEL_TYPES or (
+            labels2 is not None and labels2.dtype != labels.dtype):
+        raise ValueError(f"labels must be uint8, int32 or int64 maps, both "
+                         f"regions one dtype, got {labels.dtype}"
+                         + ("" if labels2 is None else f" and {labels2.dtype}"))
+    if mask is not None and mask.dtype != torch.float32:
+        raise ValueError(f"mask must be float32 or None, got {mask.dtype}")
     if not logits.is_cuda:
         raise ValueError("K1 kernels take CUDA tensors only")
     if any(t.device != logits.device for t in maps):
         raise ValueError("labels and mask must be on the logits' device")
-    if labels.dtype.is_floating_point or (
-            labels2 is not None and labels2.dtype.is_floating_point):
-        raise ValueError("labels must be integer maps")
+    return tuple(None if t is None else t.contiguous()
+                 for t in (logits, labels, mask, labels2))
 
-    def lab(t):
-        return None if t is None else t.to(torch.int32).contiguous()
 
-    return (logits.contiguous(), lab(labels),
-            mask.to(torch.float32).contiguous(), lab(labels2))
+def _ptr(t: Optional[torch.Tensor]) -> int:
+    return 0 if t is None else t.data_ptr()
 
 
 @functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _geometry(logits: torch.Tensor, labels2: Optional[torch.Tensor]):
+    """(B, C, C_PAD, HW, R) of a K1 call: HW the pixels of a class plane."""
+    c = logits.shape[1]
+    return (logits.shape[0], c, _next_pow2(c), math.prod(logits.shape[2:]),
+            1 if labels2 is None else 2)
 
 
 def stats_kernel(logits: torch.Tensor, labels: torch.Tensor,
-                 mask: torch.Tensor, labels2: Optional[torch.Tensor] = None,
+                 mask: Optional[torch.Tensor],
+                 labels2: Optional[torch.Tensor] = None,
                  smooth_dice: float = 1e-10, eps_ce: float = 1e-16
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1 forward on the card, two launches: ([R, 2] (dice, ce) per region,
     [R, 4, C_PAD] fp32 statistics (I, Z, Y, CE) per class). One region with
-    ``labels2=None``; else region 2 is (labels2, 1 - mask). Zero rows (a
-    data-parallel rank without any) launch one partials program that sums
-    nothing, so the statistics are zeros."""
+    ``labels2=None``; else region 2 is (labels2, 1 - mask). ``mask=None``
+    (one region) counts every pixel. Zero rows (a data-parallel rank
+    without any) launch one block that sums nothing, so the statistics are
+    zeros."""
     logits, labels, mask, labels2 = _prepare(logits, labels, mask, labels2)
-    partials_k, finalize_k, _ = _kernels()
-    c = logits.shape[1]
-    n_pix = labels.numel()
-    hw = math.prod(logits.shape[2:])       # the class stride
-    c_pad = _next_pow2(c)
-    r = 1 if labels2 is None else 2
-    n_part = max(1, min(-(-n_pix // BLOCK),
-                        PROGRAMS_PER_SM * _sm_count(logits.device)))
-    part = torch.empty((n_part, r * 4 * c_pad), device=logits.device,
-                       dtype=torch.float32)
-    out = torch.empty((r * 4 * c_pad + 2 * r,), device=logits.device,
-                      dtype=torch.float32)
-    lab2 = labels if labels2 is None else labels2
-    partials_k[(n_part,)](logits, labels, lab2, mask, part, n_pix, hw,
-                          C=c, C_PAD=c_pad, R=r, BLOCK=BLOCK, num_warps=4)
-    finalize_k[(1,)](part, out, n_part, float(smooth_dice), float(eps_ce),
-                     C=c, C_PAD=c_pad, R=r, ROWS=FIN_ROWS, num_warps=4)
+    lib = _library()
+    b, c, c_pad, hw, r = _geometry(logits, labels2)
+    index = logits.device.index
+    rows = max(b, lib.max_rows)
+    n_stats = r * 4 * c_pad
+    buf = torch.empty((n_stats + 2 * r + rows * r * 4 * c,),
+                      device=logits.device, dtype=torch.float32)
+    err = lib.chap_k1_forward(
+        logits.data_ptr(), labels.data_ptr(), _ptr(labels2), _ptr(mask),
+        buf.data_ptr() + 4 * (n_stats + 2 * r), buf.data_ptr(), b, c, c_pad,
+        hw, r, LOGIT_TYPES[logits.dtype], LABEL_TYPES[labels.dtype],
+        _sm_count(index), rows,
+        smooth_dice, eps_ce, torch._C._cuda_getCurrentRawStream(index))
+    if err != 0:
+        raise RuntimeError(f"K1 forward launch failed: cudaError {err}")
     stats_kernel.launches += 1
     stats_kernel.launches_bf16 += logits.dtype == torch.bfloat16
-    n_stats = r * 4 * c_pad
-    return out[n_stats:].view(r, 2), out[:n_stats].view(r, 4, c_pad)
+    return (torch.as_strided(buf, (r, 2), (2, 1), n_stats),
+            torch.as_strided(buf, (r, 4, c_pad), (4 * c_pad, c_pad, 1)))
 
 
 stats_kernel.launches = 0
@@ -420,7 +289,7 @@ def _zero(device: torch.device) -> torch.Tensor:
 
 
 def stats_grad_kernel(logits: torch.Tensor, labels: torch.Tensor,
-                      mask: torch.Tensor, stats: torch.Tensor,
+                      mask: Optional[torch.Tensor], stats: torch.Tensor,
                       grads: Sequence[Optional[torch.Tensor]],
                       labels2: Optional[torch.Tensor] = None,
                       smooth_dice: float = 1e-10, eps_ce: float = 1e-16
@@ -431,12 +300,7 @@ def stats_grad_kernel(logits: torch.Tensor, labels: torch.Tensor,
     device, (g_dice_1, g_ce_1[, g_dice_2, g_ce_2]), None for zero. Zero
     rows launch nothing (and count nothing): the gradient is empty."""
     logits, labels, mask, labels2 = _prepare(logits, labels, mask, labels2)
-    _, _, grad_k = _kernels()
-    c = logits.shape[1]
-    n_pix = labels.numel()
-    hw = math.prod(logits.shape[2:])       # the class stride
-    c_pad = _next_pow2(c)
-    r = 1 if labels2 is None else 2
+    b, c, c_pad, hw, r = _geometry(logits, labels2)
     if (tuple(stats.shape) != (r, 4, c_pad) or stats.dtype != torch.float32
             or not stats.is_contiguous() or len(grads) != 2 * r):
         raise ValueError(f"stats must be contiguous fp32 {(r, 4, c_pad)} and "
@@ -445,13 +309,16 @@ def stats_grad_kernel(logits: torch.Tensor, labels: torch.Tensor,
     g = [zero if x is None else x.to(torch.float32) for x in grads]
     g += [zero] * (4 - len(g))
     grad = torch.empty_like(logits)
-    if n_pix == 0:          # a rank without rows: no pixel, no launch
+    if labels.numel() == 0:     # a rank without rows: no pixel, no launch
         return grad
-    lab2 = labels if labels2 is None else labels2
-    grad_k[(-(-n_pix // BLOCK),)](
-        logits, labels, lab2, mask, stats, *g, grad, n_pix, hw,
-        float(smooth_dice), float(eps_ce), C=c, C_PAD=c_pad, R=r,
-        BLOCK=BLOCK, num_warps=4)
+    stream = torch._C._cuda_getCurrentRawStream(logits.device.index)
+    err = _library().chap_k1_backward(
+        logits.data_ptr(), labels.data_ptr(), _ptr(labels2), _ptr(mask),
+        stats.data_ptr(), *(x.data_ptr() for x in g), grad.data_ptr(), b, c,
+        c_pad, hw, r, LOGIT_TYPES[logits.dtype], LABEL_TYPES[labels.dtype],
+        smooth_dice, eps_ce, stream)
+    if err != 0:
+        raise RuntimeError(f"K1 backward launch failed: cudaError {err}")
     stats_grad_kernel.launches += 1
     stats_grad_kernel.launches_bf16 += logits.dtype == torch.bfloat16
     return grad
@@ -468,7 +335,7 @@ class _RegionDiceCE(torch.autograd.Function):
     With W > 1 ranks (parallel/dist.py) the kernel's statistics are this
     rank's rows only: they are all-reduced, dice and CE are composed from
     the global statistics by ``compose_plain`` (a few tensor ops on
-    [R, 4, C]; the finalize kernel's own compose is then unused), and the
+    [R, 4, C]; the kernel's own compose is then unused), and the
     global statistics are saved for the backward kernel, since the gradient
     of dice with respect to this rank's logits depends on the global I, Z
     and Y. The compose is replicated, so its statistics take
@@ -497,7 +364,7 @@ class _RegionDiceCE(torch.autograd.Function):
 
 
 def masked_seg_stats(logits: torch.Tensor, labels: torch.Tensor,
-                     mask: torch.Tensor) -> Stats:
+                     mask: Optional[torch.Tensor]) -> Stats:
     """(I[C], Z[C], Y[C], ce_sum, mask_sum) for logits [B, C, *spatial]:
     the kernel for a CUDA tensor, the plain version for a CPU tensor."""
     if logits.device.type == "cpu":
@@ -508,12 +375,14 @@ def masked_seg_stats(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def region_dice_ce(logits: torch.Tensor, labels: torch.Tensor,
-                   mask: torch.Tensor, labels2: Optional[torch.Tensor] = None,
+                   mask: Optional[torch.Tensor],
+                   labels2: Optional[torch.Tensor] = None,
                    smooth_dice: float = 1e-10, eps_ce: float = 1e-16
                    ) -> Tuple[torch.Tensor, ...]:
     """(dice_1, ce_1[, dice_2, ce_2]), differentiable in ``logits``: region
-    1 is (labels, mask), region 2 (labels2, 1 - mask). CUDA: K1's Triton
-    forward and backward, one call for both regions. CPU: the plain version
+    1 is (labels, mask), region 2 (labels2, 1 - mask); ``mask=None`` (one
+    region) counts every pixel. CUDA: K1's forward and backward kernels, one
+    call for both regions. CPU: the plain version
     under autograd (the same function, so the same gradient). With W > 1
     ranks the losses are those of the global batch: the per-class
     statistics are all-reduced between the two halves (``_RegionDiceCE``)."""
@@ -527,7 +396,7 @@ def region_dice_ce(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def fused_masked_dice_ce(logits: torch.Tensor, labels: torch.Tensor,
-                         mask: torch.Tensor, smooth_dice: float = 1e-10,
+                         mask: Optional[torch.Tensor], smooth_dice: float = 1e-10,
                          eps_ce: float = 1e-16
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(masked_dice_loss, masked_ce_loss) over one region, differentiable in

@@ -5,12 +5,12 @@ H100. Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 Phases (any failure raises and the script exits non-zero):
-  1. device    nvidia-smi name and power limit; torch / CUDA / Triton versions
+  1. device    nvidia-smi name and power limit; torch / CUDA versions
   2. build     one nvcc per CUDA source, started together: csrc/ccl.cu (K2,
-               2D and 3D entry points) and csrc/sliding_window.cu (K3);
-               registers and shared memory per kernel from -Xptxas=-v;
-               meanwhile Triton compiles K1
-  3. K1        the fused masked dice+CE Triton kernels, one region (R = 1)
+               2D and 3D entry points), csrc/sliding_window.cu (K3) and
+               csrc/fused_losses.cu (K1); registers, shared memory and
+               spills per kernel from -Xptxas=-v
+  3. K1        the fused masked dice+CE CUDA kernels, one region (R = 1)
                and two (R = 2, mix_loss's single call), against their plain
                version at the 2D path's [6, 4, 256, 256], a ragged
                [1, 4, 23, 29] and [2, 3, 23, 29] with labels outside
@@ -27,11 +27,19 @@ Phases (any failure raises and the script exits non-zero):
                the ACAL / ablation steps' [12, 4, 256, 256] (R = 1) and the
                2D zoo's bf16 single-decoder step's [24, 4, 256, 256] (R = 1):
                losses at rtol 2e-3, the bf16 gradients within one bf16
-               rounding of the plain version's; at the timed shapes
+               rounding of the plain version's; then the same holds with
+               the labels in the dtype a caller holds (uint8, int64) and
+               with no mask (R = 1, dice_ce_supervised's call), in fp32,
+               bf16 and fp16 logits, on the 16-byte path and the general
+               one (C = 3); a logits and a labels view at an odd storage
+               offset (the scalar path), zero rows (zero statistics, no
+               backward launch) and _prepare copying no tensor it takes
+               (``K1_interface`` line); at the timed shapes
                torch.profiler counts the device kernels of 3 forward calls
-               (1 or 2 kernels each) and of 3 backward calls (1 each);
+               (1 kernel each) and of 3 backward calls (1 each);
                device ms per launch over 100 back-to-back calls, host us
-               per call, and the median of single calls
+               per call, and the median of single calls, for R = 1 again
+               at the callers' inputs (uint8 labels, no mask)
   4. K2        the CUDA largest-CC kernel exactly equal to its plain version
                on adversarial maps (ragged, a serpentine through every tile,
                all foreground / background, one-pixel components, ties
@@ -361,10 +369,13 @@ Phases (any failure raises and the script exits non-zero):
                (``K1_{fwd,bwd}_bf16_zoo2d``: over (b-bf16)'s; both with
                phase 25's SwinDecoder calls as
                ``library_swin_decoder_launches``, and the K2 row with its
-               ``library_get_masks_with_nms_launches``); the R = 1
+               ``library_get_masks_with_nms_launches``); every K1 row names
+               its device kernels (``device_kernels``), and the R = 1
                rows carry
                ``caller_bound_ms``, the bound for what their supervised
-               callers need: the logits and uint8 labels, no mask; a
+               callers need: the logits and uint8 labels, no mask, and the
+               kernels' ms, kernel ms and host us at those inputs
+               (``caller_ms``, ``caller_kernel_ms``, ``caller_host_us``); a
                count no run measured is null), the ``phase_s`` line (each
                phase's seconds), the card line, and the last line
                {"ok": true, "device": {...}}
@@ -674,17 +685,31 @@ def bound_ms(n_bytes: float, n_flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+K1_TYPES = {"f": "float", "13__nv_bfloat16": "bf16", "6__half": "fp16",
+            "h": "uint8", "i": "int32", "l": "int64"}
+
+
 def ptxas_summary(log: str) -> list:
     """(kernel, resource line) for each entry function in nvcc's
-    -Xptxas=-v output: registers, shared memory, spills."""
+    -Xptxas=-v output: registers, shared memory, spills. K1's kernels are
+    named with their template arguments (``k1_stats<bf16,uint8,2>``)."""
     out, name = [], None
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
             short = re.search(r"\d+((?:ccl3?|sw)_[a-z_]+)(ILi(\d+)E)?",
                               entry.group(1))
-            name = entry.group(1) if not short else (
-                short.group(1) + (f"<{short.group(3)}>" if short.group(3) else ""))
+            k1 = re.search(r"\d+(k1_[a-z_]+?)(?:I(f|13__nv_bfloat16|6__half)([hil])"
+                           r"(?:Li(\d+)E)?(?:Li(\d)ELb([01])E)?E)?E", entry.group(1))
+            if k1:
+                args = [K1_TYPES[a] for a in k1.group(2, 3) if a] + [
+                    a for a in (k1.group(4),) if a]
+                if k1.group(5):
+                    args += [f"R{k1.group(5)}", "mask" if k1.group(6) == "1" else "no mask"]
+                name = k1.group(1) + (f"<{','.join(args)}>" if args else "")
+            else:
+                name = entry.group(1) if not short else (
+                    short.group(1) + (f"<{short.group(3)}>" if short.group(3) else ""))
         elif name and "Used" in line:
             out.append((name, line.split(":", 1)[-1].strip()))
             name = None
@@ -712,18 +737,19 @@ def tf32_settings() -> str:
 # phase 3: K1
 # ---------------------------------------------------------------------------
 
-def k1_inputs(shape, seed, label_values=None, dtype=torch.float32):
-    """Logits in ``dtype``, two label maps with values in [0, label_values)
-    (default C; larger values are labels outside [0, C), which count
-    nowhere) and a {0, 1} mask."""
+def k1_inputs(shape, seed, label_values=None, dtype=torch.float32,
+              labels_dtype=torch.int32):
+    """Logits in ``dtype``, two label maps in ``labels_dtype`` with values in
+    [0, label_values) (default C; larger values are labels outside [0, C),
+    which count nowhere) and a {0, 1} mask."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     b, c, *spatial = shape
     hi = label_values or c
     logits = (torch.randn(shape, generator=gen, device="cuda") * 2).to(dtype)
     labels = torch.randint(0, hi, (b, *spatial), generator=gen, device="cuda",
-                           dtype=torch.int32)
+                           dtype=torch.int32).to(labels_dtype)
     labels2 = torch.randint(0, hi, (b, *spatial), generator=gen, device="cuda",
-                            dtype=torch.int32)
+                            dtype=torch.int32).to(labels_dtype)
     mask = (torch.rand((b, *spatial), generator=gen, device="cuda") < 0.6).float()
     return logits, labels, labels2, mask
 
@@ -758,20 +784,27 @@ def bf16_rounding_err(got: torch.Tensor, want: torch.Tensor) -> float:
 
 
 def phase_k1(shape, seed, regions, timed=False, label_values=None,
-             dtype=torch.float32):
+             dtype=torch.float32, labels_dtype=torch.int32, masked=True):
     """K1 with R = ``regions`` against its plain version: statistics, losses,
     the Function's gradient and the backward kernel alone; bit-identical on
-    repeat. At the main path's shape it also counts the device kernels of
-    one forward and one backward and times kernel and plain version. At
-    bf16 logits (a bf16 model's) the losses are held at rtol 2e-3 as in
-    float32 (both upcast the logits), and the gradients, bf16 in both,
-    within one bf16 rounding of the plain version's."""
-    logits, labels, labels2, mask = k1_inputs(shape, seed, label_values, dtype)
+    repeat. Labels in ``labels_dtype`` (uint8, int32 or int64, read as they
+    are); ``masked=False`` (R = 1) passes no mask, every pixel counting. At
+    the main path's shape it also counts the device kernels of one forward
+    and one backward and times kernel and plain version, and for R = 1
+    times the kernels again at the supervised callers' inputs (uint8
+    labels, no mask; ``fwd_caller``, ``bwd_caller``). At bf16 logits (a
+    bf16 model's) the losses are held at rtol 2e-3 as in float32 (both
+    upcast the logits), and the gradients, bf16 in both, within one bf16
+    rounding of the plain version's."""
+    logits, labels, labels2, mask = k1_inputs(shape, seed, label_values, dtype,
+                                              labels_dtype)
     lab2 = labels2 if regions == 2 else None
+    mask = mask if masked else None
     c = shape[1]
     bf16 = dtype == torch.bfloat16
-    tag = (f"{shape} R={regions} labels<{label_values or c}"
-           + (" bf16" if bf16 else ""))
+    tag = (f"{shape} R={regions} labels<{label_values or c} "
+           f"{str(labels_dtype)[6:]}" + ("" if masked else " no mask")
+           + ("" if dtype == torch.float32 else f" {str(dtype)[6:]}"))
     # forward: statistics and losses
     losses, stats = fused_losses.stats_kernel(logits, labels, mask, lab2)
     losses2, stats2 = fused_losses.stats_kernel(logits, labels, mask, lab2)
@@ -818,6 +851,7 @@ def phase_k1(shape, seed, regions, timed=False, label_values=None,
     else:
         check(rel_err(k_grad, p_grad) <= RTOL, f"K1 backward kernel at {tag}")
     res = {"shape": list(shape), "regions": regions, "dtype": str(dtype),
+           "labels_dtype": str(labels_dtype), "masked": masked,
            "losses": losses.view(-1).tolist(), "fwd_max_abs_err": fwd_err,
            "bwd_max_abs_err": bwd_abs, "bwd_rel_err": g_err}
     if timed:
@@ -838,7 +872,8 @@ def phase_k1(shape, seed, regions, timed=False, label_values=None,
             xg, labels, mask, lab2), 1e-10, 1e-16).view(-1)
         g_vec = torch.stack(grads)
         n = logits.numel() // c
-        io = logits.numel() * logits.element_size() + n * 4 * (1 + regions)
+        io = (logits.numel() * logits.element_size()
+              + n * (labels.element_size() * regions + (4 if masked else 0)))
         res.update({
             "fwd_device_kernels": fwd_k, "bwd_device_kernels": bwd_k,
             "fwd": timings(lambda: fused_losses.stats_kernel(
@@ -855,15 +890,93 @@ def phase_k1(shape, seed, regions, timed=False, label_values=None,
             "bwd_bound": bound_ms(io + logits.numel() * logits.element_size(),
                                   n * c * (10 + 12 * regions))})
         if regions == 1:
-            # the supervised callers (dice_ce_supervised) pass an all-ones
-            # mask and hold their labels as uint8: what the function needs
-            # there is the logits and one byte a pixel
+            # the supervised callers (dice_ce_supervised) pass no mask and
+            # the device pool holds their labels as uint8: what the
+            # function needs there is the logits and one byte a pixel; the
+            # kernels timed again at those inputs, held to the plain version
             need = logits.numel() * logits.element_size() + n
+            lab8 = labels.to(torch.uint8)
+            c_losses, c_stats = fused_losses.stats_kernel(logits, lab8, None)
+            check(torch.allclose(c_stats[:, :, :c], fused_losses.region_stats_plain(
+                logits, lab8, None), rtol=RTOL, atol=1e-3),
+                f"K1 I/Z/Y/CE at the callers' inputs at {tag}")
             res.update({
+                "fwd_caller": timings(lambda: fused_losses.stats_kernel(
+                    logits, lab8, None)),
+                "bwd_caller": timings(lambda: fused_losses.stats_grad_kernel(
+                    logits, lab8, None, c_stats, grads)),
                 "fwd_caller_bound": bound_ms(need, n * c * 18),
                 "bwd_caller_bound": bound_ms(
                     need + logits.numel() * logits.element_size(), n * c * 22)})
     print("K1", json.dumps(res), flush=True)
+    return res
+
+
+def phase_k1_interface() -> dict:
+    """K1 at inputs no timed shape gives it: a logits and a labels view at
+    an odd storage offset (the scalar path) against the plain version and
+    the aligned call; zero rows (the forward's one block sums nothing: zero
+    statistics and dice and ce composed from them; the backward launches
+    nothing); and the wrappers reading uint8, int32 and int64 labels, the
+    fp32 mask and no mask in place (``_prepare`` copies none of them)."""
+    res = {}
+    for shape, regions, dtype in (((2, 4, 64, 64), 2, torch.float32),
+                                  ((1, 2, 24, 24, 16), 1, torch.bfloat16),
+                                  ((2, 3, 23, 29), 2, torch.float16)):
+        logits, labels, labels2, mask = k1_inputs(shape, 13, dtype=dtype)
+        lab2 = labels2 if regions == 2 else None
+        odd = torch.empty(logits.numel() + 1, dtype=dtype, device="cuda")[1:]
+        odd = odd.view(shape).copy_(logits)
+        odd_lab = torch.empty(labels.numel() + 1, dtype=torch.uint8,
+                              device="cuda")[1:].view(labels.shape)
+        odd_lab.copy_(labels)
+        odd_lab2 = None if lab2 is None else odd_lab.clone().copy_(lab2)
+        want = fused_losses.region_stats_plain(logits, labels, mask, lab2)
+        for name, args in (("logits", (odd, labels, mask, lab2)),
+                           ("labels", (logits, odd_lab, mask, odd_lab2))):
+            losses, stats = fused_losses.stats_kernel(*args)
+            check(torch.allclose(stats[:, :, :shape[1]], want, rtol=RTOL, atol=1e-3),
+                  f"K1 statistics with the {name} at an odd offset, {shape} {dtype}")
+            grads = [torch.tensor(w, device="cuda") for w in (0.5, 0.35, 0.25, 0.6)]
+            got = fused_losses.stats_grad_kernel(*args[:3], stats, grads[:2 * regions],
+                                                 args[3])
+            plain = fused_losses.stats_grad_plain(
+                logits, labels, mask, stats, torch.stack(grads[:2 * regions]).view(
+                    regions, 2), 1e-10, 1e-16, lab2)
+            err = (bf16_rounding_err(got, plain) if dtype != torch.float32
+                   else rel_err(got, plain) / RTOL)
+            check(err <= 1.0, f"K1 gradient with the {name} at an odd offset, "
+                              f"{shape} {dtype}: {err}")
+        res[f"odd_offset_{shape}"] = True
+    # zero rows: a data-parallel rank without any (an empty tensor's
+    # data_ptr is 0), with no mask, a mask, and two regions
+    x = torch.zeros((0, 2, 8, 8, 8), device="cuda", dtype=torch.bfloat16)
+    lab = torch.zeros((0, 8, 8, 8), device="cuda", dtype=torch.uint8)
+    m = torch.zeros((0, 8, 8, 8), device="cuda")
+    for mask, lab2 in ((None, None), (m, None), (m, lab)):
+        before = launch_counts()
+        losses, stats = fused_losses.stats_kernel(x, lab, mask, lab2)
+        grad = fused_losses.stats_grad_kernel(x, lab, mask, stats,
+                                              [None] * (2 if lab2 is None else 4), lab2)
+        after = launch_counts()
+        check(torch.equal(stats, torch.zeros_like(stats))
+              and torch.equal(losses, torch.zeros_like(losses)) and grad.shape == x.shape
+              and after["K1_fwd"] - before["K1_fwd"] == 1
+              and after["K1_bwd"] == before["K1_bwd"],
+              f"K1 at zero rows: {losses.tolist()} {stats.tolist()}")
+        res[f"zero_rows_losses_r{1 if lab2 is None else 2}"
+            f"{'' if mask is None else '_mask'}"] = losses.view(-1).tolist()
+    # no copy of any dtype the kernels take
+    logits, labels, labels2, mask = k1_inputs((2, 4, 16, 16), 14)
+    for lt in (torch.uint8, torch.int32, torch.int64):
+        lab, lab2 = labels.to(lt), labels2.to(lt)
+        for args in ((logits, lab, None, None), (logits, lab, mask, lab2)):
+            prepared = fused_losses._prepare(*args)
+            check(all((a is None and b is None) or a.data_ptr() == b.data_ptr()
+                      for a, b in zip(args, prepared)),
+                  f"K1's _prepare copies nothing for {lt} labels")
+    res["no_copy"] = True
+    print("K1_interface", json.dumps(res), flush=True)
     return res
 
 
@@ -1061,9 +1174,9 @@ def phase_slice():
 
 def _kernel_class(name: str) -> str:
     n = name.lower()
-    if n.startswith(("stats_partials", "stats_finalize")):
+    if "k1_stats" in n or "k1_total" in n:
         return "K1_fwd"
-    if n.startswith("stats_grad"):
+    if "k1_grad" in n:
         return "K1_bwd"
     if "ccl3_" in n:
         return "K2_ccl3d"
@@ -5406,28 +5519,17 @@ def main() -> int:
         raise RuntimeError("chip_smoke.py needs a CUDA card")
     card = card_line()
     print("card", card, flush=True)
-    import triton
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} triton "
-          f"{triton.__version__} python {sys.version.split()[0]} "
-          f"{torch.cuda.get_device_name(0)}", flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} python "
+          f"{sys.version.split()[0]} {torch.cuda.get_device_name(0)}", flush=True)
 
-    # phase 2: build: one nvcc per CUDA source, all started together, while
-    # Triton compiles K1
+    # phase 2: build: one nvcc per CUDA source, all started together
     t0 = time.perf_counter()
-    sources = ("ccl.cu", "sliding_window.cu")
+    sources = ("ccl.cu", "sliding_window.cu", "fused_losses.cu")
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
-        nvcc = {src: pool.submit(cuda_build.build, src) for src in sources}
-        logits, labels, labels2, mask = k1_inputs((1, 4, 8, 8), 0)
-        for lab2 in (None, labels2):       # K1 with R = 1 and R = 2
-            x = logits.clone().requires_grad_(True)
-            sum(fused_losses.region_dice_ce(x, labels, mask, lab2)).backward()
-        torch.cuda.synchronize()
-        triton_s = time.perf_counter() - t0
-        built = {src: f.result() for src, f in nvcc.items()}
+        built = dict(zip(sources, pool.map(cuda_build.build, sources)))
     print("build " + " ".join(f"nvcc_s[{src}]={b['seconds']:.2f}"
                               for src, b in built.items())
-          + f" triton_first_call_s={triton_s:.2f} "
-          f"wall_s={time.perf_counter() - t0:.2f}", flush=True)
+          + f" wall_s={time.perf_counter() - t0:.2f}", flush=True)
     for b in built.values():
         for kernel, use in ptxas_summary(b["log"]):
             print("ptxas", kernel, use, flush=True)
@@ -5469,6 +5571,23 @@ def main() -> int:
                                  dtype=bf16)}
     # the 2D zoo's single-decoder supervised step (R = 1) on the whole batch
     k1_zoo2d = phase_k1((24, 4, 256, 256), 11, 1, timed=True)
+    # the labels in the dtype the callers hold (the device pool's uint8, the
+    # widened int32, int64) and no mask (dice_ce_supervised), on the vector
+    # path (C = 2, 4) and the general one (C = 3), in every logits dtype
+    u8, i64 = torch.uint8, torch.int64
+    for shape, seed, regions, lv, dt, lt, masked in (
+            ((6, 4, 256, 256), 15, 2, None, torch.float32, i64, True),
+            ((6, 4, 256, 256), 15, 1, None, torch.float32, u8, False),
+            ((1, 2) + LA_PATCH, 16, 2, None, bf16, u8, True),
+            ((1, 2) + LA_PATCH, 16, 2, None, bf16, i64, True),
+            ((2, 2) + LA_PATCH, 17, 1, None, bf16, i64, False),
+            ((4, 2) + BRATS_PATCH, 18, 1, None, torch.float16, u8, False),
+            ((1, 4, 23, 29), 19, 1, None, bf16, u8, False),
+            ((2, 3, 23, 29), 20, 2, 5, torch.float16, u8, True),
+            ((2, 3, 23, 29, 17), 21, 1, 5, bf16, i64, False)):
+        phase_k1(shape, seed, regions, label_values=lv, dtype=dt,
+                 labels_dtype=lt, masked=masked)
+    phase_k1_interface()
     lap("3_k1")
     # phase 4: K2
     k2 = phase_k2()
@@ -5551,8 +5670,11 @@ def main() -> int:
         for key in ("K1_fwd", "K1_bwd")}
 
     def k1_row(name, replaces, key, res, res_r1, launches_of, trainer_n):
-        return {"name": name, "route": "triton",
-                "source": "chap_tpu_torch/ops/fused_losses.py",
+        d = name[3:6]
+        caller = res.get(f"{d}_caller")
+        return {"name": name, "route": "cuda",
+                "source": "chap_tpu_torch/csrc/fused_losses.cu",
+                "device_kernels": list(res[d]["kernel_ms_by_name"]),
                 "replaces": replaces, "launches": launches_of[key],
                 "trainer_launches": trainer_n, "dtype": res["dtype"],
                 "acal_ablation_launches": k1_new_paths[key],
@@ -5567,7 +5689,10 @@ def main() -> int:
                 "bound_by": res[f"{name[3:6]}_bound"][1], "library_ms": None,
                 # at the supervised callers: no mask, uint8 labels (R = 1)
                 "caller_bound_ms": (res[f"{name[3:6]}_caller_bound"][0]
-                                    if res["regions"] == 1 else None)}
+                                    if res["regions"] == 1 else None),
+                **{f"caller_{k}": None if caller is None else caller[v] for k, v in (
+                    ("ms", "device_ms"), ("kernel_ms", "kernel_ms"),
+                    ("host_us", "host_us"))}}
 
     def k2_row(name, res, launches_of, key, run):
         return {"name": name, "route": "cuda",
