@@ -1,0 +1,6 @@
+"""Device ms a step of the convolution kernels, over the profiled stretch."""
+from h100_bench.readers import class_ms
+
+
+def read(m):
+    return class_ms(m, "conv")
