@@ -37,6 +37,7 @@ import torch
 from chap_tpu_torch.data.transforms import resize_slice
 from chap_tpu_torch.device import resolve_device
 from chap_tpu_torch.parallel import dist
+from chap_tpu_torch.utils.spans import span
 
 
 class DevicePool(NamedTuple):
@@ -173,27 +174,28 @@ def build_device_batch_fn(num_slices: int, num_labeled: int, batch_size: int,
 
     def batch_fn(pool: DevicePool, generator: torch.Generator
                  ) -> Dict[str, torch.Tensor]:
-        dev = pool.images.device
-        if augment and pool.images.shape[1] != pool.images.shape[2]:
-            raise ValueError(f"on-device rot90 augmentation needs square "
-                             f"slices, the pool holds "
-                             f"{tuple(pool.images.shape[1:])}")
-        lab_idx = torch.randint(0, num_labeled, (labeled_bs,),
-                                generator=generator, device=dev)
-        unlab_idx = torch.randint(num_labeled, num_slices,
-                                  (batch_size - labeled_bs,),
-                                  generator=generator, device=dev)
-        idx = torch.cat([lab_idx, unlab_idx])
-        params = draw_augment(batch_size, generator) if augment else None
-        if rows is not None:
-            sel = torch.tensor(rows, dtype=torch.int64, device=dev)
-            idx = idx[sel]
-            if params is not None:
-                params = tuple(p[sel] for p in params)
-        imgs, labs = pool.images[idx], pool.labels[idx]
-        if augment:
-            imgs, labs = apply_augment(imgs, labs, *params)
-        return {"image": imgs.unsqueeze(1), "label": labs}
+        with span("chap.data.batch"):
+            dev = pool.images.device
+            if augment and pool.images.shape[1] != pool.images.shape[2]:
+                raise ValueError(f"on-device rot90 augmentation needs square "
+                                 f"slices, the pool holds "
+                                 f"{tuple(pool.images.shape[1:])}")
+            lab_idx = torch.randint(0, num_labeled, (labeled_bs,),
+                                    generator=generator, device=dev)
+            unlab_idx = torch.randint(num_labeled, num_slices,
+                                      (batch_size - labeled_bs,),
+                                      generator=generator, device=dev)
+            idx = torch.cat([lab_idx, unlab_idx])
+            params = draw_augment(batch_size, generator) if augment else None
+            if rows is not None:
+                sel = torch.tensor(rows, dtype=torch.int64, device=dev)
+                idx = idx[sel]
+                if params is not None:
+                    params = tuple(p[sel] for p in params)
+            imgs, labs = pool.images[idx], pool.labels[idx]
+            if augment:
+                imgs, labs = apply_augment(imgs, labs, *params)
+            return {"image": imgs.unsqueeze(1), "label": labs}
 
     return batch_fn
 
@@ -315,24 +317,25 @@ def build_device_patch_fn(num_volumes: int, num_labeled: int, batch_size: int,
 
     def patch_fn(pool: DeviceVolumePool, generator: torch.Generator
                  ) -> Dict[str, torch.Tensor]:
-        dev = pool.images.device
-        vids = torch.cat([
-            torch.randint(0, num_labeled, (labeled_bs,), generator=generator,
-                          device=dev),
-            torch.randint(num_labeled, num_volumes, (batch_size - labeled_bs,),
-                          generator=generator, device=dev)])
-        u = torch.rand((batch_size, 3), generator=generator, device=dev)
-        room = pool.shapes[vids] - torch.tensor(patch, device=dev) + 1
-        starts = torch.floor(u * room.float()).long()
-        if augment:
-            k, ax = draw_augment_3d(batch_size, generator)
-        else:
-            k = torch.zeros(batch_size, dtype=torch.int64, device=dev)
-            ax = torch.full((batch_size,), 3, dtype=torch.int64, device=dev)
-        if rows is not None:
-            sel = torch.tensor(rows, dtype=torch.int64, device=dev)
-            vids, starts, k, ax = vids[sel], starts[sel], k[sel], ax[sel]
-        imgs, labs = gather_patches(pool, vids, starts, k, ax, patch)
-        return {"image": imgs.unsqueeze(1), "label": labs}
+        with span("chap.data.batch"):
+            dev = pool.images.device
+            vids = torch.cat([
+                torch.randint(0, num_labeled, (labeled_bs,), generator=generator,
+                              device=dev),
+                torch.randint(num_labeled, num_volumes, (batch_size - labeled_bs,),
+                              generator=generator, device=dev)])
+            u = torch.rand((batch_size, 3), generator=generator, device=dev)
+            room = pool.shapes[vids] - torch.tensor(patch, device=dev) + 1
+            starts = torch.floor(u * room.float()).long()
+            if augment:
+                k, ax = draw_augment_3d(batch_size, generator)
+            else:
+                k = torch.zeros(batch_size, dtype=torch.int64, device=dev)
+                ax = torch.full((batch_size,), 3, dtype=torch.int64, device=dev)
+            if rows is not None:
+                sel = torch.tensor(rows, dtype=torch.int64, device=dev)
+                vids, starts, k, ax = vids[sel], starts[sel], k[sel], ax[sel]
+            imgs, labs = gather_patches(pool, vids, starts, k, ax, patch)
+            return {"image": imgs.unsqueeze(1), "label": labs}
 
     return patch_fn

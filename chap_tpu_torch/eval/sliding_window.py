@@ -51,6 +51,7 @@ from chap_tpu_torch.metrics.surface import cal_metric_3d, cal_metric_3d_full
 from chap_tpu_torch.ops import cuda_build
 from chap_tpu_torch.parallel import dist
 from chap_tpu_torch.semi.nms import _largest_cc_host
+from chap_tpu_torch.utils.spans import span
 
 logger = logging.getLogger(__name__)
 
@@ -278,14 +279,15 @@ class SlidingWindowEngine:
                            mode="constant")
         shape = tuple(image.shape)
         starts = compute_grid(shape, self.patch, stride_xy, stride_z)
-        # in the compute dtype, as chap_tpu's sliding_window.py:172-173
-        vol = self._upload(image).to(self.compute_dtype)
-        # the score map [C, *shape] and the count map, one buffer for the
-        # one all-reduce of W > 1 ranks
-        maps = torch.zeros((num_classes + 1,) + shape, dtype=torch.float32,
-                           device=self.device)
-        score, cnt = maps[:num_classes], maps[num_classes]
-        starts_dev = torch.from_numpy(starts).to(self.device)
+        with span("chap.sw.upload"):
+            # in the compute dtype, as chap_tpu's sliding_window.py:172-173
+            vol = self._upload(image).to(self.compute_dtype)
+            # the score map [C, *shape] and the count map, one buffer for the
+            # one all-reduce of W > 1 ranks
+            maps = torch.zeros((num_classes + 1,) + shape, dtype=torch.float32,
+                               device=self.device)
+            score, cnt = maps[:num_classes], maps[num_classes]
+            starts_dev = torch.from_numpy(starts).to(self.device)
         px, py, pz = self.patch
         # this rank's patches of each batch
         per_rank = self.sw_batch // dist.world_size()
@@ -295,33 +297,38 @@ class SlidingWindowEngine:
         try:
             with torch.no_grad():
                 for i in range(mine, starts.shape[0], self.sw_batch):
-                    batch = starts[i:i + per_rank]
-                    patches = torch.stack([vol[x:x + px, y:y + py, z:z + pz]
-                                           for x, y, z in batch.tolist()])
-                    out = self.model(patches.unsqueeze(1))
-                    o1, o2 = _two_logits(out)
-                    if o1.shape[1] != num_classes:
-                        raise ValueError(f"the model gives {o1.shape[1]} classes, "
-                                         f"expected {num_classes}")
-                    sw_accumulate(o1.contiguous(),
-                                  None if o2 is None else o2.contiguous(),
-                                  batch, score, cnt,
-                                  starts_dev[i:i + per_rank])
+                    with span("chap.sw.forward"):
+                        batch = starts[i:i + per_rank]
+                        patches = torch.stack([vol[x:x + px, y:y + py, z:z + pz]
+                                               for x, y, z in batch.tolist()])
+                        out = self.model(patches.unsqueeze(1))
+                        o1, o2 = _two_logits(out)
+                        if o1.shape[1] != num_classes:
+                            raise ValueError(f"the model gives {o1.shape[1]} "
+                                             f"classes, expected {num_classes}")
+                        sw_accumulate(o1.contiguous(),
+                                      None if o2 is None else o2.contiguous(),
+                                      batch, score, cnt,
+                                      starts_dev[i:i + per_rank])
         finally:
             self.model.train(was_training)
-        dist.all_reduce_(maps)
-        label = torch.argmax(score / cnt.clamp_min(1e-8)[None], dim=0)
-        return label.to(torch.uint8), (w, h, d), pad_lo, any(pads)
+        with span("chap.sw.argmax"):
+            dist.all_reduce_(maps)
+            label = torch.argmax(score / cnt.clamp_min(1e-8)[None], dim=0)
+            label = label.to(torch.uint8)
+        return label, (w, h, d), pad_lo, any(pads)
 
     def finalize(self, handle, num_classes: int, nms: bool = False) -> np.ndarray:
         label, (w, h, d), pad_lo, padded = handle
-        label_map = label.cpu().numpy().astype(np.int32)
-        if padded:
-            label_map = label_map[pad_lo[0]:pad_lo[0] + w,
-                                  pad_lo[1]:pad_lo[1] + h,
-                                  pad_lo[2]:pad_lo[2] + d]
+        with span("chap.sw.copy"):
+            label_map = label.cpu().numpy().astype(np.int32)
+            if padded:
+                label_map = label_map[pad_lo[0]:pad_lo[0] + w,
+                                      pad_lo[1]:pad_lo[1] + h,
+                                      pad_lo[2]:pad_lo[2] + d]
         if nms:
-            label_map = _largest_cc_host(label_map[None], num_classes)[0]
+            with span("chap.sw.nms"):
+                label_map = _largest_cc_host(label_map[None], num_classes)[0]
         return label_map
 
     def predict(self, image: np.ndarray, stride_xy: int, stride_z: int,

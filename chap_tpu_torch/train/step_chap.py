@@ -26,6 +26,8 @@ built:
     to get around a TPU compiler's memory limit; eager PyTorch has no such
     program, so it is accepted and ignored.
 ``optim.remat`` maps to ``torch.utils.checkpoint`` around each model pass.
+While a profiler records, the step's phases are host spans
+(``chap.step.<phase>``, utils/spans.py), and so is each model pass.
 """
 from __future__ import annotations
 
@@ -51,6 +53,7 @@ from chap_tpu_torch.semi.nms import largest_cc_batch
 from chap_tpu_torch.semi.patchmask import create_mask_v1
 from chap_tpu_torch.train.state import TrainState, fold_batch_stats, make_lr_schedule
 from chap_tpu_torch.utils.ramps import sigmoid_rampup
+from chap_tpu_torch.utils.spans import span
 
 logger = logging.getLogger(__name__)
 
@@ -246,9 +249,10 @@ def build_chap_train_step(model: torch.nn.Module,
     def apply_model(x, drop_u, stats: bool, **kw):
         """(logits1, logits2, batch stats or None) of one train-mode pass."""
         def run(x):
-            collected = {} if stats else None
-            o1, o2 = model(x, drop_u=drop_u, stats=collected, **kw)
-            return o1, o2, collected
+            with span("chap.model.pass"):
+                collected = {} if stats else None
+                o1, o2 = model(x, drop_u=drop_u, stats=collected, **kw)
+                return o1, o2, collected
         if remat and torch.is_grad_enabled():
             return checkpoint(run, x, use_reentrant=False)
         return run(x)
@@ -271,6 +275,10 @@ def build_chap_train_step(model: torch.nn.Module,
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
              generator: Optional[torch.Generator] = None,
              draws: Optional[Dict[str, object]] = None) -> StepOutput:
+        with span("chap.step"):
+            return run_step(state, batch, generator, draws)
+
+    def run_step(state, batch, generator, draws) -> StepOutput:
         if state.model is not model or state.optimizer is not optimizer:
             raise ValueError("state holds another model or optimizer than "
                              "the step was built for")
@@ -282,102 +290,113 @@ def build_chap_train_step(model: torch.nn.Module,
                              f"labeled and of the unlabeled half: its "
                              f"pair-stream units of batch_size "
                              f"{cfg.data.batch_size} over {world} ranks)")
-        if draws is None:
-            rows = image.shape[0] if world == 1 else cfg.data.batch_size
-            draws = draw_step_uniforms(cfg, (rows,) + tuple(image.shape[1:]),
-                                       generator, image.device)
-        draws = shard_step_draws(draws)
+        with span("chap.step.draws"):
+            if draws is None:
+                rows = image.shape[0] if world == 1 else cfg.data.batch_size
+                draws = draw_step_uniforms(cfg, (rows,) + tuple(image.shape[1:]),
+                                           generator, image.device)
+            draws = shard_step_draws(draws)
         drop = draws["drop"]
         model.train()
 
         # ---- teacher pass + largest-CC NMS (no gradient) -------------------
-        uimg_ab = image[n_l:]
-        with torch.no_grad():
-            pre_ab1, pre_ab2, t_stats = apply_model(uimg_ab, drop["teacher"], True)
-            # in the logits' dtype, argmax on it (bf16 near-ties go to the
-            # first class, as chap_tpu's step_chap.py:120-123)
-            soft1 = softmax(pre_ab1, 1)
-            soft2 = softmax(pre_ab2, 1)
-            pseudo1 = soft1.argmax(dim=1)
-            pseudo2 = soft2.argmax(dim=1)
-            knowledge = (cross_entropy_per_pixel(pre_ab1, pseudo2)
-                         + cross_entropy_per_pixel(pre_ab2, pseudo1))
-            pseudo_all = torch.cat([
-                pre_ab1[:n_a].argmax(1), pre_ab1[n_a:].argmax(1),
-                pre_ab2[:n_a].argmax(1), pre_ab2[n_a:].argmax(1),
-            ]).to(torch.int32)
+        with span("chap.step.teacher"):
+            uimg_ab = image[n_l:]
+            with torch.no_grad():
+                pre_ab1, pre_ab2, t_stats = apply_model(uimg_ab, drop["teacher"],
+                                                        True)
+                # in the logits' dtype, argmax on it (bf16 near-ties go to the
+                # first class, as chap_tpu's step_chap.py:120-123)
+                soft1 = softmax(pre_ab1, 1)
+                soft2 = softmax(pre_ab2, 1)
+                pseudo1 = soft1.argmax(dim=1)
+                pseudo2 = soft2.argmax(dim=1)
+                knowledge = (cross_entropy_per_pixel(pre_ab1, pseudo2)
+                             + cross_entropy_per_pixel(pre_ab2, pseudo1))
+                pseudo_all = torch.cat([
+                    pre_ab1[:n_a].argmax(1), pre_ab1[n_a:].argmax(1),
+                    pre_ab2[:n_a].argmax(1), pre_ab2[n_a:].argmax(1),
+                ]).to(torch.int32)
+        # largest_cc_batch is looked up by name in this module at each call
+        with span("chap.step.nms"), torch.no_grad():
             if use_nms:
                 pseudo_all = largest_cc_batch(pseudo_all, num_classes)
-        plab = torch.split(pseudo_all, [n_a, n_b, n_a, n_b])
 
         # ---- BCP mixing -----------------------------------------------------
-        img_a, img_b = image[:n_a], image[n_a:n_l]
-        uimg_a, uimg_b = image[n_l:n_l + n_a], image[n_l + n_a:]
-        lab_a, lab_b = label[:n_a], label[n_a:n_l]
-        spatial = tuple(image.shape[2:])
-        img_mask = generate_mask_nd(spatial, draws["bcp_starts"],
-                                    device=image.device)
-        mask_a, mask_b = (img_mask[None].expand(n, *spatial).float().contiguous()
-                          for n in (n_a, n_b))
-        net_input_unl = mix_images(uimg_a, img_a, img_mask)
-        net_input_l = mix_images(img_b, uimg_b, img_mask)
-        net_input_mix = torch.cat([net_input_l, net_input_unl])
-        consistency_weight = semi.consistency * sigmoid_rampup(
-            state.step // 150, semi.consistency_rampup)
-        if semi.adv_noise:
-            diff_mask = create_mask_v1(pseudo1, pseudo2, knowledge,
-                                       scale_factor=4, topk=semi.topk1)
+        with span("chap.step.student"):
+            plab = torch.split(pseudo_all, [n_a, n_b, n_a, n_b])
+            img_a, img_b = image[:n_a], image[n_a:n_l]
+            uimg_a, uimg_b = image[n_l:n_l + n_a], image[n_l + n_a:]
+            lab_a, lab_b = label[:n_a], label[n_a:n_l]
+            spatial = tuple(image.shape[2:])
+            img_mask = generate_mask_nd(spatial, draws["bcp_starts"],
+                                        device=image.device)
+            mask_a, mask_b = (img_mask[None].expand(n, *spatial).float().contiguous()
+                              for n in (n_a, n_b))
+            net_input_unl = mix_images(uimg_a, img_a, img_mask)
+            net_input_l = mix_images(img_b, uimg_b, img_mask)
+            net_input_mix = torch.cat([net_input_l, net_input_unl])
+            consistency_weight = semi.consistency * sigmoid_rampup(
+                state.step // 150, semi.consistency_rampup)
+            if semi.adv_noise:
+                diff_mask = create_mask_v1(pseudo1, pseudo2, knowledge,
+                                           scale_factor=4, topk=semi.topk1)
 
-        # ---- differentiated losses (sequential passes) ----------------------
-        out_mix1, out_mix2, s_stats = apply_model(net_input_mix, drop["student"],
-                                                  True)
-        bcp_loss, loss_l, loss_u = mix_losses(out_mix1, out_mix2, lab_a, lab_b,
-                                              plab, mask_a, mask_b)
-        pass_stats = [t_stats, s_stats]
+            # ---- differentiated losses (sequential passes) ------------------
+            out_mix1, out_mix2, s_stats = apply_model(net_input_mix,
+                                                      drop["student"], True)
+            bcp_loss, loss_l, loss_u = mix_losses(out_mix1, out_mix2, lab_a,
+                                                  lab_b, plab, mask_a, mask_b)
+            pass_stats = [t_stats, s_stats]
         zero = torch.zeros((), device=image.device)
         fp_loss = vat = zero
-        if semi.dropout:
-            fp1, fp2, f_stats = apply_model(
-                uimg_ab, drop["fp"], True, dropout_level=DROPOUT_LEVELS,
-                scores=list(state.sim_scores), comp_dropout=semi.comp_drop,
-                perturb_draws=draws["perturb"], clean_rows=n_a)
-            fp_loss = cross_entropy(fp1, pseudo2) + cross_entropy(fp2, pseudo1)
-            pass_stats.append(f_stats)
-        if semi.adv_noise:
-            def vat_apply(x):
-                o1, o2, _ = apply_model(x, drop["vat"], False)
-                return o1, o2
-            vat = vat_loss_2d(vat_apply, uimg_ab, soft1, soft2, diff_mask,
-                              d0=draws["vat_d"], xi=semi.noise_mag,
-                              epi=semi.adv_epi, losstype=semi.adv_losstype)
+        with span("chap.step.dropout"):
+            if semi.dropout:
+                fp1, fp2, f_stats = apply_model(
+                    uimg_ab, drop["fp"], True, dropout_level=DROPOUT_LEVELS,
+                    scores=list(state.sim_scores), comp_dropout=semi.comp_drop,
+                    perturb_draws=draws["perturb"], clean_rows=n_a)
+                fp_loss = cross_entropy(fp1, pseudo2) + cross_entropy(fp2, pseudo1)
+                pass_stats.append(f_stats)
+        with span("chap.step.vat"):
+            if semi.adv_noise:
+                def vat_apply(x):
+                    o1, o2, _ = apply_model(x, drop["vat"], False)
+                    return o1, o2
+                vat = vat_loss_2d(vat_apply, uimg_ab, soft1, soft2, diff_mask,
+                                  d0=draws["vat_d"], xi=semi.noise_mag,
+                                  epi=semi.adv_epi, losstype=semi.adv_losstype)
         total = bcp_loss + consistency_weight * (
             semi.w_drop * fp_loss + semi.w_adv * vat)
 
         # ---- GradSim: labeled / unlabeled gradients of the level weights ----
-        sim_scores = list(state.sim_scores)
-        if semi.dropout and state.step % every == 0:
-            grads_l = torch.autograd.grad(loss_l, weights, retain_graph=True)
-            grads_u = torch.autograd.grad(loss_u, weights, retain_graph=True)
-            # this rank's parts of the global batch's gradients, summed
-            grads = dist.sum_tensors(grads_l + grads_u)
-            grads_l, grads_u = grads[:len(weights)], grads[len(weights):]
-            # decay**every keeps the reference's averaging horizon
-            sim_scores = update_grad_sim(sim_scores, grads_l, grads_u,
-                                         decay=0.9 ** every)
+        with span("chap.step.gradsim"):
+            sim_scores = list(state.sim_scores)
+            if semi.dropout and state.step % every == 0:
+                grads_l = torch.autograd.grad(loss_l, weights, retain_graph=True)
+                grads_u = torch.autograd.grad(loss_u, weights, retain_graph=True)
+                # this rank's parts of the global batch's gradients, summed
+                grads = dist.sum_tensors(grads_l + grads_u)
+                grads_l, grads_u = grads[:len(weights)], grads[len(weights):]
+                # decay**every keeps the reference's averaging horizon
+                sim_scores = update_grad_sim(sim_scores, grads_l, grads_u,
+                                             decay=0.9 ** every)
 
         # ---- SGD update ------------------------------------------------------
-        optimizer.zero_grad(set_to_none=True)
-        total.backward()
-        dist.all_reduce_grads(model.parameters())
-        for group in optimizer.param_groups:
-            group["lr"] = lr_schedule(state.step)
-        optimizer.step()
+        with span("chap.step.backward"):
+            optimizer.zero_grad(set_to_none=True)
+            total.backward()
+            dist.all_reduce_grads(model.parameters())
+        with span("chap.step.update"):
+            for group in optimizer.param_groups:
+                group["lr"] = lr_schedule(state.step)
+            optimizer.step()
 
-        # ---- BN running stats: bs0 -> teacher -> student [-> fp] -------------
-        fold_batch_stats(model, pass_stats)
+            # ---- BN running stats: bs0 -> teacher -> student [-> fp] ---------
+            fold_batch_stats(model, pass_stats)
 
-        state.step += 1
-        state.sim_scores = sim_scores
+            state.step += 1
+            state.sim_scores = sim_scores
         metrics = {
             "loss": total.detach(),
             "bcp_loss": bcp_loss.detach(),

@@ -33,6 +33,7 @@ from chap_tpu_torch.parallel import dist
 from chap_tpu_torch.train.state import TrainState, fold_batch_stats, make_lr_schedule
 from chap_tpu_torch.train.step_chap import (StepOutput, dropout_draws,
                                             uniform_sampler)
+from chap_tpu_torch.utils.spans import span
 
 
 def check_rank_rows(image: torch.Tensor, cfg: Config, world: int) -> None:
@@ -88,38 +89,46 @@ def build_supervised_train_step(model: torch.nn.Module,
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
              generator: Optional[torch.Generator] = None,
              draws: Optional[Dict[str, object]] = None) -> StepOutput:
+        with span("chap.step"):
+            return run_step(state, batch, generator, draws)
+
+    def run_step(state, batch, generator, draws) -> StepOutput:
         if state.model is not model or state.optimizer is not optimizer:
             raise ValueError("state holds another model or optimizer than "
                              "the step was built for")
         image = batch["image"]
         label = batch["label"].to(torch.int32)
         check_rank_rows(image, cfg, world)
-        if draws is None:
-            rows = image.shape[0] if world == 1 else cfg.data.batch_size
-            shape = (rows,) + tuple(image.shape[1:])
-            draws = (draw_supervised_uniforms(cfg, shape, generator, image.device)
-                     if dual else draw_model_uniforms(model, shape, generator,
-                                                      image.device))
-        drop_u = [dist.shard_rows(u) for u in draws["drop"]]
-        model.train()
-        stats: Dict = {}
-        out = model(image, drop_u=drop_u, stats=stats)
-        if not dual and isinstance(out, tuple):
-            # chap_tpu's step hands the tuple to its loss and fails
-            raise ValueError(
-                f"{type(model).__name__}'s train-mode pass returns "
-                f"{len(out)} outputs; the supervised step trains the "
-                f"dual-decoder model or a model of one output")
-        loss = sum(dice_ce_supervised(o, label, num_classes)
-                   for o in (out if dual else (out,)))
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        dist.all_reduce_grads(model.parameters())
-        for group in optimizer.param_groups:
-            group["lr"] = lr_schedule(state.step)
-        optimizer.step()
-        fold_batch_stats(model, [stats])
-        state.step += 1
+        with span("chap.step.draws"):
+            if draws is None:
+                rows = image.shape[0] if world == 1 else cfg.data.batch_size
+                shape = (rows,) + tuple(image.shape[1:])
+                draws = (draw_supervised_uniforms(cfg, shape, generator, image.device)
+                         if dual else draw_model_uniforms(model, shape, generator,
+                                                          image.device))
+            drop_u = [dist.shard_rows(u) for u in draws["drop"]]
+        with span("chap.step.forward"):
+            model.train()
+            stats: Dict = {}
+            out = model(image, drop_u=drop_u, stats=stats)
+            if not dual and isinstance(out, tuple):
+                # chap_tpu's step hands the tuple to its loss and fails
+                raise ValueError(
+                    f"{type(model).__name__}'s train-mode pass returns "
+                    f"{len(out)} outputs; the supervised step trains the "
+                    f"dual-decoder model or a model of one output")
+            loss = sum(dice_ce_supervised(o, label, num_classes)
+                       for o in (out if dual else (out,)))
+        with span("chap.step.backward"):
+            optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            dist.all_reduce_grads(model.parameters())
+        with span("chap.step.update"):
+            for group in optimizer.param_groups:
+                group["lr"] = lr_schedule(state.step)
+            optimizer.step()
+            fold_batch_stats(model, [stats])
+            state.step += 1
         return StepOutput(state, {"loss": loss.detach()})
 
     return step

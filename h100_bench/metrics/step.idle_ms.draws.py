@@ -1,0 +1,10 @@
+"""Device idle ms a step of the window while the host was in the step's
+``chap.step.draws`` phase (its draws (draw_step_uniforms when the step
+draws, shard_step_draws)); program_trace.idle_ms says how it is scaled."""
+from h100_bench.program_trace import idle_ms, install
+
+install()
+
+
+def read(m):
+    return idle_ms(m, "chap.step.draws")

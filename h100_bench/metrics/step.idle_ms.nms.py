@@ -1,0 +1,10 @@
+"""Device idle ms a step of the window while the host was in the step's
+``chap.step.nms`` phase (the pseudo-labels' largest-CC cleanup (K2));
+program_trace.idle_ms says how it is scaled."""
+from h100_bench.program_trace import idle_ms, install
+
+install()
+
+
+def read(m):
+    return idle_ms(m, "chap.step.nms")

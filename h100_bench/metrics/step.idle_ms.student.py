@@ -1,0 +1,10 @@
+"""Device idle ms a step of the window while the host was in the step's
+``chap.step.student`` phase (BCP mixing, the VAT gate, the student pass
+and the four mix losses); program_trace.idle_ms says how it is scaled."""
+from h100_bench.program_trace import idle_ms, install
+
+install()
+
+
+def read(m):
+    return idle_ms(m, "chap.step.student")
